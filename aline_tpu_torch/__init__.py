@@ -1,0 +1,23 @@
+"""ALINE in PyTorch for NVIDIA Hopper: a port of ``aline_tpu``.
+
+The package mirrors ``aline_tpu``'s module layout and names, so each
+module's counterpart is found under the same path.  It imports ``torch``
+and numpy only, never JAX or ``aline_tpu``; ``aline_tpu`` stays the
+reference that the tests hold this package against.
+
+Ported so far (amortized GP active-learning inference):
+
+- ``aline_tpu_torch.config``        run-config dataclasses and JSON loader
+- ``aline_tpu_torch.ops``           role masks, compact attention, and the
+                                    fused GMM-head forward CUDA kernel
+- ``aline_tpu_torch.distributions`` GMM log-density, mean, variance
+- ``aline_tpu_torch.tasks``         the GP task and the static-shape Batch
+- ``aline_tpu_torch.models``        embedder / encoder / heads / Aline
+- ``aline_tpu_torch.eval``          AL curves and posterior metrics
+- ``aline_tpu_torch.utils``         device selection, flax-param loading
+- ``python -m aline_tpu_torch.eval_al``  the evaluation entry point
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
