@@ -1,17 +1,20 @@
 """Run configuration: the dataclasses a run's ``config.json`` holds.
 
 A copy of the fields of ``aline_tpu/config.py`` (same names and defaults,
-so a run directory written by the JAX trainer loads unchanged) and of the
-JSON loader in ``aline_tpu/utils/serialization.py``.  The CLI override
-machinery of the JAX package belongs to training and is not ported yet.
+so a run directory written by the JAX trainer loads unchanged), of its
+hydra-style ``key=value`` override parser and GP task presets, and of the
+JSON reader and writer in ``aline_tpu/utils/serialization.py``.
 """
 from __future__ import annotations
 
+import ast
+import copy
 import dataclasses
 import json
 import os
+import re
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -65,6 +68,12 @@ class EvalConfig:
     err_type: str = "se"
 
 
+EVAL_PRESETS = {
+    "default": EvalConfig(),
+    "bed": EvalConfig(EIG=True),
+}
+
+
 @dataclass
 class TaskConfig:
     """Base task config (``aline_tpu/config.py`` TaskConfig)."""
@@ -98,6 +107,33 @@ class GPTaskConfig(TaskConfig):
     data_gen: str = "uniform"
 
 
+def _task_presets():
+    """The GP presets of ``aline_tpu/config.py`` (the reference's
+    config/task/al_*.yaml values)."""
+    return {
+        "al_data": GPTaskConfig(
+            name="AL_data", dim_x=1, embedding_type="data",
+            mask_type=["all"], n_context_init=1, n_query_init=200,
+            n_target_data=100, n_target_theta=0,
+            design_scale=5.0, noise_scale=0.01),
+        "al_mix": GPTaskConfig(
+            name="AL_mix", dim_x=2, embedding_type="mix",
+            mask_type=["split"], n_context_init=1, n_query_init=200,
+            n_target_data=100, n_target_theta=3,
+            design_scale=5.0, noise_scale=0.01),
+        "al_theta": GPTaskConfig(
+            name="AL_theta", dim_x=1, embedding_type="theta",
+            mask_type=["all"], n_context_init=1, n_query_init=200,
+            n_target_data=0, n_target_theta=2,
+            design_scale=5.0, noise_scale=0.01),
+    }
+
+
+# presets of aline_tpu/config.py whose tasks the port has not yet
+_UNPORTED_TASK_PRESETS = ("benchmark", "ces", "hpo", "location_finding",
+                          "psychometric")
+
+
 @dataclass
 class Config:
     """Root run config (``aline_tpu/config.py`` Config)."""
@@ -126,8 +162,12 @@ class Config:
     output_dir: str = "./outputs"
     file_name: str = "aline.pth"
     mesh_data: int = 0
+    # recompute each rollout step's activations in the backward pass
+    # (torch.utils.checkpoint per step)
     rollout_remat: bool = True
+    # "full" only; "dots" (save matmul outputs) is not ported yet
     remat_policy: str = "full"
+    # lax.scan's unroll factor: no meaning outside XLA, not read here
     rollout_unroll: int = 1
     static_mask_keys: bool = True
     static_mask_keys_max: int = 4
@@ -135,7 +175,7 @@ class Config:
     debug_nans: bool = False
     profile_dir: Optional[str] = None
     profile_epochs: int = 3
-    task: TaskConfig = field(default_factory=GPTaskConfig)
+    task: TaskConfig = field(default_factory=lambda: _task_presets()["al_mix"])
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     embedder: EmbedderConfig = field(default_factory=EmbedderConfig)
     head: HeadConfig = field(default_factory=HeadConfig)
@@ -170,3 +210,114 @@ def config_from_dict(d: dict) -> Config:
 def load_config(run_dir: str) -> Config:
     with open(os.path.join(run_dir, "config.json")) as f:
         return config_from_dict(json.load(f))
+
+
+def save_config(cfg: Config, output_dir: str) -> str:
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2, default=str)
+    return path
+
+
+# -- CLI overrides ------------------------------------------------------------
+
+def _coerce(value_str: str, current: Any):
+    """Coerce a CLI string to the type of ``current`` (the existing value)."""
+    s = value_str.strip()
+    if s.lower() in ("null", "none"):
+        return None
+    if isinstance(current, bool):
+        if s.lower() in ("true", "1", "yes"):
+            return True
+        if s.lower() in ("false", "0", "no"):
+            return False
+        raise ValueError(f"cannot parse bool from {s!r}")
+    if isinstance(current, int) and not isinstance(current, bool):
+        return int(float(s))
+    if isinstance(current, float):
+        return float(s)
+    if isinstance(current, (list, tuple)) or current is None:
+        # python or JSON text, e.g. [split] or [[false,true],[true,false]]
+        try:
+            normalized = re.sub(
+                r"\b(true|false|null)\b",
+                lambda m: {"true": "True", "false": "False",
+                           "null": "None"}[m.group(0)], s)
+            return ast.literal_eval(normalized)
+        except (ValueError, SyntaxError):
+            # bare comma-separated or single token: strings
+            if s.startswith("[") and s.endswith("]"):
+                inner = s[1:-1].strip()
+                if not inner:
+                    return []
+                return [tok.strip().strip("'\"")
+                        for tok in inner.split(",")]
+            return s
+    return s
+
+
+def _set_dotted(cfg: Any, dotted: str, value_str: str) -> None:
+    parts = dotted.split(".")
+    obj = cfg
+    for p in parts[:-1]:
+        if not hasattr(obj, p):
+            raise KeyError(f"unknown config group {p!r} in {dotted!r}")
+        obj = getattr(obj, p)
+    leaf = parts[-1]
+    if not dataclasses.is_dataclass(obj) or not hasattr(obj, leaf):
+        raise KeyError(f"unknown config key {dotted!r}")
+    setattr(obj, leaf, _coerce(value_str, getattr(obj, leaf)))
+
+
+def parse_overrides(argv: Sequence[str],
+                    base: Optional[Config] = None) -> Config:
+    """A Config from hydra-style ``key=value`` overrides, as
+    ``aline_tpu.config.parse_overrides`` builds it: group selections
+    (``task=``, ``eval=``) first, then the dotted keys, then
+    ``min_T <= T``."""
+    cfg = copy.deepcopy(base) if base is not None else Config()
+    dotted: List[Tuple[str, str]] = []
+    for arg in argv:
+        if "=" not in arg:
+            raise ValueError(f"override {arg!r} is not of the form key=value")
+        key, _, val = arg.partition("=")
+        key = key.strip()
+        if key == "task":
+            presets = _task_presets()
+            if val in _UNPORTED_TASK_PRESETS:
+                raise NotImplementedError(
+                    f"task preset {val!r} is not ported yet (ported: "
+                    f"{sorted(presets)})")
+            if val not in presets:
+                raise KeyError(f"unknown task preset {val!r}; available: "
+                               f"{sorted(presets)}")
+            cfg.task = presets[val]
+        elif key == "eval":
+            if val not in EVAL_PRESETS:
+                raise KeyError(f"unknown eval preset {val!r}")
+            cfg.eval = copy.deepcopy(EVAL_PRESETS[val])
+        elif key in ("encoder", "embedder", "head"):
+            pass  # single presets
+        else:
+            dotted.append((key, val))
+    for key, val in dotted:
+        _set_dotted(cfg, key, val)
+    # the reference's rule (train_aline.py:202-203)
+    if cfg.min_T > cfg.T:
+        cfg.min_T = cfg.T
+    return cfg
+
+
+def to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg
+
+
+def to_yaml(cfg: Any) -> str:
+    """Readable dump of the config (indented JSON; no yaml dependency)."""
+    return json.dumps(to_dict(cfg), indent=2, default=str)

@@ -27,11 +27,15 @@ class Aline(nn.Module):
 
     def forward(self, batch: Batch, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                sel_targets: Optional[tuple] = None) -> AlineOutput:
-        """``training`` samples the design with ``generator`` instead of
-        taking the argmax.  ``sel_targets``: static tuple of the target
-        indices where ``batch.target_mask`` is True; the compact path then
-        drops the never-visible target key columns (exact)."""
+                gumbel: Optional[torch.Tensor] = None,
+                sel_targets: Optional[tuple] = None,
+                query_posterior: bool = True) -> AlineOutput:
+        """``training`` samples the design (Gumbel-max with ``gumbel``, or
+        noise drawn from ``generator``) instead of taking the argmax.
+        ``sel_targets``: static tuple of the target indices where
+        ``batch.target_mask`` is True; the compact path then drops the
+        never-visible target key columns (exact).  ``query_posterior``:
+        see ``OutputHead.forward``."""
         tokens = self.embedder(batch)
         roles = build_roles(batch.ctx_mask, tokens.shape[1] - batch.n_points,
                             batch.target_mask)
@@ -50,7 +54,8 @@ class Aline(nn.Module):
                                              batch.ctx_capacity)
             compact = CompactKeys(idx, valid, batch.n_points, sel_targets)
         z = self.encoder(tokens, roles, compact=compact)
-        return self.head(batch, z, training=training, generator=generator)
+        return self.head(batch, z, training=training, generator=generator,
+                         gumbel=gumbel, query_posterior=query_posterior)
 
 
 def build_model(cfg: Config, device) -> Aline:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from aline_tpu_torch.models.init import init_dense_
 from aline_tpu_torch.tasks.base import Batch
 
 
@@ -45,6 +46,7 @@ class Embedder(nn.Module):
                                    device)
         self.y_embedder = MLPEmbed(dim_y, dim_feedforward, dim_embedding,
                                    device)
+        init_dense_(self)
 
     def forward(self, batch: Batch) -> torch.Tensor:
         """[B, N, D] tokens, N = n_points + n_target_data (data/mix)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from aline_tpu_torch.config import EncoderConfig
+from aline_tpu_torch.models.init import init_dense_
 from aline_tpu_torch.ops.attention import (
     CompactKeys,
     compact_attention,
@@ -94,6 +95,7 @@ class Encoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg.dim_embedding, cfg.dim_feedforward, cfg.n_head, device))
+        init_dense_(self)
 
     def forward(self, tokens: torch.Tensor, roles: Roles,
                 compact: Optional[CompactKeys] = None) -> torch.Tensor:

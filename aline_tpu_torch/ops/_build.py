@@ -33,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "gmm_head_fwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+    "gmm_head_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+                     _I),
 }
 
 

@@ -1,11 +1,14 @@
 """Config and model loading (``aline_tpu/utils/serialization.py``).
 
 The parameters of a trained run come from a numpy ``.npz`` of its flax
-parameter tree (written by ``scripts/export_params_npz.py``): keys are the
-``/``-joined flax paths, e.g. ``params/encoder/layer_0/norm1/scale``.
+parameter tree: keys are the ``/``-joined flax paths, e.g.
+``params/encoder/layer_0/norm1/scale``.  ``scripts/export_params_npz.py``
+writes one from a run of the JAX package; ``save_params_npz`` writes one
+from a port model, so both packages' runs load the same way.
 """
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
@@ -61,6 +64,32 @@ def convert_flax_params(flat: Mapping[str, np.ndarray],
             raise ValueError(f"{k}: shape {tuple(t.shape)}, model expects "
                              f"{tuple(want[k].shape)}")
     return out
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`convert_flax_params`: ``{flax key: float32
+    array}`` of ``model``'s parameters (Linear weights transposed back to
+    Dense kernels, LayerNorm weights renamed to scales)."""
+    kinds = {name: type(m) for name, m in model.named_modules()}
+    out = {}
+    for key, t in model.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight" and kinds.get(owner) is nn.Linear:
+            leaf, a = "kernel", a.T
+        elif leaf == "weight" and kinds.get(owner) is nn.LayerNorm:
+            leaf = "scale"
+        parts = ["params"] + (owner.split(".") if owner else []) + [leaf]
+        out["/".join(parts)] = np.ascontiguousarray(a)
+    return out
+
+
+def save_params_npz(path: str, model: nn.Module) -> str:
+    """Write ``model``'s parameters as an npz of the flax layout
+    (readable by :func:`load_model` and ``eval_al --params``)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **export_flax_params(model))
+    return path
 
 
 def load_model(run_dir: str, params_npz, device="cuda"

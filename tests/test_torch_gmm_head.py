@@ -38,7 +38,7 @@ def _inputs(seed, B, T, D, F, C):
 def test_plain_matches_jax_fused_kernel(B, T, D, F, C):
     arrays = _inputs(B * T, B, T, D, F, C)
     want = fused_gmm_head(*map(jnp.asarray, arrays), True)
-    before = ghk.LAUNCHES
+    before = dict(ghk.LAUNCHES)
     got = ghk.gmm_head_fwd(*map(torch.from_numpy, arrays))
     assert ghk.LAUNCHES == before          # CPU tensors launch no kernel
     assert got.shape == (B, T, C, 3)
