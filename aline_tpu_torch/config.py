@@ -25,8 +25,7 @@ class EncoderConfig:
     n_head: int = 4
     dropout: float = 0.0
     num_layers: int = 3
-    # "auto" | "compact" | "naive"; "flash" is not ported yet
-    attention_impl: str = "auto"
+    attention_impl: str = "auto"   # "auto" | "compact" | "flash" | "naive"
     with_time_token: bool = False
     dtype: str = "float32"
 

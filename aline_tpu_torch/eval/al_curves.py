@@ -25,13 +25,17 @@ STRATEGIES = ("aline", "random", "uncertainty")
 def al_rollout_curves(model, batch: Batch, T: int,
                       generator: Optional[torch.Generator] = None,
                       strategy: str = "aline",
-                      target_weights: Optional[torch.Tensor] = None
+                      target_weights: Optional[torch.Tensor] = None,
+                      time_token: bool = False
                       ) -> Dict[str, torch.Tensor]:
     """Strategy rollout with per-step posterior-quality curves.
 
     ``generator`` drives the ``random`` strategy.  ``target_weights``:
     optional [n_target] weights for the targeted log-prob; defaults to
-    the batch's target_mask normalised.
+    the batch's target_mask normalised.  ``time_token``: step t feeds the
+    time scalar (T - t)/T to the model, the eval direction of
+    ``aline_tpu`` (training counts up, t/T); the final forward keeps the
+    last step's.
 
     Returns ``log_prob`` [B, T+1] and ``rmse`` [B, T+1] (step 0 = before
     any acquisition) and ``idx`` [B, T].
@@ -75,7 +79,10 @@ def al_rollout_curves(model, batch: Batch, T: int,
             dim=-1)
 
     lps, rmses, idxs = [], [], []
-    for _ in range(T):
+    for t in range(T):
+        if time_token:
+            b = b.replace(t=(T - torch.full((), t, dtype=torch.float32,
+                                            device=b.t.device)) / T)
         out = model(b, training=False, sel_targets=sel_targets)
         lp, rmse = posterior_metrics(out)
         idx = choose(out, b)

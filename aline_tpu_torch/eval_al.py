@@ -77,7 +77,8 @@ def main(argv=None):
         gen = torch.Generator(device=device).manual_seed(seed)
         batch = apply_mask(task.sample_batch(gen, args.batch_size,
                                              n_query=args.n_query))
-        curves = compare_strategies(model, batch, args.T, gen)
+        curves = compare_strategies(model, batch, args.T, gen,
+                                    time_token=cfg.time_token)
         pre = "" if seed == seeds[0] else f"seed{seed}_"
         for name, out in curves.items():
             lp = out["log_prob"].cpu().numpy()

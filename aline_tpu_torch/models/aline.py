@@ -18,12 +18,11 @@ from aline_tpu_torch.tasks.base import Batch
 
 class Aline(nn.Module):
     def __init__(self, embedder: Embedder, encoder: Encoder,
-                 head: OutputHead, attention_impl: str = "auto"):
+                 head: OutputHead):
         super().__init__()
         self.embedder = embedder
         self.encoder = encoder
         self.head = head
-        self.attention_impl = attention_impl
 
     def forward(self, batch: Batch, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -35,12 +34,14 @@ class Aline(nn.Module):
         ``sel_targets``: static tuple of the target indices where
         ``batch.target_mask`` is True; the compact path then drops the
         never-visible target key columns (exact).  ``query_posterior``:
-        see ``OutputHead.forward``."""
+        see ``OutputHead.forward``.  ``batch.t`` feeds the time token and
+        the design head's time feature, where the config has them."""
         tokens = self.embedder(batch)
+        t_off = int(self.encoder.with_time_token)
         roles = build_roles(batch.ctx_mask, tokens.shape[1] - batch.n_points,
-                            batch.target_mask)
+                            batch.target_mask, self.encoder.with_time_token)
         compact = None
-        if (self.attention_impl in ("compact", "auto")
+        if (self.encoder.impl in ("compact", "auto")
                 and batch.ctx_capacity > 0):
             if batch.ctx_idx is not None:
                 # the incrementally kept index buffer: no per-step sort
@@ -48,14 +49,16 @@ class Aline(nn.Module):
                 valid = (torch.arange(batch.ctx_capacity,
                                       device=count.device)[None]
                          < count[:, None])
-                idx = batch.ctx_idx
+                idx = batch.ctx_idx + t_off
             else:
                 idx, valid = context_indices(batch.ctx_mask,
-                                             batch.ctx_capacity)
-            compact = CompactKeys(idx, valid, batch.n_points, sel_targets)
-        z = self.encoder(tokens, roles, compact=compact)
+                                             batch.ctx_capacity, t_off)
+            compact = CompactKeys(idx, valid, batch.n_points, sel_targets,
+                                  t_off)
+        z = self.encoder(tokens, roles, batch.t, compact=compact)
         return self.head(batch, z, training=training, generator=generator,
-                         gumbel=gumbel, query_posterior=query_posterior)
+                         gumbel=gumbel, query_posterior=query_posterior,
+                         time_offset=t_off)
 
 
 def build_model(cfg: Config, device) -> Aline:
@@ -69,8 +72,6 @@ def build_model(cfg: Config, device) -> Aline:
             "continuous, single_head and value heads are not ported yet")
     if cfg.embedder.continuous:
         raise NotImplementedError("the continuous embedder is not ported yet")
-    if cfg.time_token:
-        raise NotImplementedError("the time token is not ported yet")
     if cfg.task.dim_y != 1:
         raise NotImplementedError("the GMM head takes scalar targets")
     enc = cfg.encoder
@@ -82,5 +83,6 @@ def build_model(cfg: Config, device) -> Aline:
                         else 0),
         embedding_type=cfg.task.embedding_type, device=device)
     head = OutputHead(enc.dim_embedding, enc.dim_feedforward,
-                      cfg.head.num_components, cfg.head.std_min, device)
-    return Aline(embedder, Encoder(enc, device), head, enc.attention_impl)
+                      cfg.head.num_components, cfg.head.std_min,
+                      cfg.time_token, device)
+    return Aline(embedder, Encoder(enc, device), head)

@@ -1,8 +1,10 @@
 """Masked set-transformer encoder (``aline_tpu/models/encoder.py``).
 
 A stack of post-norm transformer layers (attn → add → norm → relu-FF →
-add → norm) whose attention obeys the ALINE role mask.  LayerNorm uses
-flax's epsilon, 1e-6.
+add → norm) whose attention obeys the ALINE role mask, through one of
+three cores: compact keys, the flash kernels, or a dense bias (naive).
+An optional global time token, ``time_proj(t)``, leads the sequence.
+LayerNorm uses flax's epsilon, 1e-6.
 """
 from __future__ import annotations
 
@@ -18,15 +20,17 @@ from aline_tpu_torch.ops.attention import (
     compact_attention,
     dense_bias_attention,
 )
-from aline_tpu_torch.ops.roles import Roles, attention_bias
+from aline_tpu_torch.ops.flash_attention import flash_role_attention
+from aline_tpu_torch.ops.roles import Roles, attention_bias, roles_to_codes
 
 LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm's default
 
-ATTENTION_IMPLS = ("auto", "compact", "naive")
+ATTENTION_IMPLS = ("auto", "compact", "flash", "naive")
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """MHA with one q‖k‖v projection and a compact or dense-bias core."""
+    """MHA with one q‖k‖v projection and a compact, flash or dense-bias
+    core, whichever of ``compact``, ``codes`` and ``bias`` it is given."""
 
     def __init__(self, dim_embedding: int, n_head: int, device=None):
         super().__init__()
@@ -38,7 +42,8 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
-                compact: Optional[CompactKeys] = None) -> torch.Tensor:
+                compact: Optional[CompactKeys] = None,
+                codes: Optional[tuple] = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.n_head
 
@@ -48,6 +53,9 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = (heads(t) for t in self.qkv_proj(x).chunk(3, dim=-1))
         if compact is not None:
             out = compact_attention(q, k, v, roles, compact)
+        elif codes is not None:
+            out = flash_role_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), *codes)
         else:
             out = dense_bias_attention(q, k, v, bias)
         return self.out_proj(out.transpose(1, 2).reshape(B, N, D))
@@ -59,8 +67,7 @@ class EncoderLayer(nn.Module):
     def __init__(self, dim_embedding: int, dim_feedforward: int,
                  n_head: int, device=None):
         super().__init__()
-        self.self_attn = MultiHeadSelfAttention(dim_embedding, n_head,
-                                                device)
+        self.self_attn = MultiHeadSelfAttention(dim_embedding, n_head, device)
         self.norm1 = nn.LayerNorm(dim_embedding, eps=LAYER_NORM_EPS,
                                   device=device)
         self.linear1 = nn.Linear(dim_embedding, dim_feedforward,
@@ -72,37 +79,52 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
-                compact: Optional[CompactKeys] = None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, roles, bias, compact))
+                compact: Optional[CompactKeys] = None,
+                codes: Optional[tuple] = None) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn(x, roles, bias, compact, codes))
         return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
 
 
 class Encoder(nn.Module):
     """``num_layers`` EncoderLayers, registered as ``layer_{i}`` like the
-    flax parameter tree."""
+    flax parameter tree, and ``time_proj`` with the time token."""
 
     def __init__(self, cfg: EncoderConfig, device=None):
         super().__init__()
         if cfg.attention_impl not in ATTENTION_IMPLS:
-            raise NotImplementedError(
-                f"attention_impl={cfg.attention_impl!r} is not ported yet "
-                f"(ported: {ATTENTION_IMPLS})")
-        if cfg.with_time_token:
-            raise NotImplementedError("the time token is not ported yet")
+            raise ValueError(f"unknown attention_impl="
+                             f"{cfg.attention_impl!r}; one of "
+                             f"{ATTENTION_IMPLS}")
         # cfg.dropout is not read: inference runs without dropout, as the
         # JAX encoder does with deterministic=True.
         self.num_layers = cfg.num_layers
+        self.impl = cfg.attention_impl
+        self.with_time_token = cfg.with_time_token
+        if cfg.with_time_token:
+            self.time_proj = nn.Linear(1, cfg.dim_embedding, device=device)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg.dim_embedding, cfg.dim_feedforward, cfg.n_head, device))
         init_dense_(self)
 
     def forward(self, tokens: torch.Tensor, roles: Roles,
+                t: Optional[torch.Tensor] = None,
                 compact: Optional[CompactKeys] = None) -> torch.Tensor:
-        """[B, N, D] tokens → [B, N, D] encoded tokens."""
-        bias = attention_bias(roles, tokens.dtype) if compact is None \
-            else None
+        """[B, N, D] tokens (without the time token) and the [] time
+        scalar ``t`` (read with the time token) → [B, N(+1), D] encoded
+        tokens, the time token first.  ``roles`` are sized for the time
+        token."""
+        if self.with_time_token:
+            t_emb = self.time_proj(t.reshape(1, 1).to(tokens.dtype))
+            tokens = torch.cat([t_emb[None].expand(tokens.shape[0], 1, -1),
+                                tokens], dim=1)
+        # the flash kernels make the mask from the role codes: no bias
+        bias = codes = None
+        if compact is None and self.impl == "flash":
+            codes = roles_to_codes(roles)
+        elif compact is None:
+            bias = attention_bias(roles, tokens.dtype)
         x = tokens
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, roles, bias, compact)
+            x = getattr(self, f"layer_{i}")(x, roles, bias, compact, codes)
         return x

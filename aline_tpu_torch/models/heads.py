@@ -42,17 +42,24 @@ class AlineOutput:
 
 
 class AcquisitionHead(nn.Module):
-    """Raw per-candidate design scores [B, n_points] (float32)."""
+    """Raw per-candidate design scores [B, n_points] (float32).  With
+    ``time_token`` the time scalar joins every candidate's features."""
 
     def __init__(self, dim_embedding: int, dim_feedforward: int,
-                 device=None):
+                 time_token: bool = False, device=None):
         super().__init__()
-        self.predictor_fc1 = nn.Linear(dim_embedding, dim_feedforward,
-                                       device=device)
+        self.time_token = time_token
+        self.predictor_fc1 = nn.Linear(dim_embedding + int(time_token),
+                                       dim_feedforward, device=device)
         self.predictor_fc2 = nn.Linear(dim_feedforward, 1, device=device)
         init_dense_(self)
 
-    def forward(self, z_query: torch.Tensor) -> torch.Tensor:
+    def forward(self, z_query: torch.Tensor,
+                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.time_token:
+            B, N, _ = z_query.shape
+            t_feat = t.reshape(1, 1, 1).to(z_query.dtype).expand(B, N, 1)
+            z_query = torch.cat([z_query, t_feat], dim=-1)
         h = torch.relu(self.predictor_fc1(z_query))
         return self.predictor_fc2(h)[..., 0].float()
 
@@ -93,18 +100,21 @@ class OutputHead(nn.Module):
 
     def __init__(self, dim_embedding: int, dim_feedforward: int,
                  num_components: int = 10, std_min: float = 1e-4,
-                 device=None):
+                 time_token: bool = False, device=None):
         super().__init__()
-        self.acquisition_head = AcquisitionHead(dim_embedding,
-                                                dim_feedforward, device)
+        self.acquisition_head = AcquisitionHead(
+            dim_embedding, dim_feedforward, time_token, device)
         self.target_head = GMMTargetHead(dim_embedding, dim_feedforward,
                                          num_components, std_min, device)
 
     def forward(self, batch: Batch, z: torch.Tensor, *, training: bool,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None,
-                query_posterior: bool = True) -> AlineOutput:
-        """``training`` draws the design by Gumbel-max, as
+                query_posterior: bool = True,
+                time_offset: int = 0) -> AlineOutput:
+        """``z`` is the encoder output [B, time? + n_points + n_target, D];
+        ``time_offset`` is 1 when a time token leads it.  ``training``
+        draws the design by Gumbel-max, as
         ``jax.random.categorical`` does: argmax of the logits plus
         ``gumbel`` [B, n_points] standard Gumbel noise, drawn from
         ``generator`` when not given.  Passing the noise in keeps a
@@ -112,8 +122,9 @@ class OutputHead(nn.Module):
         first.  ``query_posterior=False`` skips the pool tokens'
         posterior, which the training loss does not read."""
         n_points = batch.n_points
-        z_points, z_target = z[:, :n_points], z[:, n_points:]
-        scores = self.acquisition_head(z_points)
+        z_points = z[:, time_offset:time_offset + n_points]
+        z_target = z[:, time_offset + n_points:]
+        scores = self.acquisition_head(z_points, batch.t)
         pool = batch.query_mask
         logits = torch.where(pool, scores,
                              torch.full((), NEG_INF, device=scores.device))

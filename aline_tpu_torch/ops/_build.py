@@ -6,8 +6,9 @@ its own shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is
-rebuilt and a built one is reused.  Libraries go to
+The library name carries a hash of the source and of the headers beside
+it (``csrc/*.cuh``), so an edited source is rebuilt and a built one is
+reused.  Libraries go to
 ``aline_tpu_torch/build/`` (git-ignored); ``nvcc``'s output, including
 the registers and shared memory that ``-Xptxas -v`` reports, is kept
 beside each library as ``<name>-<hash>.log``.
@@ -30,11 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel library name → its C entry point's argtypes and restype
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 SIGNATURES = {
     "gmm_head_fwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "gmm_head_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
                      _I),
+    # q, k, v, kcode, qrow, o, lse; B, H, N, Np - N, dh; scale; stream
+    "flash_attn_fwd": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
+    # q, k, v, kcode, qrow, o, lse, do, dq, dk, dv, delta; B, H, N, dh;
+    # scale; stream
+    "flash_attn_bwd": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
 }
 
 
@@ -52,7 +59,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -4,8 +4,9 @@
   ground truth for tests, the ``naive`` path.
 * ``compact_attention``   — every row may attend only to the current
   context points (at most ``ctx_capacity`` of them) and, for query rows,
-  the selected targets.  Keys and values are gathered into that compact
-  set, so the score matrix is [N, Ck + n_target] instead of [N, N].  Exact:
+  the selected targets and the time token.  Keys and values are gathered
+  into that compact set, so the score matrix is [N, Ck + n_target(+1)]
+  instead of [N, N].  Exact:
   a column outside the set is masked for every row, and ``exp(-1e9 - m)``
   is 0 in float32.
 
@@ -22,20 +23,23 @@ from aline_tpu_torch.ops.roles import NEG_INF, Roles
 
 
 class CompactKeys(NamedTuple):
-    """Gather plan over the packed sequence [points | targets]."""
+    """Gather plan over the packed sequence [time? | points | targets]."""
     ctx_idx: torch.Tensor    # [B, Ck] int64 indices of context tokens
     ctx_valid: torch.Tensor  # [B, Ck] bool
     n_points: int
     # Static target-block indices that may be attended this step (the
     # True set of the target mask); None keeps every target column.
     ext_idx: Optional[Tuple[int, ...]] = None
+    time_offset: int = 0     # 1 when a global time token leads the sequence
 
 
-def context_indices(ctx_mask: torch.Tensor, capacity: int
+def context_indices(ctx_mask: torch.Tensor, capacity: int,
+                    time_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Indices of context points in index order, padded to ``capacity``."""
+    """Token indices of the context points in index order, padded to
+    ``capacity``."""
     order = torch.argsort((~ctx_mask).to(torch.int8), dim=1, stable=True)
-    idx = order[:, :capacity]
+    idx = order[:, :capacity] + time_offset
     count = ctx_mask.sum(dim=1)
     valid = (torch.arange(capacity, device=ctx_mask.device)[None]
              < count[:, None])
@@ -57,7 +61,8 @@ def compact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v: [B, H, N, dh] over the full sequence → [B, H, N, dh].
     """
     B, H, N, dh = q.shape
-    tgt_start = compact.n_points
+    t_off = compact.time_offset
+    tgt_start = t_off + compact.n_points
 
     # Context keys by index; slots past the live count point at some
     # token, and the bias below masks them.
@@ -71,6 +76,11 @@ def compact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sel = list(compact.ext_idx)
         k_ext, v_ext = k_ext[:, :, sel], v_ext[:, :, sel]
         ext_cols = ext_cols[:, sel]
+    if t_off:                         # the time column leads the extra keys
+        k_ext = torch.cat([k[:, :, :1], k_ext], dim=2)
+        v_ext = torch.cat([v[:, :, :1], v_ext], dim=2)
+        ext_cols = torch.cat([torch.ones_like(ext_cols[:, :1]), ext_cols],
+                             dim=1)
     K = torch.cat([k_ctx, k_ext], dim=2)                      # [B,H,Nk,dh]
     V = torch.cat([v_ctx, v_ext], dim=2)
 

@@ -51,7 +51,7 @@ def train_step(model, optimizer, scheduler, batch: Batch, T: int,
                w_query: torch.Tensor, w_pred: torch.Tensor, alpha: float,
                gumbel: Optional[torch.Tensor], *, gamma: float,
                clip_grads: bool = True, use_remat: bool = True,
-               sel_targets: Optional[tuple] = None
+               sel_targets: Optional[tuple] = None, time_token: bool = False
                ) -> Dict[str, torch.Tensor]:
     """One update: rollout → loss → backward → inf-norm clip → AdamW.
 
@@ -60,7 +60,8 @@ def train_step(model, optimizer, scheduler, batch: Batch, T: int,
     ``param_norm`` (after the update), as device scalars.
     """
     ro = rollout(model, batch, T, w_query, w_pred, gumbel,
-                 use_remat=use_remat, sel_targets=sel_targets)
+                 time_token=time_token, use_remat=use_remat,
+                 sel_targets=sel_targets)
     loss, m = total_loss(ro, gamma, alpha)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -84,8 +85,6 @@ def check_supported(cfg: Config) -> None:
             cfg.encoder.dropout > 0,
         "eval.EIG=true (the EIG bounds are not ported yet)": cfg.eval.EIG,
         "mesh_data > 1 (the port trains on one device)": cfg.mesh_data > 1,
-        "time_token=true (the time token is not ported yet)":
-            cfg.time_token,
         "remat_policy other than 'full' (not ported yet)":
             cfg.remat_policy != "full",
         "profile_dir (use scripts/profile_torch_train.py)":
@@ -241,7 +240,8 @@ class Trainer:
             torch.from_numpy(w_q).to(self.device),
             torch.from_numpy(w_p).to(self.device), alpha, gumbel,
             gamma=cfg.gamma, clip_grads=cfg.clip_grads,
-            use_remat=cfg.rollout_remat, sel_targets=self._static_sel(mask))
+            use_remat=cfg.rollout_remat, sel_targets=self._static_sel(mask),
+            time_token=cfg.time_token)
         m["T"] = T
         return m
 

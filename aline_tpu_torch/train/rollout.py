@@ -46,23 +46,23 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             (:func:`aline_tpu_torch.ops.target_mask.target_weight_vectors`).
         gumbel: [T, B, n_points] standard Gumbel noise: stochastic designs
             (training); None: greedy argmax designs.
+        time_token: feed step t's time scalar t/T to the model (the
+            training direction; the AL curves use (T - t)/T).
         use_remat: recompute each step's activations in the backward pass.
         sel_targets: static tuple of the attendable target indices (the
             True set of ``batch.target_mask``) for the compact attention;
             None keeps every target column.  Exact either way.
     """
-    if time_token:
-        raise NotImplementedError("the time token is not ported yet")
     if remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={remat_policy!r} is not ported yet (only 'full')")
     target_vals = batch.target_all[..., 0]                   # [B, n_target]
     training = gumbel is not None
 
-    def step(ctx_mask, ctx_idx, noise):
+    def step(ctx_mask, ctx_idx, noise, t):
         # ctx_idx is carried beside ctx_mask: the compact attention reads
         # it, and leaving it out would freeze the attended key set
-        b = batch.replace(ctx_mask=ctx_mask, ctx_idx=ctx_idx)
+        b = batch.replace(ctx_mask=ctx_mask, ctx_idx=ctx_idx, t=t)
         out = model(b, training=training, gumbel=noise,
                     sel_targets=sel_targets, query_posterior=False)
         b2, x_sel, y_sel = select_design(b, out.design_out.idx)
@@ -78,11 +78,14 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
     per_step = []
     for t in range(T):
         noise = gumbel[t] if training else None
+        tt = (torch.full((), t, dtype=torch.float32,
+                         device=batch.t.device) / T
+              if time_token else torch.zeros((), device=batch.t.device))
         if use_remat:
-            res = checkpoint(step, ctx_mask, ctx_idx, noise,
+            res = checkpoint(step, ctx_mask, ctx_idx, noise, tt,
                              use_reentrant=False)
         else:
-            res = step(ctx_mask, ctx_idx, noise)
+            res = step(ctx_mask, ctx_idx, noise, tt)
         *ys, ctx_mask, ctx_idx = res
         per_step.append(ys)
     log_probs, nll_q, nll_p, idx, xs, ys = (torch.stack(s)

@@ -19,10 +19,32 @@ Phases, each printing its result lines; any failure exits non-zero:
              pre-activation within rounding of 0 flips the relu mask
              between two summation orders); two calls on the same inputs
              must agree bitwise (no atomics).
+3c. flash kernels — the role-masked flash attention forward and backward
+             against their plain versions at the eval (B=100, H=4, N=2103;
+             compared on its first 8 batch rows, timed at full B), training
+             (B=200, N=303), burning (N=133), ragged (N=37, rows that see no
+             key, a time column) and dh=64 (B=4, H=8, N=2048) shapes:
+             forward ``close()`` at 1e-4, backward ``grads_close()``
+             against the plain version and against autograd through the
+             plain forward (where every row sees a key), bitwise equal over
+             two calls.  Library yardstick: SDPA with the boolean mask, and
+             its autograd backward.  The bound counts the (row, key)
+             pairs that the batch's mask needs (``score_pairs``); the bound
+             over all N² pairs, which the kernels score, stands beside it.
 4. slice   — the flagship GP-AL-1D eval (checkpoints/al1d_200k, weights
              from the committed npz): a B=100, n_query=2000 GP batch and
              the three-strategy T=30 active-learning rollout through
              ``compare_strategies``, with the kernel launch counts.
+4b. flash slice — the same batch through the flagship's params with
+             ``encoder.attention_impl=flash`` (a copy of its config.json
+             under chiprun_out/, through ``load_model``): 279 flash and 186
+             GMM launches, finite curves, aline improves.  Against the
+             compact path on the card: forwards along its aline trajectory
+             within 5e-4, rows that choose alike within 1e-4, and a row
+             that chooses differently does so at a tie (log-probs within
+             1e-3); the compact path on the CPU is held to the same and
+             reported beside flash as the witness of how many rows leave
+             a tie by rounding alone.
 5. parity  — a small batch through the slice on the CPU (plain versions)
              and on the card (kernels): curves within 1e-4, same indices.
 6. train   — the GP-AL-1D training recipe (B=200, n_query_init=200,
@@ -30,18 +52,25 @@ Phases, each printing its result lines; any failure exits non-zero:
              ``Trainer``: 2 burning and 3 main epochs, with the launch
              counts of both kernels per epoch, the warm epoch time,
              rollouts/s and peak device memory.
+6b. flash train — the same recipe with ``encoder.attention_impl=flash``,
+             2 burning and 2 main epochs: per epoch 6T flash forward and 3T
+             flash backward launches beside the GMM counts.
 7. train parity — one optimizer step from the flagship's params on the
              CPU (plain versions) and on the card (kernels): a B=4,
              n_query=16, T=5 batch with a fixed mask and the same Gumbel
              noise; same designs, the losses within 1e-4, the gradients
              within 1e-4 of each element plus 1e-4 of the largest, and the
              updated params within 1e-4 wherever the two devices' gradients
-             agree to 1% (see ``phase_train_parity``).
+             agree to 1% (see ``train_step_parity``).
+7b. flash + time-token step parity — the same check for a fresh model
+             from the seed with ``encoder.with_time_token=true
+             time_token=true encoder.attention_impl=flash``.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
 """
+import copy
 import json
 import math
 import statistics
@@ -50,11 +79,20 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 RUN_DIR = ROOT / "checkpoints" / "al1d_200k"
 OUT_DIR = ROOT / "chiprun_out"
 TOL = 1e-4
+# Phase 4b's fixed limits (their readings are in PERF.md).  Design
+# probabilities and posterior means of the flash and compact paths, on
+# the same inputs: FWD_TOL; the compact path alone moves them by ~1e-4
+# between the CPU and the card.  A design choice whose two candidates'
+# log-probs lie within TIE is a tie at float32 precision: neighbouring
+# pool points of a 1-D domain score almost alike.
+FWD_TOL = 5e-4
+TIE = 1e-3
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -64,6 +102,9 @@ TRAIN_ARGS = ["task=al_mix", "task.dim_x=1", "task.n_target_theta=2",
               "task.n_query_init=200", "batch_size=200", "min_T=30", "T=30",
               "rollout_remat=true", "burning_epoch=2", "max_epoch=5",
               "checkpoint=0", "verbose=1000"]
+FLASH_TRAIN_ARGS = ["encoder.attention_impl=flash", "max_epoch=4"]
+TIME_FLASH_ARGS = ["encoder.attention_impl=flash",
+                   "encoder.with_time_token=true", "time_token=true"]
 
 
 def log(phase, msg):
@@ -259,40 +300,201 @@ def phase_kernels_bwd():
     return rows, worst
 
 
+def _counters():
+    from aline_tpu_torch.ops import flash_attention as fa
+    from aline_tpu_torch.ops import gmm_head_kernel as ghk
+    return ghk.LAUNCHES, fa.LAUNCHES
+
+
 def reset_launches():
-    from aline_tpu_torch.ops import gmm_head_kernel as ghk
-    for name in ghk.LAUNCHES:
-        ghk.LAUNCHES[name] = 0
+    for counter in _counters():
+        for name in counter:
+            counter[name] = 0
 
 
-def phase_slice():
+def launches():
+    """Every kernel's launches since the last reset."""
+    return {name: n for counter in _counters() for name, n in counter.items()}
+
+
+def flash_inputs(B, H, n_points, n_target, dh, with_time, blind, seed):
+    """q, k, v, dO and the role codes of a GP-AL-like batch on the card:
+    about 16 context points, every target selected.  ``blind``: the last
+    batch row has no context and no selected target, so its rows see no
+    key (or only the time column)."""
+    from aline_tpu_torch.ops.roles import build_roles, roles_to_codes
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ctx = torch.rand(B, n_points, generator=g, device="cuda") < 16 / n_points
+    ctx[:, 0] = True
+    tmask = torch.ones(n_target, dtype=torch.bool, device="cuda")
+    if blind:
+        ctx[-1] = False
+        tmask[:] = False
+    kcode, qrow = roles_to_codes(build_roles(ctx, n_target, tmask,
+                                             with_time))
+    N = kcode.shape[1]
+    q, k, v, do = (torch.randn(B, H, N, dh, generator=g, device="cuda")
+                   for _ in range(4))
+    return q, k, v, kcode, qrow, do
+
+
+# label: B, H, n_points, n_target, dh, time token, blind rows
+FLASH_CASES = {
+    "eval": (BATCH, 4, N_QUERY + 1, 102, 8, False, False),
+    "train": (200, 4, 201, 102, 8, False, False),
+    "burning": (200, 4, 31, 102, 8, False, False),
+    "ragged": (3, 2, 30, 6, 8, True, True),
+    "dh64": (4, 8, 2000, 47, 64, True, False),
+}
+CHECK_ROWS = 8            # batch rows compared at the eval shape
+PLAIN_BWD_MAX_BYTES = 2**30   # larger [B, H, N, N] plain backwards: untimed
+
+
+def score_pairs(kcode, qrow):
+    """The (row, key) pairs whose score the role-masked attention needs,
+    summed over the batch rows: each row's allowed keys, and all N keys
+    for a row that sees none (its output and gradients are averages over
+    every column).  Per head."""
+    n_ctx = (kcode == 1).sum(dim=1, keepdim=True)
+    n_extra = (kcode == 2).sum(dim=1, keepdim=True)
+    per_row = n_ctx + (qrow == 1) * n_extra                  # [B, N]
+    return int(torch.where(per_row == 0, kcode.shape[1], per_row).sum())
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def phase_flash_kernels():
+    from aline_tpu_torch.ops import flash_attention as fa
+    rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for seed, (what, case) in enumerate(FLASH_CASES.items()):
+        q, k, v, kcode, qrow, do = flash_inputs(*case, seed=30 + seed)
+        B, H, N, dh = q.shape
+        blind = case[-1]
+        # the check: the first CHECK_ROWS batch rows at the eval shape
+        n = CHECK_ROWS if what == "eval" else B
+        cq, ck, cv, cdo = (t[:n].contiguous() for t in (q, k, v, do))
+        ckc, cqr = kcode[:n].contiguous(), qrow[:n].contiguous()
+        o, lse = fa.flash_attn_fwd(cq, ck, cv, ckc, cqr)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_attn_fwd_plain(cq, ck, cv, ckc, cqr)
+        errs = {}
+        for name, got, ref in (("O", o, ref_o), ("lse", lse, ref_lse)):
+            abs_err, rel_err, ok = close(got, ref)
+            if not ok:
+                raise AssertionError(
+                    f"flash_attn_fwd {name} disagrees with its plain version "
+                    f"at {what} {tuple(q.shape)}: max abs {abs_err:.3e}")
+            errs[name] = abs_err
+        grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+        again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_attn_bwd is not deterministic at "
+                                 f"{what}")
+        refs = {"plain": fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse,
+                                                 cdo)}
+        if not blind:
+            # autograd of the replaced scores gives a row that sees no key
+            # no gradient; the kernels follow the TPU kernel there
+            leaves = [t.clone().requires_grad_() for t in (cq, ck, cv)]
+            out = fa.flash_attn_fwd_plain(*leaves, ckc, cqr)[0]
+            refs["autograd"] = torch.autograd.grad(out, leaves, cdo)
+        for ref_name, ref in refs.items():
+            for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+                err, ok = grads_close(a, r)
+                if not ok:
+                    raise AssertionError(
+                        f"flash_attn_bwd {name} disagrees with {ref_name} "
+                        f"at {what}: max abs {err:.3e}")
+                errs[f"{name} vs {ref_name}"] = err
+        del refs, grads, again, ref_o, ref_lse
+        worst["fwd"] = max(worst["fwd"], errs["O"], errs["lse"])
+        worst["bwd"] = max(worst["bwd"], *(e for name, e in errs.items()
+                                           if name.startswith("d")))
+
+        # timings at full B
+        kc = kcode[:, None, None, :]
+        allowed = (kc == 1) | ((qrow[:, None, :, None] == 1) & (kc == 2))
+        o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+        # the eval shape's backward references would hold several 7 GB
+        # score tensors, and no eval path runs a backward: kernel only
+        small = 4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+                if small else None)
+        rec = dict(shape=[B, H, N, dh], n_checked=n, errors=errs)
+        fwd_bytes = 4 * (4 * B * H * N * dh + B * H * N + 2 * B * N)
+        bwd_bytes = 4 * (8 * B * H * N * dh + B * H * N + 2 * B * N)
+        # the FLOPs this batch's mask needs (4·dh a pair forward, 10·dh
+        # backward), and beside them every pair, as the TPU kernel scores
+        pairs = H * score_pairs(kcode, qrow)
+        dense = B * H * N * N
+        rec["fwd"] = dict(
+            shape=[B, H, N, dh],
+            ms=time_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode, qrow)),
+            plain_ms=time_ms(lambda: fa.flash_attn_fwd_plain(
+                q, k, v, kcode, qrow), reps=3, iters=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed)),
+            dense_bound_ms=bound(4 * dense * dh, fwd_bytes)["bound_ms"],
+            pairs=pairs, dense_pairs=dense,
+            **bound(4 * pairs * dh, fwd_bytes))
+        rec["bwd"] = dict(
+            shape=[B, H, N, dh],
+            ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
+                                                 lse, do)),
+            plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
+                q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
+                if small else None),
+            library_ms=(time_ms(lambda: torch.autograd.grad(
+                sdpa, leaves, do, retain_graph=True)) if small else None),
+            dense_bound_ms=bound(10 * dense * dh, bwd_bytes)["bound_ms"],
+            pairs=pairs, dense_pairs=dense,
+            **bound(10 * pairs * dh, bwd_bytes))
+        rows[what] = rec
+        for part in ("fwd", "bwd"):
+            r = rec[part]
+            plain, lib = ("not timed" if r[key] is None
+                          else f"{r[key]:.4f} ms"
+                          for key in ("plain_ms", "library_ms"))
+            log("kernels", f"flash_attn_{part} {what} B={B} H={H} N={N} "
+                f"dh={dh}: kernel {r['ms']:.4f} ms, plain {plain}, SDPA "
+                f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{pairs / dense:.1%} of the pairs; all pairs "
+                f"{r['dense_bound_ms']:.4f} ms)")
+        log("kernels", f"flash {what}: {n} of {B} batch rows checked, "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + "; backward bitwise repeatable")
+        del q, k, v, do, o, lse, leaves, sdpa, allowed
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def run_slice(tag, cfg, model, batch, gen):
+    """The three-strategy rollout with its launch counts and checks."""
     from aline_tpu_torch.eval.al_curves import compare_strategies
-    from aline_tpu_torch.ops import gmm_head_kernel as ghk
-    from aline_tpu_torch.tasks import build_task
-    from aline_tpu_torch.utils.serialization import (
-        AL1D_200K_PARAMS, load_model)
-
-    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
-    task = build_task(cfg.task)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    batch = task.sample_batch(gen, BATCH, n_query=N_QUERY)
-    torch.cuda.synchronize()
-    sample_s = time.perf_counter() - t0
 
     reset_launches()
     t0 = time.perf_counter()
-    curves = compare_strategies(model, batch, T_STEPS, gen)
+    curves = compare_strategies(model, batch, T_STEPS, gen,
+                                time_token=cfg.time_token)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(ghk.LAUNCHES)
-
-    want = {"gmm_head_fwd": 2 * (T_STEPS + 1) * len(curves),
-            "gmm_head_bwd": 0}
-    if launches != want:
-        raise AssertionError(f"kernel launches in the slice {launches}, "
+    counts = launches()
+    forwards = (T_STEPS + 1) * len(curves)
+    flash = cfg.encoder.attention_impl == "flash"
+    want = {"gmm_head_fwd": 2 * forwards, "gmm_head_bwd": 0,
+            "flash_attn_fwd": cfg.encoder.num_layers * forwards if flash
+            else 0, "flash_attn_bwd": 0}
+    if counts != want:
+        raise AssertionError(f"kernel launches in the {tag} slice {counts}, "
                              f"expected {want}")
-    n_ctx0 = task.n_context_init
+    n_ctx0 = int(batch.ctx_mask[0].sum())
     result = {}
     for name, out in curves.items():
         lp, rm, idx = out["log_prob"], out["rmse"], out["idx"]
@@ -312,15 +514,152 @@ def phase_slice():
         ll0, llT = lp[:, 0].mean().item(), lp[:, -1].mean().item()
         result[name] = dict(ll_step0=ll0, ll_final=llT,
                             rmse_final=rm[:, -1].mean().item())
-        log("slice", f"{name}: mean log_prob step 0 {ll0:.4f}, step "
-            f"{T_STEPS} {llT:.4f}; final rmse {result[name]['rmse_final']:.4f}")
+        log(tag, f"{name}: mean log_prob step 0 {ll0:.4f}, step "
+            f"{T_STEPS} {llT:.4f}; final rmse "
+            f"{result[name]['rmse_final']:.4f}")
     if not result["aline"]["ll_final"] > result["aline"]["ll_step0"]:
-        raise AssertionError("aline's mean log-prob did not improve")
-    log("slice", f"B={BATCH} n_query={N_QUERY} T={T_STEPS}: GP batch "
-        f"{sample_s:.3f} s, three rollouts {wall_s:.3f} s, launches "
-        f"{launches}")
-    return dict(strategies=result, sample_s=sample_s, rollouts_s=wall_s,
-                launches=launches)
+        raise AssertionError(f"{tag}: aline's mean log-prob did not improve")
+    log(tag, f"B={BATCH} n_query={N_QUERY} T={T_STEPS}: three rollouts "
+        f"{wall_s:.3f} s, launches {counts}")
+    return dict(strategies=result, rollouts_s=wall_s, launches=counts), \
+        curves
+
+
+def phase_slice():
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+
+    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    task = build_task(cfg.task)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    batch = task.sample_batch(gen, BATCH, n_query=N_QUERY)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    log("slice", f"GP batch B={BATCH} n_query={N_QUERY}: {sample_s:.3f} s")
+    rec, curves = run_slice("slice", cfg, model, batch, gen)
+    rec["sample_s"] = sample_s
+    return rec, batch, curves
+
+
+def first_change(got, ref):
+    """[B] rows whose choices differ at some step, and the first such
+    step (0 where none)."""
+    diff = got != ref
+    return diff.any(dim=1), diff.int().argmax(dim=1)
+
+
+def phase_flash_slice(batch, compact):
+    """The flagship with attention_impl=flash, through a copy of its run
+    config, on phase 4's batch, against the compact path on the card:
+    every forward along the compact path's aline trajectory (design
+    probabilities, posterior means) within ``FWD_TOL``; the rows whose
+    greedy choices agree throughout within 1e-4; and every row that chose
+    differently doing so at a tie of the compact path's own log-probs
+    (within ``TIE``).  The witness: the compact path itself on the CPU,
+    on the same rows, whose rows that leave the card's trajectory must do
+    so at ties too.  Both final mean log-prob differences are reported: a
+    row that leaves a tie the other way follows another trajectory."""
+    from aline_tpu_torch.eval.al_curves import al_rollout_curves
+    from aline_tpu_torch.tasks.base import init_ctx_idx, select_design
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+
+    run_dir = OUT_DIR / "flash_run"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    run_cfg = json.loads((RUN_DIR / "config.json").read_text())
+    run_cfg["encoder"]["attention_impl"] = "flash"
+    (run_dir / "config.json").write_text(json.dumps(run_cfg, indent=2))
+    cfg, model = load_model(str(run_dir), AL1D_200K_PARAMS, "cuda")
+    if cfg.encoder.attention_impl != "flash":
+        raise AssertionError("the run config did not select flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec, curves = run_slice("flash slice", cfg, model, batch, gen)
+
+    _, model_c = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    _, model_cpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
+    batch_cpu = batch.to("cpu")
+    t0 = time.perf_counter()
+    witness = al_rollout_curves(model_cpu, batch_cpu, T_STEPS,
+                                strategy="aline")
+    witness_s = time.perf_counter() - t0
+    ref = compact["aline"]
+    runs = {"flash": {k: v.cpu() for k, v in curves["aline"].items()},
+            "compact CPU": witness}
+    ref_idx = ref["idx"].cpu()
+    for run in runs.values():
+        run["differs"], run["first"] = first_change(run["idx"], ref_idx)
+        run["gap"] = torch.zeros(BATCH)
+
+    b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T_STEPS,
+                                batch.n_points))
+    rows = torch.arange(BATCH)
+    err = {"flash vs compact": 0.0, "compact CPU vs card": 0.0}
+    with torch.no_grad():
+        for t in range(T_STEPS + 1):
+            out_f, out_c = model(b), model_c(b)
+            out_h = model_cpu(b.to("cpu").replace(
+                **{f: getattr(b, f)[:CHECK_ROWS].cpu() for f in (
+                    "x", "y", "ctx_mask", "target_x", "target_all", "theta",
+                    "ctx_idx")}))
+            for key, a, r in (
+                    ("flash vs compact", out_f, out_c),
+                    ("compact CPU vs card", out_h, out_c)):
+                n = a.design_out.zt.shape[0]
+                for x, y in ((a.design_out.zt, r.design_out.zt),
+                             (a.posterior_out.mixture_means,
+                              r.posterior_out.mixture_means)):
+                    err[key] = max(err[key], (x.cpu() - y[:n].cpu()).abs()
+                                   .max().item())
+            if t == T_STEPS:
+                break
+            # where a row first chose differently: the compact path's
+            # log-prob (card) of its own choice minus that of the other
+            lp = out_c.design_out.zt.clamp_min(1e-30).log().cpu()
+            for run in runs.values():
+                here = run["differs"] & (run["first"] == t)
+                gap = lp[rows, ref_idx[:, t]] - lp[rows, run["idx"][:, t]]
+                run["gap"] = torch.where(here, gap, run["gap"])
+            b, _, _ = select_design(b, ref["idx"][:, t])
+    log("flash slice", f"along the compact path's aline trajectory, design "
+        f"probs and posterior means: flash vs compact (card, {BATCH} rows) "
+        f"within {err['flash vs compact']:.3e}; compact on the CPU vs on "
+        f"the card ({CHECK_ROWS} rows) within "
+        f"{err['compact CPU vs card']:.3e}")
+    summary = {}
+    ref_final = ref["log_prob"][:, -1].mean().item()
+    for name, run in runs.items():
+        same = ~run["differs"]
+        summary[name] = dict(
+            rows_differing=int(run["differs"].sum()),
+            max_tie_gap=run["gap"].max().item(),
+            same_rows_curve_max_abs=(
+                (run["log_prob"] - ref["log_prob"].cpu()).abs()[same].max()
+                .item() if same.any() else 0.0),
+            final_mean_log_prob_diff=abs(
+                run["log_prob"][:, -1].mean().item() - ref_final))
+        r = summary[name]
+        log("flash slice", f"{name} against compact on the card, same "
+            f"batch: {r['rows_differing']} of {BATCH} rows chose "
+            f"differently at some step, largest log-prob gap where they did "
+            f"{r['max_tie_gap']:.3e}; the other rows' curves within "
+            f"{r['same_rows_curve_max_abs']:.3e}; final mean log-prob "
+            f"differs by {r['final_mean_log_prob_diff']:.3e}")
+    log("flash slice", f"compact CPU rollout of the witness: {witness_s:.1f} s")
+    bad = [f"{name}: {key} {r[key]:.3e} above {lim:.0e}"
+           for name, r in summary.items()
+           for key, lim in (("max_tie_gap", TIE),
+                            ("same_rows_curve_max_abs", TOL))
+           if r[key] > lim]
+    if err["flash vs compact"] > FWD_TOL:
+        bad.append(f"forwards differ by {err['flash vs compact']:.3e}, "
+                   f"above {FWD_TOL:.0e}")
+    if bad:
+        raise AssertionError("flash slice: " + "; ".join(bad))
+    rec.update(against_compact=summary, forward_max_abs=err,
+               witness_s=witness_s)
+    return rec
 
 
 def phase_parity():
@@ -353,19 +692,20 @@ def phase_parity():
     return worst
 
 
-def phase_train(smi):
+def phase_train(smi, tag="train", extra=()):
     from aline_tpu_torch.config import parse_overrides
-    from aline_tpu_torch.ops import gmm_head_kernel as ghk
     from aline_tpu_torch.train.loop import Trainer
 
-    out_dir = OUT_DIR / "train_smoke"
-    cfg = parse_overrides(TRAIN_ARGS + [f"output_dir={out_dir}"])
+    out_dir = OUT_DIR / f"{tag.replace(' ', '_')}_smoke"
+    cfg = parse_overrides(TRAIN_ARGS + list(extra)
+                          + [f"output_dir={out_dir}"])
+    flash = cfg.encoder.attention_impl == "flash"
     trainer = Trainer(cfg, device="cuda")
     before = {n: p.detach().clone()
               for n, p in trainer.model.named_parameters()}
     trainer._ensure_phase("burning")
     burning_opt = trainer.optimizer
-    per_epoch, totals = [], {name: 0 for name in ghk.LAUNCHES}
+    per_epoch, totals = [], {name: 0 for name in launches()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for epoch in range(cfg.max_epoch):
@@ -374,23 +714,25 @@ def phase_train(smi):
         m = trainer.train_epoch(epoch)
         m = {k: float(v) for k, v in m.items()}           # sync
         seconds = time.perf_counter() - t0
-        launches = dict(ghk.LAUNCHES)
+        counts = launches()
         T = int(m["T"])
-        want = {"gmm_head_fwd": T * (2 if cfg.rollout_remat else 1),
-                "gmm_head_bwd": T}
-        if launches != want:
-            raise AssertionError(f"epoch {epoch}: launches {launches}, "
+        fwd = T * (2 if cfg.rollout_remat else 1)
+        layers = cfg.encoder.num_layers if flash else 0
+        want = {"gmm_head_fwd": fwd, "gmm_head_bwd": T,
+                "flash_attn_fwd": layers * fwd, "flash_attn_bwd": layers * T}
+        if counts != want:
+            raise AssertionError(f"{tag} epoch {epoch}: launches {counts}, "
                                  f"expected {want} (T={T}, rollout_remat="
                                  f"{cfg.rollout_remat})")
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"epoch {epoch}: non-finite metrics {m}")
         for name in totals:
-            totals[name] += launches[name]
+            totals[name] += counts[name]
         per_epoch.append(dict(epoch=epoch, phase=trainer.phase, s=seconds,
                               **m))
-        log("train", f"epoch {epoch} ({trainer.phase}): {seconds * 1e3:.1f} "
+        log(tag, f"epoch {epoch} ({trainer.phase}): {seconds * 1e3:.1f} "
             f"ms, loss {m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, "
-            f"launches {launches}")
+            f"launches {counts}")
     peak = torch.cuda.max_memory_allocated()
     snapshot = out_dir / "model" / "aline_burning.npz"
     if not snapshot.exists():
@@ -408,26 +750,27 @@ def phase_train(smi):
     warm = [e["s"] for e in per_epoch if e["phase"] == "main"][1:]
     warm_ms = 1e3 * statistics.median(warm)
     rollouts_s = cfg.batch_size / (warm_ms / 1e3)
-    log("train", f"B={cfg.batch_size} n_query={cfg.task.n_query_init} "
-        f"T={cfg.T} f32: warm epoch {warm_ms:.1f} ms, {rollouts_s:.1f} "
+    log(tag, f"B={cfg.batch_size} n_query={cfg.task.n_query_init} "
+        f"T={cfg.T} f32 attention_impl={cfg.encoder.attention_impl}: warm "
+        f"epoch {warm_ms:.1f} ms, {rollouts_s:.1f} "
         f"rollouts/s, peak memory {peak / 2**30:.3f} GiB ({smi})")
     return dict(epochs=per_epoch, warm_ms=warm_ms, rollouts_s=rollouts_s,
                 peak_bytes=peak, launches=totals)
 
 
-def phase_train_parity():
+def train_step_parity(label, cfg, model_cpu, *, time_token=False):
+    """One optimizer step of ``model_cpu`` on the CPU (plain versions)
+    and of a copy on the card (kernels), from the same B=4, n_query=16,
+    T=5 batch with the data mask and the same Gumbel noise."""
     from aline_tpu_torch.models.heads import gumbel_noise
     from aline_tpu_torch.ops.target_mask import target_weight_vectors
     from aline_tpu_torch.tasks import build_task, init_ctx_idx
     from aline_tpu_torch.train.loop import train_step
     from aline_tpu_torch.train.optimizer import build_optimizer
     from aline_tpu_torch.train.rollout import rollout
-    from aline_tpu_torch.utils.serialization import (
-        AL1D_200K_PARAMS, load_model)
 
     T = 5
-    cfg, model_cpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
-    _, model_gpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
     task = build_task(cfg.task)
     gen = torch.Generator().manual_seed(2)
     batch = task.sample_batch(gen, 4, n_query=16)
@@ -438,30 +781,33 @@ def phase_train_parity():
         mask.numpy(), "mix", "split", task.n_target_data,
         task.n_target_theta))
     noise = gumbel_noise((T, batch.batch_size, batch.n_points), gen)
-    sel = tuple(range(task.n_target_data))
+    sel = (tuple(range(task.n_target_data))
+           if cfg.encoder.attention_impl in ("auto", "compact") else None)
     runs, idx = {}, {}
     for name, model, dev in (("cpu", model_cpu, "cpu"),
                              ("gpu", model_gpu, "cuda")):
         with torch.no_grad():
             idx[name] = rollout(model, batch.to(dev), T, w_q.to(dev),
                                 w_p.to(dev), noise.to(dev),
+                                time_token=time_token,
                                 sel_targets=sel).idx.cpu()
         opt, sched = build_optimizer(cfg, model, "main")
         m = train_step(model, opt, sched, batch.to(dev), T, w_q.to(dev),
                        w_p.to(dev), cfg.alpha, noise.to(dev),
-                       gamma=cfg.gamma, sel_targets=sel)
+                       gamma=cfg.gamma, sel_targets=sel,
+                       time_token=time_token)
         runs[name] = (m, {n: p.detach().cpu() for n, p in
                           model.named_parameters()},
                       {n: p.grad.cpu() for n, p in model.named_parameters()})
     (m_c, p_c, g_c), (m_g, p_g, g_g) = runs["cpu"], runs["gpu"]
     if not torch.equal(idx["cpu"], idx["gpu"]):
-        raise AssertionError("train step: CPU and card drew different "
-                             "designs from the same noise")
+        raise AssertionError(f"{label}: CPU and card drew different designs "
+                             f"from the same noise")
     worst = 0.0
     for k in ("loss", "design_loss", "predict_loss"):
         abs_err, _, ok = close(m_g[k].cpu(), m_c[k])
         if not ok:
-            raise AssertionError(f"train step {k}: CPU {m_c[k]:.6f}, card "
+            raise AssertionError(f"{label} {k}: CPU {m_c[k]:.6f}, card "
                                  f"{m_g[k]:.6f}")
         worst = max(worst, abs_err)
     # gradients: within 1e-4 of each element plus 1e-4 of the model's
@@ -471,7 +817,7 @@ def phase_train_parity():
     for n, g in g_c.items():
         err = (g_g[n] - g).abs()
         if not bool((err <= TOL * g.abs() + TOL * scale).all()):
-            raise AssertionError(f"train step: grad of {n} differs between "
+            raise AssertionError(f"{label}: grad of {n} differs between "
                                  f"CPU and card by {err.max():.3e}")
     # updated params: Adam's first step divides each gradient element by
     # its own size, so an element whose CPU-card difference is not small
@@ -486,18 +832,39 @@ def phase_train_parity():
         ok = bool((err[resolved] <= TOL + TOL * p_c[n].abs()[resolved])
                   .all()) and bool((err <= 2 * cfg.lr + TOL).all())
         if not ok:
-            raise AssertionError(f"train step: {n} differs between CPU and "
+            raise AssertionError(f"{label}: {n} differs between CPU and "
                                  f"card by {err.max():.3e}")
         if resolved.any():
             worst = max(worst, err[resolved].max().item())
         resolved_n += int(resolved.sum())
         total_n += resolved.numel()
-    log("train parity", f"one step from the flagship params, B=4 "
-        f"n_query=16 T={T}: loss CPU {float(m_c['loss']):.6f}, card "
-        f"{float(m_g['loss']):.6f}, same designs; grads within tolerance; updated "
-        f"params within {worst:.3e} on the {resolved_n} of {total_n} "
-        f"entries whose gradient the two devices resolve")
+    log(label, f"one step, B=4 n_query=16 T={T}, attention_impl="
+        f"{cfg.encoder.attention_impl}, time token {time_token}: loss CPU "
+        f"{float(m_c['loss']):.6f}, card {float(m_g['loss']):.6f}, same "
+        f"designs; grads within tolerance; updated params within "
+        f"{worst:.3e} on the {resolved_n} of {total_n} entries whose "
+        f"gradient the two devices resolve")
     return worst
+
+
+def phase_train_parity():
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
+    return train_step_parity("train parity", cfg, model)
+
+
+def phase_flash_train_parity():
+    """A fresh model from the seed with the time token, the time feature
+    and the flash attention."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.models.aline import build_model
+    cfg = parse_overrides(TRAIN_ARGS + TIME_FLASH_ARGS)
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(cfg.seed)
+        model = build_model(cfg, "cpu")
+    return train_step_parity("flash time parity", cfg, model,
+                             time_token=True)
 
 
 def main():
@@ -505,35 +872,51 @@ def main():
     build_s = phase_build()
     gmm_rows, gmm_err = phase_kernels()
     bwd_rows, bwd_err = phase_kernels_bwd()
-    slice_rec = phase_slice()
+    flash_rows, flash_err = phase_flash_kernels()
+    slice_rec, batch, curves = phase_slice()
+    flash_slice_rec = phase_flash_slice(batch, curves)
+    del batch, curves
     parity_err = phase_parity()
     train_rec = phase_train(smi)
+    flash_train_rec = phase_train(smi, "flash train", FLASH_TRAIN_ARGS)
     train_parity_err = phase_train_parity()
+    flash_parity_err = phase_flash_train_parity()
 
-    def record(name, line, row, err):
-        by_path = {"eval": slice_rec["launches"][name],
-                   "train": train_rec["launches"][name]}
+    paths = {"eval": slice_rec, "train": train_rec,
+             "flash_eval": flash_slice_rec, "flash_train": flash_train_rec}
+
+    def record(name, replaces, row, err):
+        by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"aline_tpu_torch/csrc/{name}.cu",
-                "replaces": f"aline_tpu/ops/gmm_head_kernel.py:{line}",
-                "launches": sum(by_path.values()),
+                "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "shape": [row["B"],
-                                                          row["T"]]}
+                "library_ms": row["library_ms"],
+                **({"dense_bound_ms": row["dense_bound_ms"]}
+                   if "dense_bound_ms" in row else {}),
+                "shape": row.get("shape", [row.get("B"), row.get("T")])}
 
-    kernels = [record("gmm_head_fwd", 27, gmm_rows["pool"], gmm_err),
-               record("gmm_head_bwd", 41, bwd_rows["train targets"],
-                      bwd_err)]
+    kernels = [
+        record("gmm_head_fwd", "aline_tpu/ops/gmm_head_kernel.py:27",
+               gmm_rows["pool"], gmm_err),
+        record("gmm_head_bwd", "aline_tpu/ops/gmm_head_kernel.py:41",
+               bwd_rows["train targets"], bwd_err),
+        record("flash_attn_fwd", "aline_tpu/ops/flash_attention.py:43",
+               flash_rows["eval"]["fwd"], flash_err["fwd"]),
+        record("flash_attn_bwd", "aline_tpu/ops/flash_attention.py:65",
+               flash_rows["train"]["bwd"], flash_err["bwd"])]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, torch=torch.__version__, build_s=build_s,
-        gmm_head_fwd=gmm_rows, gmm_head_bwd=bwd_rows, slice=slice_rec,
+        gmm_head_fwd=gmm_rows, gmm_head_bwd=bwd_rows, flash=flash_rows,
+        slice=slice_rec, flash_slice=flash_slice_rec,
         parity_max_abs=parity_err, train=train_rec,
-        train_parity_max_abs=train_parity_err, kernels=kernels,
+        flash_train=flash_train_rec, train_parity_max_abs=train_parity_err,
+        flash_train_parity_max_abs=flash_parity_err, kernels=kernels,
         device=device), indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,11 +8,16 @@ npz) through ``compare_strategies`` once to warm up, then once more under
 * the host wall time of the profiled run and the device's busy share
   (the union of kernel intervals over that wall time),
 * the device time summed by kernel name, largest first,
-* the device time of the GMM-head kernel and its share.
+* the device time of the port's kernels (GMM head, flash attention) and
+  their shares.
+
+``--attention-impl flash`` runs the flagship through a copy of its run
+config that selects the flash kernels (written under outputs/).
 
 Usage:
     python scripts/profile_torch_slice.py [--batch-size 100]
-        [--n-query 2000] [--T 30] [--trace chiprun_out/slice_trace.json]
+        [--n-query 2000] [--T 30] [--attention-impl auto|flash]
+        [--trace chiprun_out/slice_trace.json]
 """
 import argparse
 import json
@@ -46,6 +51,8 @@ def main():
     ap.add_argument("--n-query", type=int, default=2000)
     ap.add_argument("--T", type=int, default=30)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--attention-impl", default="auto",
+                    choices=("auto", "compact", "flash", "naive"))
     ap.add_argument("--trace", default=None,
                     help="also write a chrome trace here")
     args = ap.parse_args()
@@ -59,8 +66,17 @@ def main():
         AL1D_200K_PARAMS, load_model)
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg, model = load_model(os.path.join(root, "checkpoints", "al1d_200k"),
-                            AL1D_200K_PARAMS, "cuda")
+    run_dir = os.path.join(root, "checkpoints", "al1d_200k")
+    if args.attention_impl != "auto":
+        with open(os.path.join(run_dir, "config.json")) as f:
+            run_cfg = json.load(f)
+        run_cfg["encoder"]["attention_impl"] = args.attention_impl
+        run_dir = os.path.join(root, "outputs",
+                               f"profile_{args.attention_impl}")
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(run_cfg, f, indent=2)
+    cfg, model = load_model(run_dir, AL1D_200K_PARAMS, "cuda")
     task = build_task(cfg.task)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = task.sample_batch(gen, args.batch_size, n_query=args.n_query)
@@ -90,21 +106,24 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, three "
-          f"strategies: wall {wall_s * 1e3:.1f} ms, device busy "
+    print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, "
+          f"attention_impl={args.attention_impl}, three strategies: wall "
+          f"{wall_s * 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms ({100 * busy / (wall_s * 1e6):.1f}% of "
           f"wall), kernel time summed {device_us / 1e3:.1f} ms")
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, t) in rows[:args.top]:
         print(f"{t / 1e3:9.2f} ms {100 * t / device_us:5.1f}% "
               f"{n:6d}x  {name[:100]}")
-    gmm = sum(t for name, (_, t) in by_name.items()
-              if "gmm_head_fwd" in name)
-    print(f"gmm_head_fwd: {gmm / 1e3:.2f} ms, {100 * gmm / device_us:.1f}% "
-          f"of kernel time")
-    print(json.dumps(dict(card=smi, wall_ms=wall_s * 1e3,
+    ours = {k: sum(t for name, (_, t) in by_name.items() if k in name)
+            for k in ("gmm_head_fwd", "flash_attn_fwd")}
+    for k, t in ours.items():
+        print(f"{k}: {t / 1e3:.2f} ms, {100 * t / device_us:.1f}% of "
+              f"kernel time")
+    print(json.dumps(dict(card=smi, attention_impl=args.attention_impl,
+                          wall_ms=wall_s * 1e3,
                           busy_ms=busy / 1e3, kernel_ms=device_us / 1e3,
-                          gmm_head_fwd_ms=gmm / 1e3,
+                          kernels_ms={k: t / 1e3 for k, t in ours.items()},
                           top=[[n, c, t / 1e3] for n, (c, t) in rows[:10]])))
 
 

@@ -12,13 +12,14 @@ more under ``torch.profiler`` and prints:
   (the union of kernel intervals over that wall time; the profiler slows
   the host, so this share is a lower bound),
 * the device time summed by kernel name, largest first,
-* the device time of the GMM-head kernels (forward and backward) and their
-  share,
+* the device time of the port's kernels (GMM head and flash attention,
+  forward and backward) and their shares,
 * the host operators with the most CPU time of their own.
 
 Usage:
     python scripts/profile_torch_train.py [--batch-size 200] [--T 30]
-        [--warmup 3] [--epochs 3] [--trace train_trace.json]
+        [--warmup 3] [--epochs 3] [--attention-impl auto|flash]
+        [--trace train_trace.json]
 """
 import argparse
 import json
@@ -41,6 +42,8 @@ def main():
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--attention-impl", default="auto",
+                    choices=("auto", "compact", "flash", "naive"))
     ap.add_argument("--out-dir", default="outputs/profile_train")
     ap.add_argument("--trace", default=None,
                     help="also write a chrome trace here")
@@ -57,6 +60,7 @@ def main():
         "task=al_mix", "task.dim_x=1", "task.n_target_theta=2",
         f"task.n_query_init={args.n_query}", f"batch_size={args.batch_size}",
         f"min_T={args.T}", f"T={args.T}", "burning_epoch=0",
+        f"encoder.attention_impl={args.attention_impl}",
         f"max_epoch={n}", "checkpoint=0", "verbose=1000",
         f"output_dir={args.out_dir}"])
     trainer = Trainer(cfg, device="cuda")
@@ -95,8 +99,9 @@ def main():
     print(f"card: {smi}")
     print("unprofiled epochs (ms, the first one cold): "
           + ", ".join(f"{1e3 * t:.1f}" for t in warm))
-    print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, main "
-          f"phase, {args.epochs} epochs: wall {wall_s * 1e3:.1f} ms "
+    print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, "
+          f"attention_impl={args.attention_impl}, main phase, "
+          f"{args.epochs} epochs: wall {wall_s * 1e3:.1f} ms "
           f"({per_epoch_ms:.1f} ms/epoch, "
           f"{args.batch_size / (per_epoch_ms / 1e3):.1f} rollouts/s), "
           f"device busy {busy / 1e3:.1f} ms "
@@ -106,9 +111,11 @@ def main():
     for name, (c, t) in rows[:args.top]:
         print(f"{t / 1e3:9.2f} ms {100 * t / device_us:5.1f}% "
               f"{c:6d}x  {name[:100]}")
-    gmm = {k: sum(t for name, (_, t) in by_name.items() if k in name)
-           for k in ("gmm_head_fwd", "gmm_head_bwd", "sum_partials")}
-    for k, t in gmm.items():
+    ours = {k: sum(t for name, (_, t) in by_name.items() if k in name)
+           for k in ("gmm_head_fwd", "gmm_head_bwd", "sum_partials",
+                     "flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkdv")}
+    for k, t in ours.items():
         print(f"{k}: {t / 1e3:.2f} ms, {100 * t / device_us:.1f}% of "
               f"kernel time")
     # host side: the operators whose own CPU time is largest
@@ -119,11 +126,12 @@ def main():
     for e in cpu_ops:
         print(f"{e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:80]}")
-    print(json.dumps(dict(card=smi, unprofiled_ms=[1e3 * t for t in warm],
+    print(json.dumps(dict(card=smi, attention_impl=args.attention_impl,
+                          unprofiled_ms=[1e3 * t for t in warm],
                           wall_ms=wall_s * 1e3,
                           ms_per_epoch=per_epoch_ms, busy_ms=busy / 1e3,
                           kernel_ms=device_us / 1e3,
-                          gmm_ms={k: t / 1e3 for k, t in gmm.items()},
+                          kernels_ms={k: t / 1e3 for k, t in ours.items()},
                           top=[[nm, c, t / 1e3]
                                for nm, (c, t) in rows[:args.top]],
                           host_top=[[e.key, e.count,

@@ -8,12 +8,15 @@ with the GPU has no JAX, so run them there without the JAX test conftest:
 
 Tolerance rtol = atol = 1e-4: float32 on both sides with TF32 off; only
 the summation order differs (the backward's weight gradients sum every
-row, in per-block partials and then over blocks).
+row, in per-block partials and then over blocks; the flash kernels sum a
+row's softmax online, over key tiles).
 """
 import pytest
 import torch
 
+from aline_tpu_torch.ops import flash_attention as fa
 from aline_tpu_torch.ops import gmm_head_kernel as ghk
+from aline_tpu_torch.ops.roles import build_roles, roles_to_codes
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -161,3 +164,102 @@ def test_gmm_head_backward_kernel_rejects_what_it_does_not_take(cuda):
     shifted.copy_(z)
     with pytest.raises(ValueError, match="aligned"):
         ghk.gmm_head_bwd(shifted, w1, b1, w2, g)
+
+
+# -- role-masked flash attention --------------------------------------------
+
+def _flash_inputs(B, H, n_points, n_target, dh, with_time, blind, seed=0):
+    """q, k, v, kcode, qrow, dO on the card.  ``blind``: the last batch
+    row has no context and no selected target, so its rows see no key
+    (or only the time column)."""
+    g = torch.Generator().manual_seed(seed)
+    ctx = torch.rand(B, n_points, generator=g) < 0.1
+    ctx[:, 0] = True
+    tmask = torch.rand(n_target, generator=g) < 0.5
+    tmask[0] = True
+    if blind:
+        ctx[-1] = False
+        tmask[:] = False
+    codes = roles_to_codes(build_roles(ctx, n_target, tmask, with_time))
+    N = codes[0].shape[1]
+    dense = [torch.randn(B, H, N, dh, generator=g) for _ in range(4)]
+    q, k, v, do = (t.cuda() for t in dense)
+    return q, k, v, codes[0].cuda(), codes[1].cuda(), do
+
+
+FLASH_SHAPES = [
+    # B, H, n_points, n_target, dh, time token, blind rows
+    (8, 4, 2001, 102, 8, False, False),   # the eval slice's N = 2103
+    (16, 4, 201, 102, 8, False, False),   # training, N = 303
+    (16, 4, 31, 102, 8, False, False),    # burning, N = 133
+    (3, 2, 30, 6, 8, True, True),         # N = 37 ragged, blind rows, time
+    (2, 3, 40, 9, 16, True, False),       # dh = 16
+    (2, 2, 300, 11, 32, False, True),     # dh = 32
+    (2, 8, 2000, 47, 64, True, False),    # dh = 64, N = 2048
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_forward_kernel_matches_plain(cuda, shape):
+    q, k, v, kcode, qrow, _ = _flash_inputs(*shape)
+    before = fa.LAUNCHES["flash_attn_fwd"]
+    o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attn_fwd"] == before + 1
+    want_o, want_lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
+    torch.testing.assert_close(o, want_o, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, shape):
+    q, k, v, kcode, qrow, do = _flash_inputs(*shape, seed=1)
+    o, lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
+    before = fa.LAUNCHES["flash_attn_bwd"]
+    got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attn_bwd"] == before + 1
+    want = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_grad_close(a, b, name)
+
+
+def test_flash_backward_kernel_is_deterministic(cuda):
+    q, k, v, kcode, qrow, do = _flash_inputs(16, 4, 201, 102, 8, True, True)
+    o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+    first = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    second = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_runs_both_kernels(cuda):
+    """Where every row sees a key, the kernels' gradient is autograd's
+    through the plain forward."""
+    q, k, v, kcode, qrow, do = _flash_inputs(4, 4, 201, 102, 8, True, False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    fa.flash_role_attention(*leaves, kcode, qrow).backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
+    assert fa.LAUNCHES["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attn_fwd_plain(*ref, kcode, qrow)[0].backward(do)
+    for a, b in zip(leaves, ref):
+        _assert_grad_close(a.grad, b.grad, "autograd")
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, kcode, qrow, do = _flash_inputs(2, 2, 20, 5, 8, False, False)
+    with pytest.raises(TypeError):
+        fa.flash_attn_fwd(q.bfloat16(), k, v, kcode, qrow)
+    with pytest.raises(ValueError, match="dh"):
+        fa.flash_attn_fwd(*_flash_inputs(2, 2, 20, 5, 24, False, False)[:5])
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attn_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
+                          k, v, kcode, qrow)
+    with pytest.raises(ValueError):
+        fa.flash_attn_fwd(q, k, v, kcode.cpu(), qrow)
+    o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+    with pytest.raises(TypeError):
+        fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do.double())

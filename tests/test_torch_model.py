@@ -59,7 +59,7 @@ def test_roles_and_bias_match_jax(seed):
     ctx, tmask = _role_inputs(seed)
     jr = jroles.build_roles(jnp.asarray(ctx), tmask.size, jnp.asarray(tmask))
     tr = troles.build_roles(_t(ctx), tmask.size, _t(tmask))
-    assert not np.asarray(jr.k_is_time).any()    # no time token in the port
+    assert not np.asarray(jr.k_is_time).any()    # no time token here
     for name in troles.Roles._fields:
         np.testing.assert_array_equal(getattr(tr, name).numpy(),
                                       np.asarray(getattr(jr, name)), name)
