@@ -1,6 +1,13 @@
 // Device helpers shared by the role-masked flash-attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu).
 //
+// The kernels walk a plan of the role mask (flash_plan.cu): per batch row,
+// key_perm lists the context keys (code 1), then the keys that only query
+// rows see (code 2), then the invisible ones (code 0), and row_perm the
+// query rows, then the others, each group in index order.  A key's code and
+// a row's kind follow from their position in these lists, so no kernel
+// reads kcode or qrow.
+//
 // A query row (or, in the backward's dK/dV pass, a key column) is owned by
 // a group of G = dh/16 lanes (G = 1 for dh <= 16); each lane keeps
 // DPT = dh/G of its dims in registers.  Every kernel computes a score with
@@ -15,7 +22,6 @@
 namespace flash {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 64;        // keys (or rows) per shared-memory tile
 constexpr float kNeg = -1e9f;    // the replaced score of a masked pair
 
 template <int DH>
@@ -23,7 +29,98 @@ struct Split {
   static constexpr int DPT = DH < 16 ? DH : 16;  // dims per lane
   static constexpr int G = DH / DPT;             // lanes per row or column
   static constexpr int ROWS = kThreads / G;      // rows or columns per CTA
+  // keys (or rows) per shared-memory stage: two stages of two [TILE, DH]
+  // float arrays stay within 32 KB
+  static constexpr int TILE = DH <= 32 ? 64 : 32;
 };
+
+// The plan of one batch's mask, as flash_plan.cu writes it (device pointers).
+struct Plan {
+  const int* key_perm;   // [B, N]
+  const int* row_perm;   // [B, N]
+  const int* n_ctx;      // [B] keys of code 1
+  const int* n_vis;      // [B] keys of code 1 or 2
+  const int* n_query;    // [B] query rows
+  const int* dense;      // [B] 1 where some row sees no key
+};
+
+// One batch row's plan.  The walk lengths are non-increasing in the
+// position, so a block of positions walks as far as its first one.
+struct PlanRow {
+  const int* key_perm;
+  const int* row_perm;
+  int n_ctx, n_vis, n_query, N;
+  bool dense;
+
+  // the code of the key at position p of key_perm
+  __device__ __forceinline__ int code(int p) const {
+    return p < n_ctx ? 1 : (p < n_vis ? 2 : 0);
+  }
+  // how many keys of key_perm the row at position r of row_perm walks
+  __device__ __forceinline__ int keys_for(int r) const {
+    if (r >= N) return 0;
+    return dense ? N : (r < n_query ? n_vis : n_ctx);
+  }
+  // how many rows of row_perm the key at position p of key_perm walks: a
+  // context key all rows, a code-2 key the query rows, a code-0 key none
+  __device__ __forceinline__ int rows_for(int p) const {
+    if (p >= N) return 0;
+    return dense ? N : (p < n_ctx ? N : (p < n_vis ? n_query : 0));
+  }
+};
+
+__device__ __forceinline__ PlanRow plan_row(const Plan& plan, int b, int N) {
+  PlanRow r;
+  r.key_perm = plan.key_perm + (size_t)b * N;
+  r.row_perm = plan.row_perm + (size_t)b * N;
+  r.n_ctx = plan.n_ctx[b];
+  r.n_vis = plan.n_vis[b];
+  r.n_query = plan.n_query[b];
+  r.N = N;
+  r.dense = plan.dense[b] != 0;
+  return r;
+}
+
+// -- asynchronous copies into shared memory (sm_80+) ------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Gather rows perm[p0 .. p0+n) of the [N, DH] arrays a and b (one (b, h)
+// head) into shared memory as [n, DH] each, by 16-byte cp.async copies.
+template <int DH>
+__device__ __forceinline__ void gather_rows(float* sa, float* sb,
+                                            const float* a, const float* b,
+                                            const int* perm, int p0, int n) {
+  constexpr int V4 = DH / 4;
+  for (int t = threadIdx.x; t < n * V4; t += kThreads) {
+    const int s = t / V4, c = t - s * V4;
+    const size_t src = (size_t)perm[p0 + s] * DH + 4 * c;
+    cp_async16(sa + s * DH + 4 * c, a + src);
+    cp_async16(sb + s * DH + 4 * c, b + src);
+  }
+}
+
+// -- the score routine --------------------------------------------------------
 
 template <int G>
 __device__ __forceinline__ float group_sum(float x) {

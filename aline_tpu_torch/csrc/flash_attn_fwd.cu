@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel aline_tpu/ops/flash_attention.py:43
 // (_fwd_kernel, entered through flash_role_attention and _flash_fwd).  For
-// q, k, v [B, H, N, dh] and the role codes kcode, qrow [B, N] (int32) it
-// computes, per (b, h) and query row i,
+// q, k, v [B, H, N, dh] and the role codes kcode, qrow [B, N] it computes,
+// per (b, h) and query row i,
 //
 //     allowed(i, j) = kcode[j] == 1 || (qrow[i] == 1 && kcode[j] == 2)
 //     s_ij = allowed(i, j) ? (q_i . k_j) * scale : -1e9      (replaced)
@@ -14,31 +14,35 @@
 // and have v = 0: they change nothing unless row i sees no key at all, and
 // then the row averages v over Np columns, as the TPU kernel does.
 //
-// What bounds it.  At the eval shape (B=100, H=4, N=2103, dh=8) this
-// kernel scores every pair: 4*B*H*N^2*dh = 57 GFLOP of float32 FMAs (and
-// one exp per score) over 54 MB of inputs and outputs, so the float32 FMA
-// rate outside the tensor cores (67 TFLOP/s on an H100 SXM) bounds it, not
-// memory.  The mask lets through only about 5% of those pairs (the query
-// pool is invisible to every row), so the work the function needs is
-// about 3 GFLOP: skipping the key tiles that kcode masks is the lever.
+// Only the pairs the mask allows are scored.  The kernel walks the mask's
+// plan (flash_plan.cu): a query row the first n_vis keys of key_perm (codes
+// 1 and 2), any other row the first n_ctx (code 1).  A masked score is
+// replaced by -1e9, so for a row that sees some key each skipped column
+// adds exp(-1e9 - m) = 0 in float32: skipping changes only the order of the
+// sums.  In a batch row where some row sees no key (plan.dense) every row
+// walks all N keys, which keeps the Np average of the TPU kernel.
 //
-// Design (simple and exact first; tensor cores and skipping the key tiles
-// that kcode masks for every row are later work):
-//  * One CTA of 128 threads per (b, h, block of query rows).  A row is
-//    owned by a group of G = dh/16 lanes (G = 1 for dh <= 16); each lane
-//    keeps DPT = dh/G of the row's q and accumulator dims in registers,
-//    and a score is the group's partial dots summed with xor-shuffles.
-//  * K, V and kcode stream through shared memory in tiles of 64 keys, so
-//    any N runs: the TPU kernel keeps all N keys in VMEM and a [bq, N]
-//    score tile (1 MB at N = 2103), which no SM could hold.  All groups of
-//    a warp read the same key row, so shared reads are broadcasts.
+// What bounds it.  At the eval shape (B=100, H=4, N=2103, dh=8) the mask
+// allows 5.4% of the pairs: 4·dh FLOP a pair is 3 GFLOP, 0.045 ms at the
+// 67 TFLOP/s of float32 outside the tensor cores, against 0.034 ms for the
+// 113 MB of q, k, v, O, lse and the codes.  Each pair also takes an exp and the online
+// softmax's compares, so the rate of instructions, and not memory, bounds
+// the kernel.  The design keeps that work per pair small:
+//  * One CTA of 128 threads per (b, h, block of rows), the rows taken in
+//    row_perm order, so a warp's rows share one walk length (query rows
+//    first).  A row is owned by a group of G = dh/16 lanes (G = 1 for
+//    dh <= 16), each with DPT = dh/G of its q and accumulator dims in
+//    registers; a score is the group's partial dots summed by xor-shuffles.
+//  * The keys of key_perm are gathered into a two-stage shared-memory ring
+//    by 16-byte cp.async copies: the next tile is in flight while the
+//    current one is scored.  A key's code follows from its position in
+//    key_perm, so kcode is not read.  All groups of a warp read the same
+//    key row, so shared reads are broadcasts.
 //  * Online softmax in chunks of keys: the chunk's scores stay in
 //    registers, the running max moves once per chunk, and the accumulator
 //    and the row sum are rescaled once per chunk.
-//  * A masked score is replaced by -1e9 (not offset), the output divided
-//    by the row sum and lse = m + log(l), as in the TPU kernel.  The score
-//    comes from masked_score (flash_attn_common.cuh), which the backward's
-//    passes call too.
+//  * The score comes from masked_score (flash_attn_common.cuh), which the
+//    backward's passes call too.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -52,45 +56,51 @@ using namespace flash;
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int* __restrict__ kcode,
-                      const int* __restrict__ qrow, float* __restrict__ o,
-                      float* __restrict__ lse, int H, int N, int n_pad,
-                      float scale, int n_blocks) {
+                      const float* __restrict__ v, const Plan plan,
+                      float* __restrict__ o, float* __restrict__ lse, int H,
+                      int N, int n_pad, float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
-  constexpr int ROWS = Split<DH>::ROWS;
+  constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
   constexpr int kChunk = DH <= 16 ? 16 : 8;
-  __shared__ float4 ks[kTile * DH / 4];
-  __shared__ float4 vs[kTile * DH / 4];
-  __shared__ int cs[kTile];
+  __shared__ __align__(16) float ks[2][TILE * DH];
+  __shared__ __align__(16) float vs[2][TILE * DH];
 
   const int bh = blockIdx.x / n_blocks;
-  const int b = bh / H;
+  const PlanRow pr = plan_row(plan, bh / H, N);
+  const int r0 = (blockIdx.x % n_blocks) * ROWS;   // positions in row_perm
   const int part = threadIdx.x % G;
-  const int i = (blockIdx.x % n_blocks) * ROWS + threadIdx.x / G;
-  const bool live = i < N;
-  const size_t head = (size_t)bh * N * DH;      // (b, h) in q, k, v, o
+  const int r = r0 + threadIdx.x / G;
+  const bool live = r < N;
+  const int i = live ? pr.row_perm[r] : 0;
+  const size_t head = (size_t)bh * N * DH;          // (b, h) in q, k, v, o
+  const float* kh = k + head;
+  const float* vh = v + head;
 
   float qr[DPT], acc[DPT];
   load_dims<DPT / 4>(qr, q + head + (size_t)i * DH + part * DPT, live);
 #pragma unroll
   for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
-  const bool is_query = live && qrow[(size_t)b * N + i] == 1;
+  const bool is_query = r < pr.n_query;
   float m = kNeg, l = 0.f;  // every score is >= -1e9, so m starts there
 
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    const int n = min(kTile, N - j0);           // the same in the whole CTA
-    __syncthreads();                            // the last tile is consumed
-    const float4* k4 = reinterpret_cast<const float4*>(k + head + (size_t)j0 * DH);
-    const float4* v4 = reinterpret_cast<const float4*>(v + head + (size_t)j0 * DH);
-    for (int t = threadIdx.x; t < n * DH / 4; t += kThreads) {
-      ks[t] = k4[t];
-      vs[t] = v4[t];
-    }
-    for (int t = threadIdx.x; t < n; t += kThreads)
-      cs[t] = kcode[(size_t)b * N + j0 + t];
+  // the CTA walks as far as its first row, a warp as far as its own first
+  const int n_keys = pr.keys_for(r0);
+  const int warp_keys = pr.keys_for(r0 + (threadIdx.x / 32) * (32 / G));
+  const int n_tiles = (n_keys + TILE - 1) / TILE;
+  if (n_tiles > 0)
+    gather_rows<DH>(ks[0], vs[0], kh, vh, pr.key_perm, 0, min(TILE, n_keys));
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = t * TILE;
+    if (t + 1 < n_tiles)       // the stage read in step t - 1 is free again
+      gather_rows<DH>(ks[(t + 1) & 1], vs[(t + 1) & 1], kh, vh, pr.key_perm,
+                      j0 + TILE, min(TILE, n_keys - j0 - TILE));
+    cp_async_commit();
+    cp_async_wait<1>();                         // tile t has landed
     __syncthreads();
-
+    const float4* k4 = reinterpret_cast<const float4*>(ks[t & 1]);
+    const float4* v4 = reinterpret_cast<const float4*>(vs[t & 1]);
+    const int n = min(TILE, warp_keys - j0);    // uniform in the warp
     for (int c0 = 0; c0 < n; c0 += kChunk) {
       float s[kChunk];
       float mc = kNeg;
@@ -99,8 +109,8 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[u] = kNeg;
         if (c0 + u < n) {                       // uniform: shuffles are safe
           s[u] = masked_score<DH>(
-              qr, ks + (c0 + u) * (DH / 4) + part * (DPT / 4), scale,
-              cs[c0 + u], is_query);
+              qr, k4 + (c0 + u) * (DH / 4) + part * (DPT / 4), scale,
+              pr.code(j0 + c0 + u), is_query);
           mc = fmaxf(mc, s[u]);
         }
       }
@@ -116,12 +126,13 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = expf(s[u] - m);
           l += p;
           axpy_dims<DPT / 4>(acc, p,
-                             vs + (c0 + u) * (DH / 4) + part * (DPT / 4));
+                             v4 + (c0 + u) * (DH / 4) + part * (DPT / 4));
         }
       }
     }
+    __syncthreads();                            // stage t & 1 is consumed
   }
-  // the padded columns: score -1e9, v = 0
+  // the padded columns: score -1e9, v = 0 (adds 0 unless the row is blind)
   l += (float)n_pad * expf(kNeg - m);
   if (!live) return;
   float4* dst = reinterpret_cast<float4*>(o + head + (size_t)i * DH + part * DPT);
@@ -134,15 +145,14 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* kcode, const int* qrow, float* o, float* lse,
-                   int B, int H, int N, int n_pad, float scale,
-                   cudaStream_t stream) {
+                   const Plan& plan, float* o, float* lse, int B, int H,
+                   int N, int n_pad, float scale, cudaStream_t stream) {
   constexpr int ROWS = Split<DH>::ROWS;
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
   flash_attn_fwd_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
-      q, k, v, kcode, qrow, o, lse, H, N, n_pad, scale, n_blocks);
+      q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
   return cudaGetLastError();
 }
 
@@ -150,26 +160,32 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 // Plain C interface for ctypes.  All pointers are device pointers to
 // contiguous, 16-byte aligned arrays: q, k, v, o [B, H, N, dh] and lse
-// [B, H, N] float32, kcode and qrow [B, N] int32.  n_pad = Np - N.
+// [B, H, N] float32; the plan's key_perm, row_perm [B, N] and n_ctx,
+// n_vis, n_query, dense [B] int32 (flash_plan.cu).  n_pad = Np - N.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              const void* kcode, const void* qrow, void* o,
+                              const void* key_perm, const void* row_perm,
+                              const void* n_ctx, const void* n_vis,
+                              const void* n_query, const void* dense, void* o,
                               void* lse, int B, int H, int N, int n_pad,
                               int dh, float scale, void* stream) {
   if (B <= 0 || H <= 0 || N <= 0) return 0;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
-  const int* kc = static_cast<const int*>(kcode);
-  const int* qr = static_cast<const int*>(qrow);
+  const Plan plan{static_cast<const int*>(key_perm),
+                  static_cast<const int*>(row_perm),
+                  static_cast<const int*>(n_ctx), static_cast<const int*>(n_vis),
+                  static_cast<const int*>(n_query),
+                  static_cast<const int*>(dense)};
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 8: return launch<8>(qf, kf, vf, kc, qr, of, lf, B, H, N, n_pad, scale, s);
-    case 16: return launch<16>(qf, kf, vf, kc, qr, of, lf, B, H, N, n_pad, scale, s);
-    case 32: return launch<32>(qf, kf, vf, kc, qr, of, lf, B, H, N, n_pad, scale, s);
-    case 64: return launch<64>(qf, kf, vf, kc, qr, of, lf, B, H, N, n_pad, scale, s);
+    case 8: return launch<8>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
+    case 16: return launch<16>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
+    case 32: return launch<32>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
+    case 64: return launch<64>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,7 +20,10 @@ from aline_tpu_torch.ops.attention import (
     compact_attention,
     dense_bias_attention,
 )
-from aline_tpu_torch.ops.flash_attention import flash_role_attention
+from aline_tpu_torch.ops.flash_attention import (
+    flash_plan,
+    flash_role_attention,
+)
 from aline_tpu_torch.ops.roles import Roles, attention_bias, roles_to_codes
 
 LAYER_NORM_EPS = 1e-6   # flax.linen.LayerNorm's default
@@ -118,10 +121,12 @@ class Encoder(nn.Module):
             t_emb = self.time_proj(t.reshape(1, 1).to(tokens.dtype))
             tokens = torch.cat([t_emb[None].expand(tokens.shape[0], 1, -1),
                                 tokens], dim=1)
-        # the flash kernels make the mask from the role codes: no bias
+        # the flash kernels make the mask from the role codes and walk the
+        # plan of it, one for every layer and head: no bias
         bias = codes = None
         if compact is None and self.impl == "flash":
-            codes = roles_to_codes(roles)
+            kcode, qrow = roles_to_codes(roles)
+            codes = (kcode, qrow, flash_plan(kcode, qrow))
         elif compact is None:
             bias = attention_bias(roles, tokens.dtype)
         x = tokens

@@ -37,11 +37,15 @@ SIGNATURES = {
     "gmm_head_fwd": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "gmm_head_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
                      _I),
-    # q, k, v, kcode, qrow, o, lse; B, H, N, Np - N, dh; scale; stream
-    "flash_attn_fwd": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
-    # q, k, v, kcode, qrow, o, lse, do, dq, dk, dv, delta; B, H, N, dh;
-    # scale; stream
-    "flash_attn_bwd": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    # kcode, qrow, key_perm, row_perm, n_ctx, n_vis, n_query, dense; B, N;
+    # stream
+    "flash_plan": ([_P] * 8 + [_I] * 2 + [_P], _I),
+    # q, k, v, the plan's six arrays, o, lse; B, H, N, Np - N, dh; scale;
+    # stream
+    "flash_attn_fwd": ([_P] * 11 + [_I] * 5 + [_F, _P], _I),
+    # q, k, v, the plan's six arrays, o, lse, do, dq, dk, dv, delta;
+    # B, H, N, dh; scale; stream
+    "flash_attn_bwd": ([_P] * 16 + [_I] * 4 + [_F, _P], _I),
 }
 
 

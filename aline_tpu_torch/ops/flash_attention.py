@@ -18,6 +18,12 @@ it on the fly instead of reading an [N, N] bias:
 * ``flash_role_attention`` is the differentiable entry: a
   ``torch.autograd.Function`` whose forward is ``flash_attn_fwd`` and
   whose backward is ``flash_attn_bwd``.
+* ``flash_plan`` lists the pairs the mask allows (``FlashPlan``): it
+  launches ``csrc/flash_plan.cu`` on CUDA tensors and runs
+  ``flash_plan_plain`` on CPU tensors.  The kernels walk the plan and score
+  only the allowed pairs; the encoder builds it once per forward, and a
+  wrapper called without one builds its own.  The CPU versions of the
+  attention do not read it.
 
 The semantics are the TPU kernel's, not the dense path's.  The key axis
 is padded to ``Np = ceil(N / bq) * bq`` with ``bq = block_q(N)``; a padded
@@ -33,6 +39,7 @@ other path.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +48,7 @@ from aline_tpu_torch.ops import _build
 
 # Kernel launches since the last reset, by kernel; chip runs read them to
 # show that a path went through the kernels.
-LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
+LAUNCHES = {"flash_plan": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
 
 DH_SUPPORTED = (8, 16, 32, 64)
 NEG = -1e9
@@ -57,6 +64,59 @@ def padded_len(N: int) -> int:
     """Np: N rounded up to a multiple of ``block_q(N)``."""
     bq = block_q(N)
     return -(-N // bq) * bq
+
+
+class FlashPlan(NamedTuple):
+    """The pairs the role mask allows, per batch row, as int32 tensors on
+    the codes' device.  A key's code and a row's kind follow from their
+    position: key_perm[b, p] has code 1 for p < n_ctx, 2 for
+    n_ctx <= p < n_vis, else 0; row_perm[b, r] is a query row for
+    r < n_query."""
+    key_perm: torch.Tensor   # [B, N] codes 1, then 2, then 0, in index order
+    row_perm: torch.Tensor   # [B, N] query rows, then the rest, in order
+    n_ctx: torch.Tensor      # [B] keys of code 1
+    n_vis: torch.Tensor      # [B] keys of code 1 or 2
+    n_query: torch.Tensor    # [B] query rows
+    dense: torch.Tensor      # [B] 1 where some row sees no key: the kernels
+    #                          then walk all N keys and rows of that batch row
+
+
+def flash_plan_plain(kcode, qrow) -> FlashPlan:
+    """The plan by stable argsorts of each key's and row's group."""
+    N = kcode.shape[1]
+    key_group = torch.where(kcode == 1, 0, torch.where(kcode == 2, 1, 2))
+    row_group = (qrow != 1).to(torch.int32)
+
+    def order(group):
+        return torch.argsort(group, dim=1, stable=True).to(torch.int32)
+
+    n_ctx = (kcode == 1).sum(dim=1, dtype=torch.int32)
+    n_vis = n_ctx + (kcode == 2).sum(dim=1, dtype=torch.int32)
+    n_query = (qrow == 1).sum(dim=1, dtype=torch.int32)
+    dense = ((n_ctx == 0) & (n_query < N)) | ((n_vis == 0) & (n_query > 0))
+    return FlashPlan(order(key_group), order(row_group), n_ctx, n_vis,
+                     n_query, dense.to(torch.int32))
+
+
+def flash_plan(kcode, qrow) -> FlashPlan:
+    """The plan of the mask of ``kcode, qrow`` ([B, N] int32): launches
+    ``csrc/flash_plan.cu`` on CUDA tensors (one CTA per batch row, no
+    host synchronisation), ``flash_plan_plain`` on CPU tensors.  The
+    codes are checked here, once per plan: the kernel wrappers that walk
+    it check only its shape and device."""
+    _check_codes(kcode, qrow)
+    dev = kcode.device
+    if dev.type == "cpu" or kcode.numel() == 0:
+        return flash_plan_plain(kcode, qrow)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-plan kernel for device {dev}")
+    B, N = kcode.shape
+    plan = FlashPlan(*(torch.empty(B, N, dtype=torch.int32, device=dev)
+                       for _ in range(2)),
+                     *(torch.empty(B, dtype=torch.int32, device=dev)
+                       for _ in range(4)))
+    _launch("flash_plan", (kcode, qrow, *plan), B, N)
+    return plan
 
 
 def _masked_scores(q, k, kcode, qrow):
@@ -96,26 +156,37 @@ def flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do):
     return dq, dk, dv
 
 
-def _check(q, kcode, qrow, **floats):
-    """Shapes, dtypes, contiguity and device of every argument; ``floats``
-    are the [B, H, N, dh] or [B, H, N] float32 tensors beside q."""
+def _check_codes(kcode, qrow, q=None):
+    """kcode and qrow: contiguous int32 [B, N] tensors on one device, those
+    of q ([B, H, N, dh]) where it is given."""
+    shape = kcode.shape if q is None else (q.shape[0], q.shape[2])
+    device = kcode.device if q is None else q.device
+    for name, t in (("kcode", kcode), ("qrow", qrow)):
+        if t.dim() != 2 or t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"[B, N] = {tuple(shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} is {t.dtype}; the codes are int32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check(q, **floats):
+    """Shape, dtype, contiguity and device of q and of ``floats``, the
+    [B, H, N, dh] or [B, H, N] float32 tensors beside it."""
     if q.dim() != 4:
         raise ValueError(f"q has shape {tuple(q.shape)}, expected "
                          f"[B, H, N, dh]")
-    B, H, N, dh = q.shape
-    named = {"q": (q, (B, H, N, dh), torch.float32),
-             "kcode": (kcode, (B, N), torch.int32),
-             "qrow": (qrow, (B, N), torch.int32)}
-    for name, t in floats.items():
-        shape = (B, H, N) if name == "lse" else (B, H, N, dh)
-        named[name] = (t, shape, torch.float32)
-    for name, (t, shape, dtype) in named.items():
-        if tuple(t.shape) != shape:
+    for name, t in (("q", q), *floats.items()):
+        shape = q.shape[:3] if name == "lse" else q.shape
+        if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if t.dtype != dtype:
+                             f"{tuple(shape)}")
+        if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the flash attention "
-                            f"takes {dtype}")
+                            f"takes float32")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if t.device != q.device:
@@ -135,86 +206,117 @@ def _kernel_device(q) -> bool:
     return True
 
 
-def _launch(name, q, *args):
-    """Launch kernel ``name`` on ``(q, *args)``: tensors pass as device
-    pointers (each 16-byte aligned), numbers as they are."""
-    if any(a.data_ptr() % 16 for a in (q, *args)
-           if isinstance(a, torch.Tensor)):
+def _launch(name, tensors, *numbers):
+    """Launch kernel ``name`` on the device of ``tensors`` (passed as
+    device pointers, each 16-byte aligned), then ``numbers``."""
+    ptrs = [t.data_ptr() for t in tensors]
+    if any(p % 16 for p in ptrs):
         raise ValueError(f"a tensor argument of {name} is not 16-byte "
                          f"aligned")
-    lib = _build.load(name)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in (q, *args)), stream)
+    launch = getattr(_build.load(name), name)
+    device = tensors[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = launch(*ptrs, *numbers, stream)
+    else:                               # the stream's device must be current
+        with torch.cuda.device(device):
+            err = launch(*ptrs, *numbers, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
 
 
-@torch.no_grad()
-def flash_attn_fwd(q, k, v, kcode, qrow):
+def _kernel_plan(q, kcode, qrow, plan):
+    """The plan to launch with.  A given plan is taken as ``flash_plan``
+    built and checked it: only its shape and device are held to q's.  The
+    kernels read the codes through the plan alone."""
+    if plan is None:
+        _check_codes(kcode, qrow, q)
+        return flash_plan(kcode, qrow)
+    if (plan.key_perm.shape != (q.shape[0], q.shape[2])
+            or plan.key_perm.device != q.device):
+        raise ValueError(f"plan.key_perm is {tuple(plan.key_perm.shape)} on "
+                         f"{plan.key_perm.device}; expected [B, N] on "
+                         f"{q.device} like q {tuple(q.shape)}")
+    return plan
+
+
+def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     """Role-masked attention forward.
 
     Args:
         q/k/v: [B, H, N, dh] float32.
         kcode, qrow: [B, N] int32 codes (module docstring).
+        plan: ``flash_plan(kcode, qrow)``, built here if not given.  The
+            kernel reads the mask through the plan alone, so a given plan
+            must be the one of these codes.
     Returns:
         (O [B, H, N, dh], lse [B, H, N]) float32; lse is the row
         logsumexp over the Np padded columns, for the backward.
     """
-    _check(q, kcode, qrow, k=k, v=v)
+    _check(q, k=k, v=v)
     if not _kernel_device(q):
-        return flash_attn_fwd_plain(q, k, v, kcode, qrow)
+        _check_codes(kcode, qrow, q)
+        with torch.no_grad():
+            return flash_attn_fwd_plain(q, k, v, kcode, qrow)
     B, H, N, dh = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse                   # nothing to compute, no launch
-    _launch("flash_attn_fwd", q, k, v, kcode, qrow, o, lse, B, H, N,
+    plan = _kernel_plan(q, kcode, qrow, plan)
+    _launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
             padded_len(N) - N, dh, 1.0 / math.sqrt(dh))
     return o, lse
 
 
-@torch.no_grad()
-def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do):
+def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
+                   plan: Optional[FlashPlan] = None):
     """Gradients of the role-masked attention for ``do = dL/dO``
-    → (dQ, dK, dV), each [B, H, N, dh].  On the card every gradient
-    element is summed by one thread in a fixed order (no atomics): the
-    same inputs give bitwise the same gradients on every call."""
-    _check(q, kcode, qrow, k=k, v=v, o=o, lse=lse, do=do)
+    → (dQ, dK, dV), each [B, H, N, dh].  ``plan`` as for
+    ``flash_attn_fwd``.  On the card every gradient element is summed by
+    one thread group in a fixed order (no atomics): the same inputs give
+    bitwise the same gradients on every call."""
+    _check(q, k=k, v=v, o=o, lse=lse, do=do)
     if not _kernel_device(q):
-        return flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
+        _check_codes(kcode, qrow, q)
+        with torch.no_grad():
+            return flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     B, H, N, dh = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
+    plan = _kernel_plan(q, kcode, qrow, plan)
     delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
-    _launch("flash_attn_bwd", q, k, v, kcode, qrow, o, lse, do, dq, dk, dv,
-            delta, B, H, N, dh, 1.0 / math.sqrt(dh))
+    _launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk, dv,
+                               delta), B, H, N, dh, 1.0 / math.sqrt(dh))
     return dq, dk, dv
 
 
 class _FlashRoleAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kcode, qrow):
-        o, lse = flash_attn_fwd(q, k, v, kcode, qrow)
-        ctx.save_for_backward(q, k, v, kcode, qrow, o, lse)
+    def forward(ctx, q, k, v, kcode, qrow, plan):
+        if plan is None:
+            plan = flash_plan(kcode, qrow)      # one plan for both kernels
+        o, lse = flash_attn_fwd(q, k, v, kcode, qrow, plan)
+        ctx.save_for_backward(q, k, v, kcode, qrow, o, lse, *plan)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kcode, qrow, o, lse = ctx.saved_tensors
+        q, k, v, kcode, qrow, o, lse, *plan = ctx.saved_tensors
         return (*flash_attn_bwd(q, k, v, kcode, qrow, o, lse,
-                                g.contiguous()), None, None)
+                                g.contiguous(), FlashPlan(*plan)),
+                None, None, None)
 
 
-def flash_role_attention(q, k, v, kcode, qrow):
+def flash_role_attention(q, k, v, kcode, qrow,
+                         plan: Optional[FlashPlan] = None):
     """Differentiable role-masked attention: [B, H, N, dh] float32 q/k/v,
-    [B, N] int32 kcode/qrow → O [B, H, N, dh].  Without a gradient to
+    [B, N] int32 kcode/qrow (and their ``flash_plan``, built here if not
+    given) → O [B, H, N, dh].  Without a gradient to
     record it calls the forward alone and saves nothing."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return _FlashRoleAttention.apply(q, k, v, kcode, qrow)
-    return flash_attn_fwd(q, k, v, kcode, qrow)[0]
+        return _FlashRoleAttention.apply(q, k, v, kcode, qrow, plan)
+    return flash_attn_fwd(q, k, v, kcode, qrow, plan)[0]

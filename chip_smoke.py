@@ -18,27 +18,38 @@ Phases, each printing its result lines; any failure exits non-zero:
              pre-activations are exact (``gmm_inputs(grid=True)``: else a
              pre-activation within rounding of 0 flips the relu mask
              between two summation orders); two calls on the same inputs
-             must agree bitwise (no atomics).
-3c. flash kernels — the role-masked flash attention forward and backward
-             against their plain versions at the eval (B=100, H=4, N=2103;
-             compared on its first 8 batch rows, timed at full B), training
-             (B=200, N=303), burning (N=133), ragged (N=37, rows that see no
-             key, a time column) and dh=64 (B=4, H=8, N=2048) shapes:
-             forward ``close()`` at 1e-4, backward ``grads_close()``
+             must agree bitwise (no atomics).  Every kernel's ``ms`` is the
+             eager calls' time, the wrapper's host work included (as the
+             paths call them), with ``device_ms``, the kernel alone from a
+             CUDA graph of the calls, beside it; plain and library times
+             are eager.
+3c. flash kernels — the plan of the role mask (``flash_plan``) bitwise
+             equal to its plain version, and the role-masked flash attention
+             forward and backward, which walk it, against their plain
+             versions at the eval (B=100, H=4, N=2103; compared on its first
+             8 batch rows, timed at full B), late eval (the same with 31
+             scattered context points, the most pairs the eval reaches),
+             training (B=200, N=303), burning (N=133), ragged (N=37, rows
+             that see no key, a time column) and dh=64 (B=4, H=8, N=2048)
+             shapes: forward ``close()`` at 1e-4, backward ``grads_close()``
              against the plain version and against autograd through the
              plain forward (where every row sees a key), bitwise equal over
-             two calls.  Library yardstick: SDPA with the boolean mask, and
-             its autograd backward.  The bound counts the (row, key)
-             pairs that the batch's mask needs (``score_pairs``); the bound
-             over all N² pairs, which the kernels score, stands beside it.
+             two calls.  Times as in phase 3.  Library yardstick:
+             SDPA with the boolean mask, and its autograd backward.  The
+             bound counts the (row, key) pairs that the batch's mask needs
+             (``score_pairs``), the pairs the kernels score; the bound over
+             all N² pairs stands beside it.  Last, a flash forward and
+             backward at the training shape under
+             ``torch.cuda.set_sync_debug_mode("error")``: the plan, the
+             kernels and their wrappers never wait for the host.
 4. slice   — the flagship GP-AL-1D eval (checkpoints/al1d_200k, weights
              from the committed npz): a B=100, n_query=2000 GP batch and
              the three-strategy T=30 active-learning rollout through
              ``compare_strategies``, with the kernel launch counts.
 4b. flash slice — the same batch through the flagship's params with
              ``encoder.attention_impl=flash`` (a copy of its config.json
-             under chiprun_out/, through ``load_model``): 279 flash and 186
-             GMM launches, finite curves, aline improves.  Against the
+             in the output directory, through ``load_model``): 279 flash, 93 plan
+             and 186 GMM launches, finite curves, aline improves.  Against the
              compact path on the card: forwards along its aline trajectory
              within 5e-4, rows that choose alike within 1e-4, and a row
              that chooses differently does so at a tie (log-probs within
@@ -53,8 +64,8 @@ Phases, each printing its result lines; any failure exits non-zero:
              counts of both kernels per epoch, the warm epoch time,
              rollouts/s and peak device memory.
 6b. flash train — the same recipe with ``encoder.attention_impl=flash``,
-             2 burning and 2 main epochs: per epoch 6T flash forward and 3T
-             flash backward launches beside the GMM counts.
+             2 burning and 2 main epochs: per epoch 6T flash forward, 3T
+             flash backward and 2T plan launches beside the GMM counts.
 7. train parity — one optimizer step from the flagship's params on the
              CPU (plain versions) and on the card (kernels): a B=4,
              n_query=16, T=5 batch with a fixed mask and the same Gumbel
@@ -126,6 +137,31 @@ def time_ms(fn, reps=5, iters=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=5, iters=10):
+    """Median over ``reps`` of the mean device time of ``iters`` calls of
+    ``fn``, captured in one CUDA graph and replayed between CUDA events:
+    the kernels' time without the host's launch work."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -212,6 +248,7 @@ def phase_kernels():
         row = dict(
             B=B, T=T, max_abs_err=abs_err, max_rel_err=rel_err,
             ms=time_ms(lambda: ghk.gmm_head_fwd(*args)),
+            device_ms=device_ms(lambda: ghk.gmm_head_fwd(*args)),
             plain_ms=time_ms(lambda: ghk.gmm_head_fwd_plain(*args)),
             # the two-einsum formula, timed as the library yardstick
             library_ms=time_ms(lambda: torch.einsum(
@@ -224,7 +261,8 @@ def phase_kernels():
         rows[what] = row
         log("kernels", f"gmm_head_fwd {what} B={B} T={T}: max abs err "
             f"{abs_err:.3e}, max rel err {rel_err:.3e}; kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, two-einsum "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, two-einsum "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
     return rows, worst
@@ -282,6 +320,7 @@ def phase_kernels_bwd():
         row = dict(
             B=B, T=T, max_abs_err=abs_err, errors=errs,
             ms=time_ms(lambda: ghk.gmm_head_bwd(z, w1, b1, w2, g)),
+            device_ms=device_ms(lambda: ghk.gmm_head_bwd(z, w1, b1, w2, g)),
             plain_ms=time_ms(lambda: ghk.gmm_head_bwd_plain(z, w1, b1, w2,
                                                             g)),
             # the backward of the two-einsum formula by autograd
@@ -294,8 +333,8 @@ def phase_kernels_bwd():
         rows[what] = row
         log("kernels", f"gmm_head_bwd {what} B={B} T={T}: max abs err "
             f"{abs_err:.3e} (vs plain and autograd), bitwise repeatable; "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"autograd {row['library_ms']:.4f} ms, bound "
+            f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
+            f"plain {row['plain_ms']:.4f} ms, autograd {row['library_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows, worst
 
@@ -317,15 +356,24 @@ def launches():
     return {name: n for counter in _counters() for name, n in counter.items()}
 
 
-def flash_inputs(B, H, n_points, n_target, dh, with_time, blind, seed):
+def flash_inputs(B, H, n_points, n_target, dh, with_time, blind, n_ctx,
+                 seed):
     """q, k, v, dO and the role codes of a GP-AL-like batch on the card:
-    about 16 context points, every target selected.  ``blind``: the last
+    every target selected, and about 16 context points (``n_ctx`` None)
+    or ``n_ctx`` of them scattered over the points.  ``blind``: the last
     batch row has no context and no selected target, so its rows see no
     key (or only the time column)."""
     from aline_tpu_torch.ops.roles import build_roles, roles_to_codes
     g = torch.Generator(device="cuda").manual_seed(seed)
-    ctx = torch.rand(B, n_points, generator=g, device="cuda") < 16 / n_points
-    ctx[:, 0] = True
+    if n_ctx is None:
+        ctx = torch.rand(B, n_points, generator=g,
+                         device="cuda") < 16 / n_points
+        ctx[:, 0] = True
+    else:
+        pick = torch.rand(B, n_points, generator=g,
+                          device="cuda").argsort(dim=1)[:, :n_ctx]
+        ctx = torch.zeros(B, n_points, dtype=torch.bool, device="cuda")
+        ctx.scatter_(1, pick, True)
     tmask = torch.ones(n_target, dtype=torch.bool, device="cuda")
     if blind:
         ctx[-1] = False
@@ -338,16 +386,23 @@ def flash_inputs(B, H, n_points, n_target, dh, with_time, blind, seed):
     return q, k, v, kcode, qrow, do
 
 
-# label: B, H, n_points, n_target, dh, time token, blind rows
+# label: B, H, n_points, n_target, dh, time token, blind rows, context
+# points (None: about 16)
 FLASH_CASES = {
-    "eval": (BATCH, 4, N_QUERY + 1, 102, 8, False, False),
-    "train": (200, 4, 201, 102, 8, False, False),
-    "burning": (200, 4, 31, 102, 8, False, False),
-    "ragged": (3, 2, 30, 6, 8, True, True),
-    "dh64": (4, 8, 2000, 47, 64, True, False),
+    "eval": (BATCH, 4, N_QUERY + 1, 102, 8, False, False, None),
+    "train": (200, 4, 201, 102, 8, False, False, None),
+    "burning": (200, 4, 31, 102, 8, False, False, None),
+    "ragged": (3, 2, 30, 6, 8, True, True, None),
+    "dh64": (4, 8, 2000, 47, 64, True, False, None),
+    # step 30 of the eval: 31 context points scattered over the pool
+    "eval_late": (BATCH, 4, N_QUERY + 1, 102, 8, False, False, T_STEPS + 1),
 }
-CHECK_ROWS = 8            # batch rows compared at the eval shape
-PLAIN_BWD_MAX_BYTES = 2**30   # larger [B, H, N, N] plain backwards: untimed
+CHECK_ROWS = 8            # batch rows compared at the eval shapes
+# larger [B, H, N, N] plain and SDPA backwards are not timed, but at the
+# eval shapes (7.1 GB of scores: the few such tensors each holds fit the
+# card's 80 GB)
+PLAIN_BWD_MAX_BYTES = 2**30
+PLAIN_BWD_EVAL = ("eval", "eval_late")
 
 
 def score_pairs(kcode, qrow):
@@ -368,15 +423,41 @@ def bound(flops, nbytes):
                 flops=flops, bytes=nbytes)
 
 
+def phase_flash_plan(kcode, qrow, what):
+    """The plan kernel against its plain version, bitwise; its times."""
+    from aline_tpu_torch.ops import flash_attention as fa
+    plan = fa.flash_plan(kcode, qrow)
+    torch.cuda.synchronize()
+    ref = fa.flash_plan_plain(kcode, qrow)
+    for name, a, r in zip(fa.FlashPlan._fields, plan, ref):
+        if not torch.equal(a, r):
+            raise AssertionError(f"flash_plan {name} differs from its plain "
+                                 f"version at {what}")
+    B, N = kcode.shape
+    # reads kcode and qrow, writes both permutations and four counts
+    rec = dict(shape=[B, N], max_abs_err=0.0, dense_rows=int(plan.dense.sum()),
+               ms=time_ms(lambda: fa.flash_plan(kcode, qrow)),
+               device_ms=device_ms(lambda: fa.flash_plan(kcode, qrow)),
+               plain_ms=time_ms(lambda: fa.flash_plan_plain(kcode, qrow)),
+               library_ms=None,
+               **bound(0, 4 * (4 * B * N + 4 * B)))
+    log("kernels", f"flash_plan {what} B={B} N={N}: bitwise equal to the "
+        f"plain plan ({rec['dense_rows']} dense batch rows); kernel "
+        f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms (bytes)")
+    return plan, rec
+
+
 def phase_flash_kernels():
     from aline_tpu_torch.ops import flash_attention as fa
     rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
     for seed, (what, case) in enumerate(FLASH_CASES.items()):
         q, k, v, kcode, qrow, do = flash_inputs(*case, seed=30 + seed)
         B, H, N, dh = q.shape
-        blind = case[-1]
-        # the check: the first CHECK_ROWS batch rows at the eval shape
-        n = CHECK_ROWS if what == "eval" else B
+        blind = case[6]
+        plan, plan_rec = phase_flash_plan(kcode, qrow, what)
+        # the check: the first CHECK_ROWS batch rows at the eval shapes
+        n = CHECK_ROWS if what in PLAIN_BWD_EVAL else B
         cq, ck, cv, cdo = (t[:n].contiguous() for t in (q, k, v, do))
         ckc, cqr = kcode[:n].contiguous(), qrow[:n].contiguous()
         o, lse = fa.flash_attn_fwd(cq, ck, cv, ckc, cqr)
@@ -417,17 +498,14 @@ def phase_flash_kernels():
         worst["bwd"] = max(worst["bwd"], *(e for name, e in errs.items()
                                            if name.startswith("d")))
 
-        # timings at full B
+        # timings at full B, the kernels with the plan built above
         kc = kcode[:, None, None, :]
         allowed = (kc == 1) | ((qrow[:, None, :, None] == 1) & (kc == 2))
-        o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
-        # the eval shape's backward references would hold several 7 GB
-        # score tensors, and no eval path runs a backward: kernel only
-        small = 4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-                if small else None)
-        rec = dict(shape=[B, H, N, dh], n_checked=n, errors=errs)
+        o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)
+        small = (4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
+                 or what in PLAIN_BWD_EVAL)
+        rec = dict(shape=[B, H, N, dh], n_checked=n, errors=errs,
+                   plan=plan_rec)
         fwd_bytes = 4 * (4 * B * H * N * dh + B * H * N + 2 * B * N)
         bwd_bytes = 4 * (8 * B * H * N * dh + B * H * N + 2 * B * N)
         # the FLOPs this batch's mask needs (4·dh a pair forward, 10·dh
@@ -436,7 +514,9 @@ def phase_flash_kernels():
         dense = B * H * N * N
         rec["fwd"] = dict(
             shape=[B, H, N, dh],
-            ms=time_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode, qrow)),
+            ms=time_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)),
+            device_ms=device_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode,
+                                                          qrow, plan)),
             plain_ms=time_ms(lambda: fa.flash_attn_fwd_plain(
                 q, k, v, kcode, qrow), reps=3, iters=3),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -444,10 +524,16 @@ def phase_flash_kernels():
             dense_bound_ms=bound(4 * dense * dh, fwd_bytes)["bound_ms"],
             pairs=pairs, dense_pairs=dense,
             **bound(4 * pairs * dh, fwd_bytes))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+                if small else None)
         rec["bwd"] = dict(
             shape=[B, H, N, dh],
             ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
-                                                 lse, do)),
+                                                 lse, do, plan)),
+            device_ms=device_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode,
+                                                          qrow, o, lse, do,
+                                                          plan)),
             plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
                 q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
                 if small else None),
@@ -463,16 +549,43 @@ def phase_flash_kernels():
                           else f"{r[key]:.4f} ms"
                           for key in ("plain_ms", "library_ms"))
             log("kernels", f"flash_attn_{part} {what} B={B} H={H} N={N} "
-                f"dh={dh}: kernel {r['ms']:.4f} ms, plain {plain}, SDPA "
-                f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"dh={dh}: kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f}), plain {plain}, SDPA {lib}, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
                 f"{pairs / dense:.1%} of the pairs; all pairs "
                 f"{r['dense_bound_ms']:.4f} ms)")
         log("kernels", f"flash {what}: {n} of {B} batch rows checked, "
             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
             + "; backward bitwise repeatable")
-        del q, k, v, do, o, lse, leaves, sdpa, allowed
+        del q, k, v, do, o, lse, allowed, plan, leaves, sdpa
         torch.cuda.empty_cache()
+    rows["no_sync"] = phase_flash_no_sync()
     return rows, worst
+
+
+def phase_flash_no_sync():
+    """The plan, a flash forward and its backward through the autograd
+    entry at the training shape, with any host synchronisation an
+    error."""
+    from aline_tpu_torch.ops import flash_attention as fa
+    q, k, v, kcode, qrow, do = flash_inputs(*FLASH_CASES["train"], seed=29)
+    torch.cuda.synchronize()
+    reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = fa.flash_plan(kcode, qrow)
+        fa.flash_role_attention(*leaves, kcode, qrow, plan).backward(do)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launches().items() if n.startswith("flash")}
+    if counts != {"flash_plan": 1, "flash_attn_fwd": 1, "flash_attn_bwd": 1}:
+        raise AssertionError(f"no-sync run launched {counts}")
+    log("kernels", f"flash plan, forward and backward at "
+        f"{tuple(q.shape)} under set_sync_debug_mode('error'): no host "
+        f"synchronisation, launches {counts}")
+    return counts
 
 
 def run_slice(tag, cfg, model, batch, gen):
@@ -489,6 +602,7 @@ def run_slice(tag, cfg, model, batch, gen):
     forwards = (T_STEPS + 1) * len(curves)
     flash = cfg.encoder.attention_impl == "flash"
     want = {"gmm_head_fwd": 2 * forwards, "gmm_head_bwd": 0,
+            "flash_plan": forwards if flash else 0,
             "flash_attn_fwd": cfg.encoder.num_layers * forwards if flash
             else 0, "flash_attn_bwd": 0}
     if counts != want:
@@ -719,6 +833,7 @@ def phase_train(smi, tag="train", extra=()):
         fwd = T * (2 if cfg.rollout_remat else 1)
         layers = cfg.encoder.num_layers if flash else 0
         want = {"gmm_head_fwd": fwd, "gmm_head_bwd": T,
+                "flash_plan": fwd if flash else 0,
                 "flash_attn_fwd": layers * fwd, "flash_attn_bwd": layers * T}
         if counts != want:
             raise AssertionError(f"{tag} epoch {epoch}: launches {counts}, "
@@ -885,13 +1000,15 @@ def main():
     paths = {"eval": slice_rec, "train": train_rec,
              "flash_eval": flash_slice_rec, "flash_train": flash_train_rec}
 
-    def record(name, replaces, row, err):
+    def record(name, replaces, row, err, **extra):
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"aline_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": sum(by_path.values()),
+                "replaces": replaces, **extra,
+                "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "ms": row["ms"], "device_ms": row["device_ms"],
+                "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 **({"dense_bound_ms": row["dense_bound_ms"]}
@@ -901,6 +1018,10 @@ def main():
     kernels = [
         record("gmm_head_fwd", "aline_tpu/ops/gmm_head_kernel.py:27",
                gmm_rows["pool"], gmm_err),
+        # no Pallas kernel of its own: it lists the pairs that both flash
+        # kernels walk
+        record("flash_plan", None, flash_rows["eval"]["plan"], 0.0,
+               serves=["flash_attn_fwd", "flash_attn_bwd"]),
         record("gmm_head_bwd", "aline_tpu/ops/gmm_head_kernel.py:41",
                bwd_rows["train targets"], bwd_err),
         record("flash_attn_fwd", "aline_tpu/ops/flash_attention.py:43",

@@ -116,7 +116,7 @@ def main():
         print(f"{t / 1e3:9.2f} ms {100 * t / device_us:5.1f}% "
               f"{n:6d}x  {name[:100]}")
     ours = {k: sum(t for name, (_, t) in by_name.items() if k in name)
-            for k in ("gmm_head_fwd", "flash_attn_fwd")}
+            for k in ("gmm_head_fwd", "flash_plan", "flash_attn_fwd")}
     for k, t in ours.items():
         print(f"{k}: {t / 1e3:.2f} ms, {100 * t / device_us:.1f}% of "
               f"kernel time")

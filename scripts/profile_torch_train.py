@@ -113,7 +113,7 @@ def main():
               f"{c:6d}x  {name[:100]}")
     ours = {k: sum(t for name, (_, t) in by_name.items() if k in name)
            for k in ("gmm_head_fwd", "gmm_head_bwd", "sum_partials",
-                     "flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_plan", "flash_attn_fwd", "flash_attn_bwd_dq",
                      "flash_attn_bwd_dkdv")}
     for k, t in ours.items():
         print(f"{k}: {t / 1e3:.2f} ms, {100 * t / device_us:.1f}% of "

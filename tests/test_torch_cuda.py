@@ -263,3 +263,34 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
     with pytest.raises(TypeError):
         fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do.double())
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_plan_kernel_matches_plain_bitwise(cuda, shape):
+    _, _, _, kcode, qrow, _ = _flash_inputs(*shape)
+    before = fa.LAUNCHES["flash_plan"]
+    plan = fa.flash_plan(kcode, qrow)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_plan"] == before + 1
+    for name, a, b in zip(fa.FlashPlan._fields, plan,
+                          fa.flash_plan_plain(kcode, qrow)):
+        assert torch.equal(a, b), name
+
+
+def test_flash_kernels_take_a_given_plan(cuda):
+    """A plan passed in is the one the kernels walk: no second plan, and
+    the same results as with the plan they build themselves."""
+    q, k, v, kcode, qrow, do = _flash_inputs(16, 4, 201, 102, 8, True, True)
+    plan = fa.flash_plan(kcode, qrow)
+    before = fa.LAUNCHES["flash_plan"]
+    o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)
+    got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do, plan)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_plan"] == before
+    o2, lse2 = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(got, fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="plan"):
+        fa.flash_attn_fwd(q, k, v, kcode, qrow, plan._replace(
+            key_perm=plan.key_perm[:-1]))
