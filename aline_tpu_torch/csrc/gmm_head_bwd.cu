@@ -17,78 +17,132 @@
 // The [rows, C, F] hidden tensor of the two-einsum backward (104 MB a
 // training step at B=200, T=102, C=10, F=128) never reaches device memory.
 //
-// What bounds it.  Per row and component: 2*D*F FLOP to recompute pre,
-// 2*D*F for dz, 2*D*F for dW1, and about 4*3*F for dh, dW2 and db1.  At
-// the flagship shapes (D=32, F=128, C=10) that is 26,112 FLOP per row and
-// component against 4*(2*D + 3*C) = 376 bytes per row: float32 FMA work
-// outside the tensor cores (67 TFLOP/s on an H100 SXM) bounds it.
+// What bounds it.  Per row and component three D x F products (pre, dz,
+// dW1: 6*D*F FLOP) and about 12*F FLOP of rank-3 work (dh, dW2, db1).  At
+// the training shape (B=200, T=102, D=32, F=128, C=10) that is 5.33 GFLOP:
+// 0.0795 ms on float32 FMAs alone (67 TFLOP/s, H100 SXM); 0.0351 ms with
+// the three products on the tensor cores as 3xTF32 (495 TFLOP/s) and the
+// rest on FMAs (mma.sync reaches about 320 TFLOP/s of TF32 on an H100,
+// scripts/measure_gmm_ceilings.py: a floor near 0.052 ms).  Its bytes (z,
+// g, dz and the weights) take far less.
 //
-// Design (simple and deterministic first; wgmma/TMA are later work):
-//  * The TPU kernel sums the weight gradients into grid-revisited blocks,
-//    which relies on the TPU running its grid in order.  Here blocks run
-//    in any order, so each CTA of kThreads rows writes its own partial
-//    dW1/db1/dW2/db2 to a scratch buffer [n_ctas][C * (D*F + 4*F + 3)],
-//    and a second kernel sums the partials over CTAs in a fixed order.
-//    No float atomics: the gradients are bitwise the same on every run.
-//  * Phase A (one thread per row, z and the dz sum in registers): for
-//    each component the CTA stages W1[c] transposed and (b1, W2) packed
-//    as one float4 per hidden unit in shared memory, as the forward does.
-//    A thread recomputes pre for its row in the forward's summation order
-//    (so the relu mask is the forward's), stores it in shared memory,
-//    and adds dh * W1[c][:, f] to its dz.  The sum over components stays
-//    inside the thread.
-//  * Phase B (one thread per hidden unit f): the thread walks the CTA's
-//    rows in order, rebuilds h and dh from the stored pre and the row's
-//    g, and accumulates dW1[c][:, f] (D registers), dW2[c][f, :], db1[c][f].
-//    z rows are read from global memory as warp-wide broadcasts.
+// Design.
+//  * One wave of persistent CTAs (8 warps, one CTA an SM): CTA b owns the
+//    contiguous rows [b*L, (b+1)*L), L a whole number of steps chosen from
+//    the row count and the SM count alone (gmm_head_bwd_grid), so the grid,
+//    and with it every sum, depends only on the shape and the device.  The
+//    range's Z rows, split into TF32 (hi, lo), stay in shared memory for
+//    all components, and so does the range's dz sum.
+//  * Components on the outside; per component the CTA walks its range in
+//    32-row steps (16 at D=64).  Component c's weights come from a stage
+//    that cp.async filled while c-1 computed, split and packed as in the
+//    forward (where the stage does not fit, they are split straight from
+//    device memory).  g is loaded a step ahead.
+//  * Per step, on mma.sync.m16n8k8 in 3xTF32 (gmm_head_common.cuh), warp w
+//    owns hidden columns 8w + 64j:
+//      - pre for the step's rows from gmm::pre_tile (the forward's
+//        function, so the relu mask is bitwise the forward's); h, dh, dW2
+//        and db1 in registers on the accumulator fragment; dh split into
+//        shared memory for the dW1 product;
+//      - dz's part over the warp's columns straight from the accumulator
+//        fragment, which is the A operand of dh . W1[c]^T once the k index
+//        runs over the tile's columns as 2t -> t, 2t+1 -> t+4
+//        (gmm::a_from_acc, gmm::load_w1t); the 8 warps' parts meet in
+//        shared memory and are added to the range's dz sum in warp order;
+//      - dW1[c][:, w's columns] += Z^T . dh (K = the step's rows), summed
+//        in registers across the whole range.
+//    The ragged end of a range reads zero rows (z = 0 and g = 0 give zero
+//    gradients) and writes nothing for them.
+//  * At the end of each component the CTA writes its partial dW1[c],
+//    db1[c], dW2[c], db2[c] once (dW2 and db1 summed over the fragment's
+//    rows by a fixed xor-shuffle tree), into part[b]; a second kernel sums
+//    the partials over b = 0, 1, ... in that order.  No float atomics: the
+//    gradients are bitwise the same on every call.  Partials: grid x
+//    C*(D*F + 4F + 3) floats, 128 copies = 23.6 MB at the training shape
+//    (the first, all-FMA form wrote one per 128 rows: 160 copies, 29.5
+//    MB).
+//
+// The first form, for the record: one thread per row for pre and dz, one
+// thread per hidden unit walking the CTA's 128 rows for dW1, every product
+// on FMAs.  It measured 0.5676 ms at the training shape (14% of the FMA
+// bound) on an H100 80GB HBM3 at 700 W (chip_smoke.py, device time): its
+// 88.6 KB of shared memory per 4-warp CTA let 4-8 warps run on an SM, each
+// thread ran long dependent FMA chains, and its 160 partial copies took a
+// fifth of the bound's time in traffic.  Hence the tensor cores, the
+// register-resident dW1 sums and one wave of CTAs.  Timed in turns with
+// the first form in one call, this one was faster (PERF.md, section 6).
+// Whether a well register-tiled FMA form would beat it is not measured.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gmm_head_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;   // rows of a CTA, and threads of a CTA
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
-__host__ __device__ inline long long per_cta(int D, int C, int F) {
+// floats of the gradients, and of one CTA's partial copy of them (padded
+// to whole 16-byte chunks, so every copy is aligned)
+__host__ __device__ inline long long grad_floats(int D, int C, int F) {
   return (long long)C * ((long long)D * F + 4LL * F + 3);
 }
+__host__ __device__ inline long long per_cta(int D, int C, int F) {
+  return (grad_floats(D, C, F) + 3) / 4 * 4;
+}
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// rows a step: two 16-row mma tiles, or one at D = 64 (two tiles of its
+// Z fragments take too many registers)
+__host__ __device__ constexpr int step_rows(int D) { return D <= 32 ? 32 : 16; }
+
+// shared memory of a CTA: fixed part (staged or not) + per range row
+size_t fixed_bytes(int D, int F, bool staged) {
+  const int ws = gmm::split_stride(F), step = step_rows(D);
+  const int dzst = 2 * gmm::split_stride(D / 2);
+  return (size_t)(D + step) * ws * sizeof(float2) +
+         (size_t)kWarps * step * dzst * sizeof(float) +
+         (size_t)F * sizeof(float4) +
+         (staged ? (size_t)gmm::stage_floats(D, F) * sizeof(float) : 0);
+}
+size_t row_bytes(int D) {
+  return (size_t)(gmm::split_stride(D) + gmm::split_stride(D / 2)) *
+         sizeof(float2);
+}
+
+template <int D, int NTW>
+__global__ void __launch_bounds__(kThreads, 1)
 gmm_head_bwd_kernel(const float* __restrict__ z, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ g, float* __restrict__ dz,
-                    float* __restrict__ part, long long rows, int C, int F) {
-  constexpr int DP = D + 4;  // padded row of the transposed W1[c] tile
-  const int FP = F + 1;      // padded row of the pre tile: conflict-free
+                    float* __restrict__ part, long long rows, int C, int F,
+                    int L, bool staged) {
+  constexpr int MT = step_rows(D) / 16;           // mma tiles a step
+  constexpr int kRows = 16 * MT;                  // rows a step
+  constexpr int zst = gmm::split_stride(D);       // float2 stride of zs
+  constexpr int dzst = 2 * gmm::split_stride(D / 2);  // float stride of dz rows
+  const int ws = gmm::split_stride(F);
   extern __shared__ float4 smem[];
-  float4* pk = smem;                                   // [F] (b1, w2_0..2)
-  float4* gs = smem + F;                               // [kThreads] g rows
-  float* w1t = reinterpret_cast<float*>(smem + F + kThreads);  // [F][DP]
-  float* pre = w1t + F * DP;                           // [kThreads][FP]
+  float2* w1s = reinterpret_cast<float2*>(smem);       // [D][ws] W1[c] split
+  float2* dhs = w1s + D * ws;                          // [kRows][ws] dh split
+  float2* zs = dhs + kRows * ws;                       // [L][zst] Z split
+  float* dzs = reinterpret_cast<float*>(zs + L * zst); // [L][dzst] dz sums
+  float* red = dzs + L * dzst;                 // [kWarps][kRows][dzst] dz parts
+  float4* pk = reinterpret_cast<float4*>(red + kWarps * kRows * dzst);
+  float* stage = reinterpret_cast<float*>(pk + F);     // W1c, b1c, W2c
 
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * kThreads;
-  const long long row = row0 + tid;
-  const bool live = row < rows;
-  const int nlive = (int)min((long long)kThreads, rows - row0);
+  const int warp = threadIdx.x >> 5, gq = gmm::lane_g(), t = gmm::lane_t();
+  const long long row0 = (long long)blockIdx.x * L;
+  const int n_here = (int)min((long long)L, rows - row0);
+  const int n_pad = (n_here + kRows - 1) / kRows * kRows;
+  if (staged) gmm::stage_component(stage, w1, b1, w2, 0, D, F);
 
-  float zr[D], dzr[D];
-  {
-    const float4* src = reinterpret_cast<const float4*>(z + row * D);
-#pragma unroll
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live) v = src[d4];
-      zr[4 * d4 + 0] = v.x;
-      zr[4 * d4 + 1] = v.y;
-      zr[4 * d4 + 2] = v.z;
-      zr[4 * d4 + 3] = v.w;
-    }
+  for (int i = threadIdx.x; i < n_pad * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    zs[r * zst + d] =
+        gmm::split_tf32(r < n_here ? __ldg(z + (row0 + r) * D + d) : 0.f);
+    dzs[r * dzst + d] = 0.f;
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) dzr[d] = 0.f;
 
   const long long DF = (long long)D * F;
   float* p_dw1 = part + (long long)blockIdx.x * per_cta(D, C, F);
@@ -96,168 +150,332 @@ gmm_head_bwd_kernel(const float* __restrict__ z, const float* __restrict__ w1,
   float* p_dw2 = p_db1 + (long long)C * F;
   float* p_db2 = p_dw2 + (long long)C * F * 3;
 
+  // g of this thread's rows of the step at s0: tile m, half h -> row
+  // s0 + 16m + gq + 8h (zero past the range)
+  auto load_g = [&](int s0, int c, float (&gv)[MT][2][3]) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = s0 + 16 * m + gq + 8 * h;
+        const float* gr = g + ((row0 + r) * C + c) * 3;
+#pragma unroll
+        for (int o = 0; o < 3; ++o)
+          gv[m][h][o] = r < n_here ? __ldg(gr + o) : 0.f;
+      }
+    }
+  };
+
+  float gn[MT][2][3];  // g of the next step, loaded a step ahead
+  load_g(0, 0, gn);
   for (int c = 0; c < C; ++c) {
-    __syncthreads();  // every thread is done with the previous component
-    const float* w1c = w1 + (size_t)c * D * F;
-    for (int i = tid; i < D * F; i += kThreads) {
-      const int d = i / F, f = i - d * F;   // coalesced read of W1[c][d][f]
-      w1t[f * DP + d] = w1c[i];
-    }
-    for (int f = tid; f < F; f += kThreads) {
-      const float* w2f = w2 + ((size_t)c * F + f) * 3;
-      pk[f] = make_float4(b1[(size_t)c * F + f], w2f[0], w2f[1], w2f[2]);
-    }
-    float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-    if (live) {
-      const float* gr = g + (row * C + c) * 3;
-      g0 = gr[0];
-      g1 = gr[1];
-      g2 = gr[2];
-    }
-    gs[tid] = make_float4(g0, g1, g2, 0.f);
+    if (staged) gmm::cp_async_wait_all();
+    __syncthreads();  // stage holds c; every warp is done with c - 1
+    if (staged)
+      gmm::unpack_component(w1s, ws, pk, stage, stage + D * F,
+                            stage + D * F + F, D, F);
+    else
+      gmm::unpack_component(w1s, ws, pk, w1 + c * DF, b1 + (size_t)c * F,
+                            w2 + (size_t)c * F * 3, D, F);
     __syncthreads();
+    if (staged && c + 1 < C)
+      gmm::stage_component(stage, w1, b1, w2, c + 1, D, F);
 
-    // Phase A: pre for this row (the forward's order), dz += dh W1[c]^T.
-    for (int f = 0; f < F; ++f) {
-      const float4 p = pk[f];
-      const float4* wrow = reinterpret_cast<const float4*>(w1t + f * DP);
-      float h = p.x;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 w = wrow[d4];
-        h = fmaf(zr[4 * d4 + 0], w.x, h);
-        h = fmaf(zr[4 * d4 + 1], w.y, h);
-        h = fmaf(zr[4 * d4 + 2], w.z, h);
-        h = fmaf(zr[4 * d4 + 3], w.w, h);
-      }
-      pre[tid * FP + f] = h;
-      float gw = g0 * p.y;
-      gw = fmaf(g1, p.z, gw);
-      gw = fmaf(g2, p.w, gw);
-      const float dh = h > 0.f ? gw : 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 w = wrow[d4];
-        dzr[4 * d4 + 0] = fmaf(dh, w.x, dzr[4 * d4 + 0]);
-        dzr[4 * d4 + 1] = fmaf(dh, w.y, dzr[4 * d4 + 1]);
-        dzr[4 * d4 + 2] = fmaf(dh, w.z, dzr[4 * d4 + 2]);
-        dzr[4 * d4 + 3] = fmaf(dh, w.w, dzr[4 * d4 + 3]);
-      }
-    }
-    __syncthreads();
+    // dW1[c][d, f] on the mma fragment, as two chains: awh + awx
+    float awh[D / 16][NTW][4] = {}, awx[D / 16][NTW][4] = {};
+    float a2[NTW][2][3] = {};         // dW2[c][f, :] for columns 2t, 2t+1
+    float ab1[NTW][2] = {};           // db1[c][f]
+    float ab2[3] = {};                // db2[c] (warp 0, t = 0 lanes)
 
-    // Phase B: this CTA's partial weight gradients, one hidden unit f per
-    // thread, rows summed in order.
-    for (int f = tid; f < F; f += kThreads) {
-      const float4 p = pk[f];
-      float acc[D];
+    for (int s0 = 0; s0 < n_here; s0 += kRows) {
+      float gv[MT][2][3];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = 0.f;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, ab = 0.f;
-      for (int r = 0; r < nlive; ++r) {
-        const float pr = pre[r * FP + f];
-        const float4 gr = gs[r];
-        const float h = fmaxf(pr, 0.f);
-        a0 = fmaf(h, gr.x, a0);
-        a1 = fmaf(h, gr.y, a1);
-        a2 = fmaf(h, gr.z, a2);
-        float gw = gr.x * p.y;
-        gw = fmaf(gr.y, p.z, gw);
-        gw = fmaf(gr.z, p.w, gw);
-        const float dh = pr > 0.f ? gw : 0.f;
-        ab += dh;
-        const float4* zrow =
-            reinterpret_cast<const float4*>(z + (row0 + r) * D);
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 zv = __ldg(zrow + d4);
-          acc[4 * d4 + 0] = fmaf(zv.x, dh, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(zv.y, dh, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(zv.z, dh, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(zv.w, dh, acc[4 * d4 + 3]);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int o = 0; o < 3; ++o) gv[m][h][o] = gn[m][h][o];
+      if (s0 + kRows < n_here)
+        load_g(s0 + kRows, c, gn);
+      else if (c + 1 < C)
+        load_g(0, c + 1, gn);  // the next component's first step
+      if (warp == 0 && t == 0) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int o = 0; o < 3; ++o) ab2[o] += gv[m][h][o];
+      }
+
+      // Per 8-column tile of this warp: pre (the forward's pre_tile), h and
+      // dh on the accumulator fragment, dW2 and db1 in registers, dh split
+      // into shared memory for the dW1 product, and dz's part over these
+      // columns: the fragment is the A operand of dh . W1[c]^T when the k
+      // index of the 8 columns runs 2t -> t, 2t+1 -> t+4.
+      gmm::FragA a[MT][D / 8];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks)
+          a[m][ks] = gmm::load_a(zs + (s0 + 16 * m) * zst + 8 * ks, zst, 1);
+      float adz[MT][D / 8][4] = {};
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        // a column tile past F (F < 64 NTW) computes on tile 0 and adds
+        // nothing, so the code has no branch and the tiles overlap
+        const bool live = 8 * (warp + kWarps * j) < F;
+        const int col0 = live ? 8 * (warp + kWarps * j) : 0;
+        gmm::FragB b[D / 8];
+        gmm::load_w1<D>(b, w1s, ws, col0);
+        const float4 p[2] = {pk[col0 + 2 * t], pk[col0 + 2 * t + 1]};
+        float acc[MT][4];
+        gmm::pre_tile<D, MT>(acc, a, b, p[0].x, p[1].x);
+        gmm::FragA ah[MT];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float dh[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int h = i >> 1, k = i & 1;
+            const float* gg = gv[m][h];
+            const float x = live ? fmaxf(acc[m][i], 0.f) : 0.f;
+#pragma unroll
+            for (int o = 0; o < 3; ++o)
+              a2[j][k][o] = fmaf(x, gg[o], a2[j][k][o]);
+            float gw = gg[0] * p[k].y;
+            gw = fmaf(gg[1], p[k].z, gw);
+            gw = fmaf(gg[2], p[k].w, gw);
+            dh[i] = live && acc[m][i] > 0.f ? gw : 0.f;
+            ab1[j][k] += dh[i];
+          }
+          float2 v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = gmm::split_tf32(dh[i]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (live)
+              *reinterpret_cast<float4*>(
+                  dhs + (16 * m + gq + 8 * h) * ws + col0 + 2 * t) =
+                  make_float4(v[2 * h].x, v[2 * h].y, v[2 * h + 1].x,
+                              v[2 * h + 1].y);
+          ah[m] = gmm::a_from_acc(v);
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          const gmm::FragB bw = gmm::load_w1t(w1s, ws, 8 * dn, col0);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) gmm::mma3(adz[m][dn], ah[m], bw);
         }
       }
-      float* dst = p_dw1 + c * DF + f;   // coalesced over f
+      // this warp's part of dz over its columns
+      float* mine = red + warp * kRows * dzst;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dst[(long long)d * F] = acc[d];
-      p_db1[(long long)c * F + f] = ab;
-      float* d2 = p_dw2 + ((long long)c * F + f) * 3;
-      d2[0] = a0;
-      d2[1] = a1;
-      d2[2] = a2;
-    }
-    if (tid < 3) {
-      float s = 0.f;
-      for (int r = 0; r < nlive; ++r) {
-        const float4 gr = gs[r];
-        s += tid == 0 ? gr.x : (tid == 1 ? gr.y : gr.z);
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(mine + (16 * m + gq + 8 * h) * dzst +
+                                       8 * dn + 2 * t) =
+                make_float2(adz[m][dn][2 * h], adz[m][dn][2 * h + 1]);
+      __syncthreads();  // dh and the dz parts of the step are complete
+
+      // dz[step rows] += the warps' parts, in warp order
+      for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
+        const int r = e / D, d = e - r * D;
+        float sum = dzs[(s0 + r) * dzst + d];
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += red[(w * kRows + r) * dzst + d];
+        dzs[(s0 + r) * dzst + d] = sum;
       }
-      p_db2[c * 3 + tid] = s;
+
+      // dW1[c][:, this warp's columns] += Z^T . dh over the step's rows
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk) {
+        gmm::FragB b[NTW];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          // past F: tile 0 again, into sums that are never written
+          const int col0 = 8 * (warp + kWarps * j);
+          b[j] = gmm::load_b(dhs + 8 * kk * ws + (col0 < F ? col0 : 0), ws, 1);
+        }
+#pragma unroll
+        for (int mi = 0; mi < D / 16; ++mi) {
+          const gmm::FragA az =
+              gmm::load_a(zs + (s0 + 8 * kk) * zst + 16 * mi, 1, zst);
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+            gmm::mma3_split(awh[mi][j], awx[mi][j], az, b[j]);
+        }
+      }
+      __syncthreads();  // dh and the parts are free for the next step
+    }
+
+    // component c's partial sums, written once
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int col0 = 8 * (warp + kWarps * j);
+      if (col0 >= F) continue;
+      const int f = col0 + 2 * t;
+#pragma unroll
+      for (int mi = 0; mi < D / 16; ++mi) {
+        float w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w[i] = awh[mi][j][i] + awx[mi][j][i];
+        float* dst = p_dw1 + c * DF + (long long)(16 * mi + gq) * F + f;
+        *reinterpret_cast<float2*>(dst) = make_float2(w[0], w[1]);
+        *reinterpret_cast<float2*>(dst + 8 * F) = make_float2(w[2], w[3]);
+      }
+      // sum over the 8 lanes that share t (rows gq), in a fixed tree
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int sh = 4; sh < 32; sh <<= 1) {
+#pragma unroll
+          for (int o = 0; o < 3; ++o)
+            a2[j][k][o] += __shfl_xor_sync(0xffffffffu, a2[j][k][o], sh);
+          ab1[j][k] += __shfl_xor_sync(0xffffffffu, ab1[j][k], sh);
+        }
+        if (gq == 0) {
+          float* d2 = p_dw2 + ((long long)c * F + f + k) * 3;
+          d2[0] = a2[j][k][0];
+          d2[1] = a2[j][k][1];
+          d2[2] = a2[j][k][2];
+          p_db1[(long long)c * F + f + k] = ab1[j][k];
+        }
+      }
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int sh = 4; sh < 32; sh <<= 1)
+#pragma unroll
+        for (int o = 0; o < 3; ++o)
+          ab2[o] += __shfl_xor_sync(0xffffffffu, ab2[o], sh);
+      if (threadIdx.x == 0) {
+        p_db2[c * 3 + 0] = ab2[0];
+        p_db2[c * 3 + 1] = ab2[1];
+        p_db2[c * 3 + 2] = ab2[2];
+      }
     }
   }
 
-  if (live) {
-    float4* out = reinterpret_cast<float4*>(dz + row * D);
-#pragma unroll
-    for (int d4 = 0; d4 < D / 4; ++d4)
-      out[d4] = make_float4(dzr[4 * d4 + 0], dzr[4 * d4 + 1],
-                            dzr[4 * d4 + 2], dzr[4 * d4 + 3]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_here * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    dz[(row0 + r) * D + d] = dzs[r * dzst + d];
   }
 }
 
-// out[i] = sum over CTAs b = 0, 1, ... of part[b][i], in that order.
+// out[i] = sum over CTAs b = 0, 1, ... of part[b * stride + i], in that
+// order.
 __global__ void sum_partials_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, long long n,
-                                    int n_ctas) {
+                                    long long stride, int n_ctas) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
-  for (int b = 0; b < n_ctas; ++b) s += part[(long long)b * n + i];
+#pragma unroll 16
+  for (int b = 0; b < n_ctas; ++b) s += part[(long long)b * stride + i];
   out[i] = s;
 }
 
-template <int D>
+// The grid of one call: CTAs, rows a CTA, whether the weights are staged.
+struct Grid {
+  int ctas, L;
+  bool staged;
+  size_t smem;
+};
+
+cudaError_t plan_grid(long long rows, int D, int F, Grid* grid,
+                      gmm::DeviceInfo* info) {
+  cudaError_t e = gmm::device_info(info);
+  if (e != cudaSuccess) return e;
+  const size_t cap = (size_t)info->max_smem;
+  const int step = step_rows(D);   // a range is whole steps
+  auto most_rows = [&](bool staged) -> long long {
+    const size_t fixed = fixed_bytes(D, F, staged);
+    if (fixed >= cap) return 0;
+    return (long long)((cap - fixed) / row_bytes(D)) / step * step;
+  };
+  grid->staged = most_rows(true) >= step;
+  const long long lmax = most_rows(grid->staged);
+  if (lmax < step) return cudaErrorInvalidValue;
+  // as few waves of one CTA an SM as the rows need, rows spread evenly
+  const long long sms = info->sms;
+  const long long waves = (rows + sms * lmax - 1) / (sms * lmax);
+  const long long per = (rows + waves * sms - 1) / (waves * sms);
+  grid->L = (int)((per + step - 1) / step * step);
+  grid->ctas = (int)((rows + grid->L - 1) / grid->L);
+  grid->smem = fixed_bytes(D, F, grid->staged) + grid->L * row_bytes(D);
+  return cudaSuccess;
+}
+
+template <int D, int NTW>
 cudaError_t launch(const float* z, const float* w1, const float* b1,
                    const float* w2, const float* g, float* dz, float* part,
                    float* grads, long long rows, int C, int F,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)(F + kThreads) * sizeof(float4) +
-                      (size_t)F * (D + 4) * sizeof(float) +
-                      (size_t)kThreads * (F + 1) * sizeof(float);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gmm_head_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long ctas = (rows + kThreads - 1) / kThreads;
-  gmm_head_bwd_kernel<D><<<(unsigned)ctas, kThreads, smem, stream>>>(
-      z, w1, b1, w2, g, dz, part, rows, C, F);
-  cudaError_t e = cudaGetLastError();
+  static int granted[gmm::kMaxDevices] = {};
+  Grid grid;
+  gmm::DeviceInfo info;
+  cudaError_t e = plan_grid(rows, D, F, &grid, &info);
   if (e != cudaSuccess) return e;
-  const long long n = per_cta(D, C, F);
+  e = gmm::allow_smem((const void*)gmm_head_bwd_kernel<D, NTW>, grid.smem,
+                      info.dev, granted);
+  if (e != cudaSuccess) return e;
+  gmm_head_bwd_kernel<D, NTW><<<grid.ctas, kThreads, grid.smem, stream>>>(
+      z, w1, b1, w2, g, dz, part, rows, C, F, grid.L, grid.staged);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long n = grad_floats(D, C, F);
   const int threads = 256;
   sum_partials_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                        stream>>>(part, grads, n, (int)ctas);
+                        stream>>>(part, grads, n, per_cta(D, C, F),
+                                  grid.ctas);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const float* z, const float* w1, const float* b1,
+                     const float* w2, const float* g, float* dz, float* part,
+                     float* grads, long long rows, int C, int F,
+                     cudaStream_t s) {
+  if (F <= 8 * kWarps)
+    return launch<D, 1>(z, w1, b1, w2, g, dz, part, grads, rows, C, F, s);
+  if (F <= 16 * kWarps)
+    return launch<D, 2>(z, w1, b1, w2, g, dz, part, grads, rows, C, F, s);
+  return launch<D, 4>(z, w1, b1, w2, g, dz, part, grads, rows, C, F, s);
 }
 
 }  // namespace
 
-// Rows a CTA takes, so the caller can size the partials buffer:
-// part holds ceil(rows / gmm_head_bwd_rows_per_cta()) * C*(D*F + 4F + 3)
-// floats.
-extern "C" int gmm_head_bwd_rows_per_cta() { return kThreads; }
+// CTAs of a call with this many rows on the current device, so the caller
+// can size the partials buffer: part holds gmm_head_bwd_grid(rows, D, F)
+// copies of C*(D*F + 4F + 3) floats, each rounded up to a multiple of 4.
+// 0 for no rows; a negative cudaError_t on error.
+extern "C" int gmm_head_bwd_grid(long long rows, int D, int F) {
+  if (rows <= 0) return 0;
+  if ((D != 16 && D != 32 && D != 64) || F % 8 != 0 || F <= 0 ||
+      F > gmm::kMaxF)
+    return -(int)cudaErrorInvalidValue;
+  Grid grid;
+  gmm::DeviceInfo info;
+  const cudaError_t e = plan_grid(rows, D, F, &grid, &info);
+  return e == cudaSuccess ? grid.ctas : -(int)e;
+}
 
 // Plain C interface for ctypes.  All pointers are device pointers to
-// contiguous float32 arrays; z and dz must be 16-byte aligned.  grads
-// receives [dW1 (C*D*F) | db1 (C*F) | dW2 (C*F*3) | db2 (C*3)].  Returns
-// the cudaError_t of the launches (0 = launched).
+// contiguous float32 arrays; z, dz, w1, b1 and w2 must be 16-byte aligned,
+// F a multiple of 8 and at most gmm::kMaxF.  grads receives
+// [dW1 (C*D*F) | db1 (C*F) | dW2 (C*F*3) | db2 (C*3)].  Returns the
+// cudaError_t of the launches (0 = launched).
 extern "C" int gmm_head_bwd(const void* z, const void* w1, const void* b1,
                             const void* w2, const void* g, void* dz,
                             void* part, void* grads, long long rows, int D,
                             int C, int F, void* stream) {
   if (rows <= 0) return 0;
+  if (F % 8 != 0 || F <= 0 || F > gmm::kMaxF) return (int)cudaErrorInvalidValue;
   const float* zf = static_cast<const float*>(z);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -269,11 +487,11 @@ extern "C" int gmm_head_bwd(const void* z, const void* w1, const void* b1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
+      return launch_d<16>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
     case 32:
-      return launch<32>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
+      return launch_d<32>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
     case 64:
-      return launch<64>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
+      return launch_d<64>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

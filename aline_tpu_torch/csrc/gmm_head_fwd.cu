@@ -11,149 +11,216 @@
 // the point of the TPU kernel: the two-einsum formulation writes and reads
 // that tensor (about 1 GB at B=100, T=2001, C=10, F=128).
 //
-// What bounds it.  At the flagship shapes (D=32, F=128, C=10) a row costs
-// 2*C*(D*F + 3*F) = 89,600 FLOP and moves 4*(D + 3*C) = 248 bytes, about
-// 360 FLOP per byte; float32 FMA work outside the tensor cores (67 TFLOP/s
-// on an H100 SXM) bounds it, not memory.
+// What bounds it.  A row costs 2*C*D*F FLOP in the product z . W1[c] and
+// 2*C*3*F in the rank-3 product with W2[c]; it moves 4*(D + 3*C) bytes.
+// At the flagship shapes (D=32, F=128, C=10; B=100, T=2001) that is 16.39
+// GFLOP + 1.54 GFLOP against 49.6 MB.  On float32 FMAs alone (67 TFLOP/s,
+// H100 SXM) the bound is 0.2676 ms.  With the D x F product on the tensor
+// cores as 3xTF32 (three TF32 products at 495 TFLOP/s) and the rest on
+// FMAs it is 0.1223 ms; mma.sync reaches about 320 TFLOP/s of TF32 on an
+// H100 (scripts/measure_gmm_ceilings.py; the 495 need wgmma), which puts
+// this design's floor near 0.18 ms.  The bytes (0.015 ms) never bound it.
 //
-// Design (simple and exact first; wgmma/TMA/tensor cores are later work):
-//  * One thread owns kRowsPerThread rows and keeps their z in registers
-//    (D is a template parameter, so the row arrays stay in registers).
-//    Rows are the flattened B*T token axis; the ragged last block is masked
-//    per row, so the caller pads nothing.
-//  * A block loops over the C components.  Per component it stages W1[c]
-//    transposed ([F][D], rows padded to D+4 floats) and (b1, W2) packed as
-//    one float4 per hidden unit in shared memory; only one component's
-//    weights are resident (18 KB at the flagship shapes), not all of W1.
-//  * Every lane of a warp reads the same shared-memory word at the same
-//    time (broadcast, conflict-free): per hidden unit f a thread does
-//    D/4 float4 loads, kRowsPerThread*D FMAs for the pre-activation, a
-//    relu, and 3 FMAs per row into the component's 3 outputs.  No
-//    cross-thread reduction is needed.
-//  * Sums accumulate in float32 in the order b1 + sum_d, then b2 + sum_f.
+// Design.
+//  * A warp's task is 32 rows (two 16-row mma tiles sharing each B
+//    fragment; one tile at D=64, whose Z fragments would not fit twice).
+//    Rows are the flattened B*T token axis; the ragged last task reads
+//    zeros and writes nothing, so the caller pads nothing.
+//  * CTAs of 8 warps, at most 2 an SM, walk contiguous runs of tasks.  When
+//    there are fewer tasks than warps in such a grid (the T=102 target
+//    sets), the C components are split over CTAs too (gridDim.y groups), so
+//    the card fills: at B=100, T=102, 46 x 5 CTAs of 7 tasks and 2
+//    components.  Outputs of different components never meet, so the split
+//    changes no sum.
+//  * Per component: its W1, b1, W2 sit in a shared-memory stage, copied by
+//    cp.async while the previous component computed; the CTA splits W1[c]
+//    into (hi, lo) pairs and packs (b1, W2) per hidden unit, then starts
+//    the next copy.  A warp with one task keeps its Z fragments in
+//    registers across components; otherwise it reloads them from device
+//    memory (L2) per task.
+//  * Per 8-column tile of F, two tiles a turn: pre from gmm::pre_tile
+//    (shared with the backward), relu and the three FMAs against W2[c] in
+//    registers on the accumulator fragment; each thread sums its columns,
+//    a quad shuffle (xor 1, then xor 2) sums the row over F, and b2 is
+//    added last: out = (sum over the thread's columns in order, then the
+//    quad tree) + b2.
+//
+// The first form, for the record: one thread per 2 rows, W1[c] transposed in
+// shared memory, every product on FMAs, 256 rows a block.  It measured
+// 0.4911 ms at T=2001 (54% of the FMA bound) and 0.1130 ms at B=200,
+// T=102 (24%) on an H100 80GB HBM3 at 700 W (chip_smoke.py, device time):
+// at T=102 its 40-80 blocks left most of the 132 SMs idle, and the FMA
+// bound capped it at T=2001.  Hence the tensor cores and the grid that
+// splits components.  Timed in turns with the first form in one call, this
+// one was faster at every main-path shape (PERF.md, section 6).  Whether a
+// well register-tiled FMA form would beat it at T=2001 is not measured.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "gmm_head_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsPerThread = 2;
-constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCtasPerSm = 2;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// the split W1[c], the packed (b1, W2) and the stage: 206,848 B at the
+// widest (D=64, F=256), within sm_90's 227 KB a block
+size_t smem_bytes(int D, int F) {
+  return (size_t)D * gmm::split_stride(F) * sizeof(float2) +
+         (size_t)F * sizeof(float4) +
+         (size_t)gmm::stage_floats(D, F) * sizeof(float);
+}
+
+// this warp's task: MT 16-row tiles from row r0, as split A fragments
+template <int D, int MT>
+__device__ __forceinline__ void load_rows(gmm::FragA (&a)[MT][D / 8],
+                                          const float* __restrict__ z,
+                                          long long r0, long long rows) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      a[m][ks] = gmm::load_a_global(z, D, r0 + 16 * m, rows, 8 * ks);
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 gmm_head_fwd_kernel(const float* __restrict__ z, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out,
-                    long long rows, int C, int F) {
-  constexpr int DP = D + 4;  // padded row of the transposed W1[c] tile
+                    long long rows, int C, int F, int tasks_per_cta,
+                    int comps_per_cta) {
+  constexpr int kTaskRows = 16 * MT;
+  const int ws = gmm::split_stride(F);
   extern __shared__ float4 smem[];
-  float4* pk = smem;                                   // [F] (b1, w2_0..2)
-  float* w1t = reinterpret_cast<float*>(smem + F);     // [F][DP]
+  float2* w1s = reinterpret_cast<float2*>(smem);            // [D][ws]
+  float4* pk = reinterpret_cast<float4*>(w1s + D * ws);     // [F]
+  float* stage = reinterpret_cast<float*>(pk + F);          // W1c, b1c, W2c
 
-  const long long first = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x;
-  float zr[kRowsPerThread][D];
-  bool live[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const long long row = first + (long long)r * kThreads;
-    live[r] = row < rows;
-    const float4* src = reinterpret_cast<const float4*>(z + row * D);
-#pragma unroll
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live[r]) v = src[d4];
-      zr[r][4 * d4 + 0] = v.x;
-      zr[r][4 * d4 + 1] = v.y;
-      zr[r][4 * d4 + 2] = v.z;
-      zr[r][4 * d4 + 3] = v.w;
-    }
-  }
+  const int warp = threadIdx.x >> 5, g = gmm::lane_g(), t = gmm::lane_t();
+  const long long n_tasks = (rows + kTaskRows - 1) / kTaskRows;
+  const long long first = (long long)blockIdx.x * tasks_per_cta;
+  const long long last = min(first + tasks_per_cta, n_tasks);
+  // a warp with at most one task keeps its rows for all components
+  const bool resident = last - first <= kWarps;
+  // this CTA's components: [c_first, c_last)
+  const int c_first = blockIdx.y * comps_per_cta;
+  const int c_last = min(C, c_first + comps_per_cta);
+  gmm::stage_component(stage, w1, b1, w2, c_first, D, F);
+  gmm::FragA a[MT][D / 8];
+  if (resident && first + warp < last)
+    load_rows<D, MT>(a, z, (first + warp) * kTaskRows, rows);
 
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();  // every thread is done with the previous component
-    const float* w1c = w1 + (size_t)c * D * F;
-    for (int i = threadIdx.x; i < D * F; i += kThreads) {
-      const int d = i / F, f = i - d * F;   // coalesced read of W1[c][d][f]
-      w1t[f * DP + d] = w1c[i];
-    }
-    for (int f = threadIdx.x; f < F; f += kThreads) {
-      const float* w2f = w2 + ((size_t)c * F + f) * 3;
-      pk[f] = make_float4(b1[(size_t)c * F + f], w2f[0], w2f[1], w2f[2]);
-    }
+  for (int c = c_first; c < c_last; ++c) {
+    gmm::cp_async_wait_all();
+    __syncthreads();  // stage holds c; every warp is done with c - 1
+    gmm::unpack_component(w1s, ws, pk, stage, stage + D * F,
+                          stage + D * F + F, D, F);
     __syncthreads();
+    if (c + 1 < c_last)
+      gmm::stage_component(stage, w1, b1, w2, c + 1, D, F);
+    const float bias = __ldg(b2 + 3 * c + min(t, 2));  // output t's b2
 
-    float acc[kRowsPerThread][3];
+    for (long long task = first + warp; task < last; task += kWarps) {
+      const long long r0 = task * kTaskRows;
+      if (!resident) load_rows<D, MT>(a, z, r0, rows);
+      float o[MT][2][3] = {};  // rows g, g + 8 of each tile
+      // one 8-column tile: pre, relu, and its three FMAs per row into o
+      auto tile = [&](int col0) {
+        gmm::FragB b[D / 8];
+        gmm::load_w1<D>(b, w1s, ws, col0);
+        const float4 p0 = pk[col0 + 2 * t], p1 = pk[col0 + 2 * t + 1];
+        float acc[MT][4];
+        gmm::pre_tile<D, MT>(acc, a, b, p0.x, p1.x);
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
+        for (int m = 0; m < MT; ++m) {
 #pragma unroll
-      for (int o = 0; o < 3; ++o) acc[r][o] = 0.f;
-    }
-#pragma unroll 2
-    for (int f = 0; f < F; ++f) {
-      const float4 p = pk[f];
-      const float4* wrow = reinterpret_cast<const float4*>(w1t + f * DP);
-      float h[kRowsPerThread];
+          for (int h = 0; h < 2; ++h) {
+            const float x0 = fmaxf(acc[m][2 * h], 0.f);
+            const float x1 = fmaxf(acc[m][2 * h + 1], 0.f);
+            o[m][h][0] = fmaf(x1, p1.y, fmaf(x0, p0.y, o[m][h][0]));
+            o[m][h][1] = fmaf(x1, p1.z, fmaf(x0, p0.z, o[m][h][1]));
+            o[m][h][2] = fmaf(x1, p1.w, fmaf(x0, p0.w, o[m][h][2]));
+          }
+        }
+      };
+      // two tiles a turn, so their products overlap on the tensor core
+      int col0 = 0;
+      for (; col0 + 8 < F; col0 += 16) {
+        tile(col0);
+        tile(col0 + 8);
+      }
+      if (col0 < F) tile(col0);
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) h[r] = p.x;
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 w = wrow[d4];
+        for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          h[r] = fmaf(zr[r][4 * d4 + 0], w.x, h[r]);
-          h[r] = fmaf(zr[r][4 * d4 + 1], w.y, h[r]);
-          h[r] = fmaf(zr[r][4 * d4 + 2], w.z, h[r]);
-          h[r] = fmaf(zr[r][4 * d4 + 3], w.w, h[r]);
+          for (int j = 0; j < 3; ++j) {
+            o[m][h][j] += __shfl_xor_sync(0xffffffffu, o[m][h][j], 1);
+            o[m][h][j] += __shfl_xor_sync(0xffffffffu, o[m][h][j], 2);
+          }
+          // lane t < 3 of the quad writes output t of the row
+          const long long r = r0 + 16 * m + g + 8 * h;
+          if (t < 3 && r < rows) {
+            const float v =
+                t == 0 ? o[m][h][0] : (t == 1 ? o[m][h][1] : o[m][h][2]);
+            out[(r * C + c) * 3 + t] = v + bias;
+          }
         }
       }
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float hr = fmaxf(h[r], 0.f);
-        acc[r][0] = fmaf(hr, p.y, acc[r][0]);
-        acc[r][1] = fmaf(hr, p.z, acc[r][1]);
-        acc[r][2] = fmaf(hr, p.w, acc[r][2]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      if (!live[r]) continue;
-      float* dst = out + ((first + (long long)r * kThreads) * C + c) * 3;
-#pragma unroll
-      for (int o = 0; o < 3; ++o) dst[o] = acc[r][o] + b2[c * 3 + o];
     }
   }
 }
 
-template <int D>
+template <int D, int MT>
 cudaError_t launch(const float* z, const float* w1, const float* b1,
                    const float* w2, const float* b2, float* out,
                    long long rows, int C, int F, cudaStream_t stream) {
-  const size_t smem = (size_t)F * sizeof(float4) + (size_t)F * (D + 4) * sizeof(float);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gmm_head_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  gmm_head_fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      z, w1, b1, w2, b2, out, rows, C, F);
+  static int granted[gmm::kMaxDevices] = {};
+  gmm::DeviceInfo info;
+  cudaError_t e = gmm::device_info(&info);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes(D, F);
+  if (smem > (size_t)info.max_smem) return cudaErrorInvalidValue;
+  e = gmm::allow_smem((const void*)gmm_head_fwd_kernel<D, MT>, smem, info.dev,
+                      granted);
+  if (e != cudaSuccess) return e;
+  // Row tasks over at most kCtasPerSm CTAs an SM.  When there are fewer
+  // tasks than warps in such a grid, the components are split over CTAs
+  // too (gridDim.y groups), so that every warp has a task.
+  const long long tasks = (rows + 16 * MT - 1) / (16 * MT);
+  const long long most = (long long)info.sms * kCtasPerSm;
+  long long groups = 1;
+  if (tasks < most * kWarps)
+    groups = std::max(1LL, std::min<long long>(C, most * kWarps / tasks));
+  const int per_group = (int)((C + groups - 1) / groups);
+  groups = (C + per_group - 1) / per_group;
+  long long per = (tasks * groups + most - 1) / most;
+  if (groups > 1) per = std::min<long long>(per, kWarps);
+  const dim3 grid((unsigned)((tasks + per - 1) / per), (unsigned)groups);
+  gmm_head_fwd_kernel<D, MT><<<grid, kThreads, smem, stream>>>(
+      z, w1, b1, w2, b2, out, rows, C, F, (int)per, per_group);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  All pointers are device pointers to
-// contiguous float32 arrays; z and out must be 16-byte aligned.  Returns
-// the cudaError_t of the launch (0 = launched).
+// contiguous float32 arrays; z, w1, b1 and w2 must be 16-byte aligned,
+// F a multiple of 8 and at most gmm::kMaxF.  Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int gmm_head_fwd(const void* z, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out,
                             long long rows, int D, int C, int F,
                             void* stream) {
   if (rows <= 0) return 0;
+  if (F % 8 != 0 || F <= 0 || F > gmm::kMaxF) return (int)cudaErrorInvalidValue;
   const float* zf = static_cast<const float*>(z);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -162,9 +229,11 @@ extern "C" int gmm_head_fwd(const void* z, const void* w1, const void* b1,
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
-    case 32: return launch<32>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
-    case 64: return launch<64>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
+    // 32-row tasks (one B fragment serves two tiles); 16-row ones at
+    // D = 64, whose two tiles of Z fragments take too many registers
+    case 16: return launch<16, 2>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
+    case 32: return launch<32, 2>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
+    case 64: return launch<64, 1>(zf, w1f, b1f, w2f, b2f, of, rows, C, F, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

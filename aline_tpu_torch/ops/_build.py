@@ -47,6 +47,11 @@ SIGNATURES = {
     # B, H, N, dh; scale; stream
     "flash_attn_bwd": ([_P] * 16 + [_I] * 4 + [_F, _P], _I),
 }
+# other entry points of a library: library name → {entry: (argtypes, restype)}
+HELPERS = {
+    # the grid of a call with (rows, D, F): the partial copies to allocate
+    "gmm_head_bwd": {"gmm_head_bwd_grid": ([_LL, _I, _I], _I)},
+}
 
 
 def _nvcc() -> str:
@@ -99,9 +104,11 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of kernel ``name`` with its entry point typed."""
+    """The built library of kernel ``name`` with its entry points typed
+    (``name`` and its ``HELPERS``)."""
     lib = ctypes.CDLL(str(build([name])[name]))
-    argtypes, restype = SIGNATURES[name]
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = argtypes, restype
+    for entry, (argtypes, restype) in {name: SIGNATURES[name],
+                                       **HELPERS.get(name, {})}.items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -26,6 +26,7 @@ from aline_tpu_torch.ops import _build
 LAUNCHES = {"gmm_head_fwd": 0, "gmm_head_bwd": 0}
 
 D_SUPPORTED = (16, 32, 64)
+F_MAX = 256          # widest hidden layer (F a multiple of 8, the mma width)
 
 
 def gmm_head_fwd_plain(z, w1, b1, w2, b2):
@@ -69,7 +70,7 @@ def _weight_shapes(z, w1, b1, w2):
             "w2": (w2, (C, F, 3))}
 
 
-def _kernel_device(z, D):
+def _kernel_device(z, D, F):
     """True for a CUDA tensor (launch the kernel), False for a CPU one."""
     if z.device.type == "cpu":
         return False
@@ -78,6 +79,9 @@ def _kernel_device(z, D):
     if D not in D_SUPPORTED:
         raise ValueError(f"the GMM-head kernels take D in {D_SUPPORTED}, "
                          f"got {D}")
+    if F % 8 or not 0 < F <= F_MAX:
+        raise ValueError(f"the GMM-head kernels take F a multiple of 8 up "
+                         f"to {F_MAX}, got {F}")
     return True
 
 
@@ -100,13 +104,13 @@ def gmm_head_fwd(z, w1, b1, w2, b2):
     C = w1.shape[0]
     _check(z, {**_weight_shapes(z, w1, b1, w2), "b2": (b2, (C, 3))})
     B, T, D = z.shape
-    if not _kernel_device(z, D):
-        return gmm_head_fwd_plain(z, w1, b1, w2, b2)
     F = w1.shape[2]
+    if not _kernel_device(z, D, F):
+        return gmm_head_fwd_plain(z, w1, b1, w2, b2)
     out = torch.empty(B, T, C, 3, dtype=torch.float32, device=z.device)
     if out.numel() == 0:
         return out                      # nothing to compute, no launch
-    _aligned(z=z, out=out)
+    _aligned(z=z, w1=w1, b1=b1, w2=w2)
     lib = _build.load("gmm_head_fwd")
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
@@ -132,7 +136,7 @@ def gmm_head_bwd(z, w1, b1, w2, g):
     B, T, D = z.shape
     C, _, F = w1.shape
     _check(z, {**_weight_shapes(z, w1, b1, w2), "g": (g, (B, T, C, 3))})
-    if not _kernel_device(z, D):
+    if not _kernel_device(z, D, F):
         return gmm_head_bwd_plain(z, w1, b1, w2, g)
     dev = z.device
     dz = torch.empty(B, T, D, dtype=torch.float32, device=dev)
@@ -142,13 +146,17 @@ def gmm_head_bwd(z, w1, b1, w2, g):
     grads = (torch.empty if rows else torch.zeros)(
         sum(sizes), dtype=torch.float32, device=dev)
     if rows > 0:
-        _aligned(z=z, dz=dz)
+        _aligned(z=z, w1=w1, b1=b1, w2=w2)
         lib = _build.load("gmm_head_bwd")
-        per_cta = lib.gmm_head_bwd_rows_per_cta()
-        n_ctas = -(-rows // per_cta)
-        part = torch.empty(n_ctas * sum(sizes), dtype=torch.float32,
-                           device=dev)
         with torch.cuda.device(dev):
+            # one partial copy of the gradients per CTA, each padded to a
+            # multiple of 4 floats; the grid depends on the rows and the card
+            n_ctas = lib.gmm_head_bwd_grid(rows, D, F)
+            if n_ctas < 0:
+                raise RuntimeError(f"gmm_head_bwd cannot size its grid: "
+                                   f"cudaError {-n_ctas}")
+            part = torch.empty(n_ctas * (-(-sum(sizes) // 4) * 4),
+                               dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.gmm_head_bwd(z.data_ptr(), w1.data_ptr(),
                                    b1.data_ptr(), w2.data_ptr(),

@@ -9,11 +9,13 @@ Phases, each printing its result lines; any failure exits non-zero:
 2. build   — builds every CUDA kernel from ``aline_tpu_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main paths' shapes, with timings.  Forward: rtol = atol
-             = 1e-4 (only the float32 summation order differs, TF32 is
-             off).  Backward: also against ``torch.autograd.grad`` of the
+             = 1e-4 (float32 accuracy on both sides: TF32 is off in
+             PyTorch, the kernels' D x F products are 3xTF32; the
+             summation order differs).  Backward: also against
+             ``torch.autograd.grad`` of the
              two-einsum formula, within 1e-4 of each element plus 1e-4 of
              the gradient's largest element (the weight gradients sum up to
-             40,200 rows, in per-block partials and then over blocks, where
+             40,200 rows, in per-CTA partials and then over CTAs, where
              the plain version sums in another order), on inputs whose
              pre-activations are exact (``gmm_inputs(grid=True)``: else a
              pre-activation within rounding of 0 flips the relu mask
@@ -22,7 +24,12 @@ Phases, each printing its result lines; any failure exits non-zero:
              eager calls' time, the wrapper's host work included (as the
              paths call them), with ``device_ms``, the kernel alone from a
              CUDA graph of the calls, beside it; plain and library times
-             are eager.
+             are eager.  A GMM row's ``bound_ms`` is the lesser of its two
+             forms' bounds: every FLOP on float32 FMAs (``fma_bound_ms``,
+             the bound of the first, all-FMA kernels), or the D x F
+             products as 3xTF32 on the tensor cores (three TF32 products
+             at 495 TFLOP/s) and the rest on FMAs (``tc_bound_ms``); each
+             against the bytes.
 3c. flash kernels — the plan of the role mask (``flash_plan``) bitwise
              equal to its plain version, and the role-masked flash attention
              forward and backward, which walk it, against their plain
@@ -104,8 +111,10 @@ TOL = 1e-4
 # pool points of a 1-D domain score almost alike.
 FWD_TOL = 5e-4
 TIE = 1e-3
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
+# on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 T_STEPS, BATCH, N_QUERY = 30, 100, 2000
 # the GP-AL-1D training recipe (bench.py, train.py's docstring)
@@ -242,9 +251,7 @@ def phase_kernels():
         worst = max(worst, abs_err)
         z, w1, b1, w2, b2 = args
         C, D, F = w1.shape
-        flops = 2 * B * T * C * (D * F + 3 * F)
         nbytes = 4 * sum(t.numel() for t in args) + 4 * got.numel()
-        bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES)
         row = dict(
             B=B, T=T, max_abs_err=abs_err, max_rel_err=rel_err,
             ms=time_ms(lambda: ghk.gmm_head_fwd(*args)),
@@ -254,18 +261,30 @@ def phase_kernels():
             library_ms=time_ms(lambda: torch.einsum(
                 "btcf,cfo->btco", torch.relu(
                     torch.einsum("btd,cdf->btcf", z, w1) + b1), w2) + b2),
-            bound_ms=bound_s * 1e3,
-            bound_by=("operations" if flops / PEAK_F32_FLOPS
-                      >= nbytes / PEAK_HBM_BYTES else "bytes"),
-            flops=flops, bytes=nbytes)
+            **gmm_bound(2 * B * T * C * D * F, 2 * B * T * C * 3 * F, nbytes))
         rows[what] = row
         log("kernels", f"gmm_head_fwd {what} B={B} T={T}: max abs err "
             f"{abs_err:.3e}, max rel err {rel_err:.3e}; kernel "
             f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
             f"{row['plain_ms']:.4f} ms, two-einsum "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}; FMA bound {row['fma_bound_ms']:.4f} ms)")
     return rows, worst
+
+
+def gmm_bound(mma_flops, other_flops, nbytes):
+    """The least time of a GMM kernel's two forms: every FLOP on float32
+    FMAs, or the D x F products (``mma_flops``) as 3xTF32 on the tensor
+    cores and the rest on FMAs; each against the bytes."""
+    fma = bound(mma_flops + other_flops, nbytes)
+    t_tc = 3 * mma_flops / PEAK_TF32_FLOPS + other_flops / PEAK_F32_FLOPS
+    tc = max(t_tc, nbytes / PEAK_HBM_BYTES) * 1e3
+    best = (dict(bound_ms=tc, bound_by="operations" if t_tc >= nbytes /
+                 PEAK_HBM_BYTES else "bytes")
+            if tc <= fma["bound_ms"] else
+            dict(bound_ms=fma["bound_ms"], bound_by=fma["bound_by"]))
+    return dict(best, fma_bound_ms=fma["bound_ms"], tc_bound_ms=tc,
+                flops=mma_flops + other_flops, bytes=nbytes)
 
 
 def grads_close(got, ref):
@@ -313,10 +332,8 @@ def phase_kernels_bwd():
         abs_err = max(errs.values())
         worst = max(worst, abs_err)
         n = B * T
-        flops = n * C * (6 * D * F + 12 * F)
         nbytes = 4 * (2 * n * D + n * 3 * C + 2 * (w1.numel() + b1.numel()
                                                    + w2.numel()) + 3 * C)
-        bound_s = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES)
         row = dict(
             B=B, T=T, max_abs_err=abs_err, errors=errs,
             ms=time_ms(lambda: ghk.gmm_head_bwd(z, w1, b1, w2, g)),
@@ -326,16 +343,14 @@ def phase_kernels_bwd():
             # the backward of the two-einsum formula by autograd
             library_ms=time_ms(lambda: torch.autograd.grad(
                 out, leaves, g, retain_graph=True)),
-            bound_ms=bound_s * 1e3,
-            bound_by=("operations" if flops / PEAK_F32_FLOPS
-                      >= nbytes / PEAK_HBM_BYTES else "bytes"),
-            flops=flops, bytes=nbytes)
+            **gmm_bound(n * C * 6 * D * F, n * C * 12 * F, nbytes))
         rows[what] = row
         log("kernels", f"gmm_head_bwd {what} B={B} T={T}: max abs err "
             f"{abs_err:.3e} (vs plain and autograd), bitwise repeatable; "
             f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), "
             f"plain {row['plain_ms']:.4f} ms, autograd {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; FMA bound "
+            f"{row['fma_bound_ms']:.4f} ms)")
     return rows, worst
 
 
@@ -1011,8 +1026,8 @@ def main():
                 "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
-                **({"dense_bound_ms": row["dense_bound_ms"]}
-                   if "dense_bound_ms" in row else {}),
+                **{k: row[k] for k in ("fma_bound_ms", "tc_bound_ms",
+                                       "dense_bound_ms") if k in row},
                 "shape": row.get("shape", [row.get("B"), row.get("T")])}
 
     kernels = [

@@ -6,10 +6,12 @@ with the GPU has no JAX, so run them there without the JAX test conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py -q
 
-Tolerance rtol = atol = 1e-4: float32 on both sides with TF32 off; only
-the summation order differs (the backward's weight gradients sum every
-row, in per-block partials and then over blocks; the flash kernels sum a
-row's softmax online, over key tiles).
+Tolerance rtol = atol = 1e-4: float32 on both sides with TF32 off in
+PyTorch.  The GMM kernels' D x F products are 3xTF32 on the tensor cores,
+float32 accuracy (tests/test_torch_gmm_tf32.py), summed in another order
+(the backward's weight gradients over every row, in per-CTA partials and
+then over CTAs); the flash kernels sum a row's softmax online, over key
+tiles.
 """
 import pytest
 import torch
@@ -57,11 +59,25 @@ def _inputs(B, T, D, F, C, seed=0, grid=False):
 @pytest.mark.parametrize("B,T,D,F,C", [
     (100, 2001, 32, 128, 10),   # the flagship's pool call
     (100, 102, 32, 128, 10),    # the flagship's target call
+    (200, 102, 32, 128, 10),    # the training step's target call
     (2, 1, 32, 128, 10),        # fewer rows than one block
+    (1, 1, 32, 128, 10),        # one row
+    (2, 37, 32, 128, 10),       # rows not a multiple of the 32-row task
     (3, 37, 16, 32, 4),         # D=16, ragged rows
+    (2, 45, 32, 32, 4),         # F=32, C=4
     (5, 300, 64, 256, 3),       # D=64, shared memory above 48 KB
+    (3, 37, 64, 128, 10),       # D=64 at the flagship's F and C
     (1, 513, 64, 64, 1),        # one component
     (4, 129, 16, 96, 7),        # F not a power of two
+    # on 132 SMs (264 CTAs of 8 warps): the most rows whose components
+    # are split over CTAs (1056 32-row tasks, 2 warps' worth each), and
+    # just above
+    (1, 33792, 32, 128, 10),
+    (1, 33793, 32, 128, 10),
+    # the most rows whose warps keep their rows resident across components
+    # (2112 tasks, one a warp), and just above
+    (1, 67583, 32, 128, 10),
+    (1, 67585, 32, 128, 10),
 ])
 def test_gmm_head_kernel_matches_plain(cuda, B, T, D, F, C):
     args = _inputs(B, T, D, F, C)
@@ -108,11 +124,21 @@ def _assert_grad_close(got, want, name):
 
 BWD_SHAPES = [
     (200, 102, 32, 128, 10),    # the training step's target call
+    (100, 102, 32, 128, 10),    # the eval's target shape
     (2, 1, 32, 128, 10),        # fewer rows than one block
+    (1, 1, 32, 128, 10),        # one row
     (3, 37, 16, 32, 4),         # D=16, ragged rows
+    (2, 37, 32, 32, 4),         # F=32, C=4
     (5, 300, 64, 256, 3),       # D=64, shared memory above 48 KB
+    (2, 37, 64, 128, 10),       # D=64 at the flagship's F and C
     (1, 513, 64, 64, 1),        # one component
     (4, 129, 16, 96, 7),        # F not a power of two
+    # on 132 SMs a CTA's range is whole 32-row steps: 4224 rows are 132
+    # ranges of 32; one row fewer leaves the last range ragged, one more
+    # makes the ranges 64 rows
+    (1, 4223, 32, 128, 10),
+    (33, 128, 32, 128, 10),
+    (1, 4225, 32, 128, 10),
 ]
 
 
@@ -151,6 +177,20 @@ def test_gmm_head_autograd_runs_both_kernels(cuda):
     ghk.gmm_head_fwd_plain(*ref).square().sum().backward()
     for a, b in zip(args, ref):
         _assert_grad_close(a.grad, b.grad, "autograd")
+
+
+@pytest.mark.parametrize("F", [36, 264])
+def test_gmm_head_kernels_refuse_an_f_they_do_not_take(cuda, F):
+    """F must be a multiple of 8 (the mma tile) and at most 256; the
+    wrappers raise rather than fall back."""
+    z, w1, b1, w2, b2 = _inputs(2, 9, 32, F, 4)
+    g = torch.randn(2, 9, 4, 3, device="cuda")
+    before = dict(ghk.LAUNCHES)
+    with pytest.raises(ValueError, match="F"):
+        ghk.gmm_head_fwd(z, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="F"):
+        ghk.gmm_head_bwd(z, w1, b1, w2, g)
+    assert ghk.LAUNCHES == before
 
 
 def test_gmm_head_backward_kernel_rejects_what_it_does_not_take(cuda):
