@@ -10,12 +10,15 @@ Ported so far (GP active learning: amortized inference and training):
 - ``aline_tpu_torch.config``        run-config dataclasses, JSON loader,
                                     ``key=value`` overrides, GP presets
 - ``aline_tpu_torch.ops``           role masks, compact attention, target
-                                    masks, and the fused GMM-head forward
-                                    and backward CUDA kernels
+                                    masks, and the CUDA kernels: the fused
+                                    GMM-head forward and backward, the
+                                    role-masked flash attention (float32
+                                    and bfloat16) and its plan
 - ``aline_tpu_torch.distributions`` GMM log-density, mean, variance
 - ``aline_tpu_torch.tasks``         the GP task and the static-shape Batch
 - ``aline_tpu_torch.models``        embedder / encoder / heads / Aline, with
-                                    flax's initialisers
+                                    flax's initialisers, computing in the
+                                    run's dtype (float32 or bfloat16)
 - ``aline_tpu_torch.eval``          AL curves and posterior metrics
 - ``aline_tpu_torch.train``         rollout, REINFORCE + NLL loss, two-phase
                                     AdamW, checkpoints, the Trainer

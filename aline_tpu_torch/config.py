@@ -40,9 +40,8 @@ class HeadConfig:
     continuous: bool = False
     policy_log_std_min: float = -20.0
     policy_log_std_max: float = 2.0
-    # Read but not acted on: the port's GMM head always goes through
-    # ops.gmm_head_kernel (the CUDA kernel on the card, the plain version
-    # on the CPU).
+    # "auto" | "on" | "off": which token sets take the GMM kernel
+    # (models/heads.py GMMTargetHead)
     fused_gmm: str = "auto"
 
 

@@ -1,4 +1,5 @@
-// Role-masked flash-attention backward for Hopper (sm_90a), float32.
+// Role-masked flash-attention backward for Hopper (sm_90a), float32 and
+// bfloat16.
 //
 // Replaces the Pallas TPU kernel aline_tpu/ops/flash_attention.py:65
 // (_bwd_kernel, entered through _flash_bwd).  From q, k, v, the forward's O
@@ -49,6 +50,17 @@
 // masked_score (flash_attn_common.cuh), so they recompute the forward's
 // scores bit for bit.
 
+// bfloat16 (flash_attn_bwd_bf16): q, k, v, O, dO, dQ, dK and dV in
+// bfloat16, lse and D in float32.  Elements are widened to float32 as they
+// are read, every product and sum is float32, and dQ, dK and dV are
+// rounded once each where they are stored.  D_i, the float32 sum of the
+// widened products dO_id O_id, is rounded to bfloat16, as the TPU kernel's
+// bfloat16 sum(do * o) is (XLA sums it in float32 and rounds once).  The TPU kernel sums dK and dV into bfloat16 outputs,
+// one rounding per block of bq rows (3 at N = 303, 17 at N = 2103); here
+// each column's sums run in float32 over all its rows, so the kernel is
+// the more accurate of the two and differs from the TPU's and the plain
+// version's per-block sums by those roundings.
+
 #include <cuda_runtime.h>
 #include <limits.h>
 
@@ -59,20 +71,19 @@ namespace {
 using namespace flash;
 
 // Pass 1: dQ and D, one thread group per row.
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, const Plan plan,
-                         const float* __restrict__ o,
+flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const Plan plan,
+                         const T* __restrict__ o,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dout,
-                         float* __restrict__ dq, float* __restrict__ delta,
-                         int H, int N, float scale, int n_blocks) {
+                         const T* __restrict__ dout, T* __restrict__ dq,
+                         float* __restrict__ delta, int H, int N,
+                         float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
-  __shared__ __align__(16) float ks[2][TILE * DH];
-  __shared__ __align__(16) float vs[2][TILE * DH];
+  __shared__ __align__(16) T ks[2][TILE * DH];
+  __shared__ __align__(16) T vs[2][TILE * DH];
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
@@ -83,17 +94,17 @@ flash_attn_bwd_dq_kernel(const float* __restrict__ q,
   const int i = live ? pr.row_perm[r] : 0;
   const size_t head = (size_t)bh * N * DH;
   const size_t row = head + (size_t)i * DH + part * DPT;
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
 
   float qr[DPT], dor[DPT], acc[DPT];
-  load_dims<DPT / 4>(qr, q + row, live);
-  load_dims<DPT / 4>(dor, dout + row, live);
-  load_dims<DPT / 4>(acc, o + row, live);       // O_i, for D_i only
+  load_dims<DPT>(qr, q + row, live);
+  load_dims<DPT>(dor, dout + row, live);
+  load_dims<DPT>(acc, o + row, live);           // O_i, for D_i only
   float d_i = 0.f;
 #pragma unroll
   for (int d = 0; d < DPT; ++d) d_i = fmaf(dor[d], acc[d], d_i);
-  d_i = group_sum<G>(d_i);
+  d_i = rounded<T>(group_sum<G>(d_i));     // as the TPU kernel's sum
 #pragma unroll
   for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
   const float lse_i = live ? lse[(size_t)bh * N + i] : 0.f;
@@ -114,39 +125,37 @@ flash_attn_bwd_dq_kernel(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float4* k4 = reinterpret_cast<const float4*>(ks[t & 1]);
-    const float4* v4 = reinterpret_cast<const float4*>(vs[t & 1]);
+    const T* kt = ks[t & 1] + part * DPT;       // the lane's dims of a row
+    const T* vt = vs[t & 1] + part * DPT;
     const int n = min(TILE, warp_keys - j0);    // uniform in the warp
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
-      const float4* kr = k4 + j * (DH / 4) + part * (DPT / 4);
-      const float4* vr = v4 + j * (DH / 4) + part * (DPT / 4);
+      const T* kr = kt + j * DH;
       const float s = masked_score<DH>(qr, kr, scale, pr.code(j0 + j),
                                        is_query);
       const float p = expf(s - lse_i);
-      const float dp = group_sum<G>(dot_dims<DPT / 4>(dor, vr));
-      axpy_dims<DPT / 4>(acc, p * (dp - d_i), kr);
+      const float dp = group_sum<G>(dot_dims<DPT>(dor, vt + j * DH));
+      axpy_dims<DPT>(acc, p * (dp - d_i), kr);
     }
     __syncthreads();
   }
-  if (live) store_dims<DPT / 4>(dq + row, acc, scale);
+  if (live) store_dims<DPT>(dq + row, acc, scale);
 }
 
 // Pass 2: dK and dV, one thread group per key column.
-template <int DH>
+template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkdv_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, const Plan plan,
+flash_attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const Plan plan,
                            const float* __restrict__ lse,
-                           const float* __restrict__ dout,
+                           const T* __restrict__ dout,
                            const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv,
-                           int H, int N, float scale, int n_blocks) {
+                           T* __restrict__ dk, T* __restrict__ dv, int H,
+                           int N, float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
-  __shared__ __align__(16) float qs[2][TILE * DH];
-  __shared__ __align__(16) float dos[2][TILE * DH];
+  __shared__ __align__(16) T qs[2][TILE * DH];
+  __shared__ __align__(16) T dos[2][TILE * DH];
   __shared__ float lses[2][TILE];
   __shared__ float deltas[2][TILE];
 
@@ -160,14 +169,14 @@ flash_attn_bwd_dkdv_kernel(const float* __restrict__ q,
   const int kc = live ? pr.code(p) : 0;
   const size_t head = (size_t)bh * N * DH;
   const size_t col = head + (size_t)j * DH + part * DPT;
-  const float* qh = q + head;
-  const float* doh = dout + head;
+  const T* qh = q + head;
+  const T* doh = dout + head;
   const float* lseh = lse + (size_t)bh * N;
   const float* deltah = delta + (size_t)bh * N;
 
   float kr[DPT], vr[DPT], dkr[DPT], dvr[DPT];
-  load_dims<DPT / 4>(kr, k + col, live);
-  load_dims<DPT / 4>(vr, v + col, live);
+  load_dims<DPT>(kr, k + col, live);
+  load_dims<DPT>(vr, v + col, live);
 #pragma unroll
   for (int d = 0; d < DPT; ++d) dkr[d] = dvr[d] = 0.f;
 
@@ -193,56 +202,88 @@ flash_attn_bwd_dkdv_kernel(const float* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const float4* q4 = reinterpret_cast<const float4*>(qs[t & 1]);
-    const float4* d4 = reinterpret_cast<const float4*>(dos[t & 1]);
+    const T* qt = qs[t & 1] + part * DPT;       // the lane's dims of a row
+    const T* gt = dos[t & 1] + part * DPT;
     const float* lt = lses[t & 1];
     const float* dt = deltas[t & 1];
     const int n = min(TILE, warp_rows - i0);    // uniform in the warp
 #pragma unroll 4
     for (int i = 0; i < n; ++i) {
-      const float4* qi = q4 + i * (DH / 4) + part * (DPT / 4);
-      const float4* di = d4 + i * (DH / 4) + part * (DPT / 4);
+      const T* qi = qt + i * DH;
+      const T* di = gt + i * DH;
       const float s = masked_score<DH>(kr, qi, scale, kc,
                                        i0 + i < pr.n_query);
       const float pij = expf(s - lt[i]);
-      axpy_dims<DPT / 4>(dvr, pij, di);
-      const float dp = group_sum<G>(dot_dims<DPT / 4>(vr, di));
-      axpy_dims<DPT / 4>(dkr, pij * (dp - dt[i]), qi);
+      axpy_dims<DPT>(dvr, pij, di);
+      const float dp = group_sum<G>(dot_dims<DPT>(vr, di));
+      axpy_dims<DPT>(dkr, pij * (dp - dt[i]), qi);
     }
     __syncthreads();
   }
   if (!live) return;
-  store_dims<DPT / 4>(dk + col, dkr, scale);
-  store_dims<DPT / 4>(dv + col, dvr, 1.f);
+  store_dims<DPT>(dk + col, dkr, scale);
+  store_dims<DPT>(dv + col, dvr, 1.f);
 }
 
-template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const Plan& plan, const float* o, const float* lse,
-                   const float* dout, float* dq, float* dk, float* dv,
-                   float* delta, int B, int H, int N, float scale,
+template <int DH, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
+                   const T* o, const float* lse, const T* dout, T* dq, T* dk,
+                   T* dv, float* delta, int B, int H, int N, float scale,
                    cudaStream_t stream) {
   constexpr int ROWS = Split<DH>::ROWS;
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  flash_attn_bwd_dq_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
+  flash_attn_bwd_dq_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
       q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // same stream: pass 2 reads the D that pass 1 wrote
-  flash_attn_bwd_dkdv_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
+  flash_attn_bwd_dkdv_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
       q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
   return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* key_perm,
+        const void* row_perm, const void* n_ctx, const void* n_vis,
+        const void* n_query, const void* dense, const void* o,
+        const void* lse, const void* dout, void* dq, void* dk, void* dv,
+        void* delta, int B, int H, int N, int dh, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0) return 0;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const Plan plan{static_cast<const int*>(key_perm),
+                  static_cast<const int*>(row_perm),
+                  static_cast<const int*>(n_ctx), static_cast<const int*>(n_vis),
+                  static_cast<const int*>(n_query),
+                  static_cast<const int*>(dense)};
+  const T* ot = static_cast<const T*>(o);
+  const float* lf = static_cast<const float*>(lse);
+  const T* gt = static_cast<const T*>(dout);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  float* df = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 8: return launch<8>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
+    case 16: return launch<16>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
+    case 32: return launch<32>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
+    case 64: return launch<64>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  All pointers are device pointers to
 // contiguous, 16-byte aligned arrays: q, k, v, o, dout, dq, dk, dv
-// [B, H, N, dh] and lse, delta (scratch for D) [B, H, N] float32; the
-// plan's key_perm, row_perm [B, N] and n_ctx, n_vis, n_query, dense [B]
-// int32 (flash_plan.cu).  Returns the cudaError_t of the launches (0 =
+// [B, H, N, dh] (float32 in flash_attn_bwd, bfloat16 in
+// flash_attn_bwd_bf16) and lse, delta (scratch for D) [B, H, N] float32;
+// the plan's key_perm, row_perm [B, N] and n_ctx, n_vis, n_query, dense
+// [B] int32 (flash_plan.cu).  Returns the cudaError_t of the launches (0 =
 // launched).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* key_perm, const void* row_perm,
@@ -252,28 +293,21 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* dout, void* dq, void* dk, void* dv,
                               void* delta, int B, int H, int N, int dh,
                               float scale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0) return 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const Plan plan{static_cast<const int*>(key_perm),
-                  static_cast<const int*>(row_perm),
-                  static_cast<const int*>(n_ctx), static_cast<const int*>(n_vis),
-                  static_cast<const int*>(n_query),
-                  static_cast<const int*>(dense)};
-  const float* of = static_cast<const float*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  const float* gf = static_cast<const float*>(dout);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  float* df = static_cast<float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 8: return launch<8>(qf, kf, vf, plan, of, lf, gf, dqf, dkf, dvf, df, B, H, N, scale, s);
-    case 16: return launch<16>(qf, kf, vf, plan, of, lf, gf, dqf, dkf, dvf, df, B, H, N, scale, s);
-    case 32: return launch<32>(qf, kf, vf, plan, of, lf, gf, dqf, dkf, dvf, df, B, H, N, scale, s);
-    case 64: return launch<64>(qf, kf, vf, plan, of, lf, gf, dqf, dkf, dvf, df, B, H, N, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run<float>(q, k, v, key_perm, row_perm, n_ctx, n_vis, n_query, dense,
+                    o, lse, dout, dq, dk, dv, delta, B, H, N, dh, scale,
+                    stream);
+}
+
+extern "C" int flash_attn_bwd_bf16(const void* q, const void* k,
+                                   const void* v, const void* key_perm,
+                                   const void* row_perm, const void* n_ctx,
+                                   const void* n_vis, const void* n_query,
+                                   const void* dense, const void* o,
+                                   const void* lse, const void* dout,
+                                   void* dq, void* dk, void* dv, void* delta,
+                                   int B, int H, int N, int dh, float scale,
+                                   void* stream) {
+  return run<bf16>(q, k, v, key_perm, row_perm, n_ctx, n_vis, n_query, dense,
+                   o, lse, dout, dq, dk, dv, delta, B, H, N, dh, scale,
+                   stream);
 }

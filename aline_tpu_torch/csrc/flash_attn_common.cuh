@@ -14,9 +14,16 @@
 // masked_score below, so the backward's passes recompute the forward's
 // scores bit for bit: the same FMA order within a lane and the same
 // xor-shuffle tree across the group.
+//
+// The arrays of q, k, v, O, dO and the gradients hold T = float or
+// __nv_bfloat16; every helper below that reads or writes them takes either.
+// A bfloat16 element is widened to float32 where it is read (exact), all
+// arithmetic is float32, and a bfloat16 output is rounded once, to nearest
+// even, where it is stored.  lse and D stay float32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -30,9 +37,11 @@ struct Split {
   static constexpr int G = DH / DPT;             // lanes per row or column
   static constexpr int ROWS = kThreads / G;      // rows or columns per CTA
   // keys (or rows) per shared-memory stage: two stages of two [TILE, DH]
-  // float arrays stay within 32 KB
+  // float arrays stay within 32 KB (16 KB in bfloat16)
   static constexpr int TILE = DH <= 32 ? 64 : 32;
 };
+
+using bf16 = __nv_bfloat16;
 
 // The plan of one batch's mask, as flash_plan.cu writes it (device pointers).
 struct Plan {
@@ -106,18 +115,62 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Gather rows perm[p0 .. p0+n) of the [N, DH] arrays a and b (one (b, h)
-// head) into shared memory as [n, DH] each, by 16-byte cp.async copies.
-template <int DH>
-__device__ __forceinline__ void gather_rows(float* sa, float* sb,
-                                            const float* a, const float* b,
-                                            const int* perm, int p0, int n) {
-  constexpr int V4 = DH / 4;
-  for (int t = threadIdx.x; t < n * V4; t += kThreads) {
-    const int s = t / V4, c = t - s * V4;
-    const size_t src = (size_t)perm[p0 + s] * DH + 4 * c;
-    cp_async16(sa + s * DH + 4 * c, a + src);
-    cp_async16(sb + s * DH + 4 * c, b + src);
+// head) into shared memory as [n, DH] each, by 16-byte cp.async copies: a
+// row is DH/4 copies in float32, DH/8 in bfloat16 (one at DH = 8).
+template <int DH, typename T>
+__device__ __forceinline__ void gather_rows(T* sa, T* sb, const T* a,
+                                            const T* b, const int* perm,
+                                            int p0, int n) {
+  constexpr int E = 16 / sizeof(T);   // elements a copy
+  constexpr int V = DH / E;           // copies a row
+  for (int t = threadIdx.x; t < n * V; t += kThreads) {
+    const int s = t / V, c = t - s * V;
+    const size_t src = (size_t)perm[p0 + s] * DH + E * c;
+    cp_async16(sa + s * DH + E * c, a + src);
+    cp_async16(sb + s * DH + E * c, b + src);
   }
+}
+
+// -- reading and writing a lane's dims ---------------------------------------
+
+// the 8 bfloat16 of a 16-byte word, widened
+__device__ __forceinline__ void widen8(float* dst, const uint4& w) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    dst[2 * e + 0] = f.x;
+    dst[2 * e + 1] = f.y;
+  }
+}
+
+// 8 floats rounded to bfloat16, as one 16-byte word
+__device__ __forceinline__ uint4 narrow8(const float* src, float mul) {
+  uint4 w;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    h[e] = __floats2bfloat162_rn(src[2 * e + 0] * mul, src[2 * e + 1] * mul);
+  return w;
+}
+
+// x rounded to T and widened back: the identity for float
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float rounded<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// DPT bfloat16 at src (16-byte aligned, shared or global) as floats
+template <int DPT>
+__device__ __forceinline__ void widen_dims(float* dst, const bf16* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int c = 0; c < DPT / 8; ++c) widen8(dst + 8 * c, s[c]);
 }
 
 // -- the score routine --------------------------------------------------------
@@ -130,12 +183,13 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <int N4>
+// a lane's DPT dims from global memory (zeros where the row is not live)
+template <int DPT>
 __device__ __forceinline__ void load_dims(float* dst, const float* src,
                                           bool live) {
   const float4* s = reinterpret_cast<const float4*>(src);
 #pragma unroll
-  for (int d4 = 0; d4 < N4; ++d4) {
+  for (int d4 = 0; d4 < DPT / 4; ++d4) {
     const float4 x = live ? s[d4] : make_float4(0.f, 0.f, 0.f, 0.f);
     dst[4 * d4 + 0] = x.x;
     dst[4 * d4 + 1] = x.y;
@@ -144,23 +198,45 @@ __device__ __forceinline__ void load_dims(float* dst, const float* src,
   }
 }
 
-template <int N4>
+template <int DPT>
+__device__ __forceinline__ void load_dims(float* dst, const bf16* src,
+                                          bool live) {
+  if (live) {
+    widen_dims<DPT>(dst, src);
+  } else {
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) dst[d] = 0.f;
+  }
+}
+
+// dst[d] = src[d] * mul over a lane's DPT dims, in global memory
+template <int DPT>
 __device__ __forceinline__ void store_dims(float* dst, const float* src,
                                            float mul) {
   float4* d = reinterpret_cast<float4*>(dst);
 #pragma unroll
-  for (int d4 = 0; d4 < N4; ++d4)
+  for (int d4 = 0; d4 < DPT / 4; ++d4)
     d[d4] = make_float4(src[4 * d4 + 0] * mul, src[4 * d4 + 1] * mul,
                         src[4 * d4 + 2] * mul, src[4 * d4 + 3] * mul);
 }
 
-// sum over the lane's dims of a[d] * row[d], in one fixed order
-template <int N4>
-__device__ __forceinline__ float dot_dims(const float* a, const float4* row) {
+template <int DPT>
+__device__ __forceinline__ void store_dims(bf16* dst, const float* src,
+                                           float mul) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int c = 0; c < DPT / 8; ++c) d[c] = narrow8(src + 8 * c, mul);
+}
+
+// sum over the lane's dims of a[d] * row[d], in one fixed order; row is in
+// shared memory
+template <int DPT>
+__device__ __forceinline__ float dot_dims(const float* a, const float* row) {
+  const float4* r = reinterpret_cast<const float4*>(row);
   float dot = 0.f;
 #pragma unroll
-  for (int d4 = 0; d4 < N4; ++d4) {
-    const float4 w = row[d4];
+  for (int d4 = 0; d4 < DPT / 4; ++d4) {
+    const float4 w = r[d4];
     dot = fmaf(a[4 * d4 + 0], w.x, dot);
     dot = fmaf(a[4 * d4 + 1], w.y, dot);
     dot = fmaf(a[4 * d4 + 2], w.z, dot);
@@ -169,13 +245,24 @@ __device__ __forceinline__ float dot_dims(const float* a, const float4* row) {
   return dot;
 }
 
-// acc[d] += p * row[d] over the lane's dims
-template <int N4>
-__device__ __forceinline__ void axpy_dims(float* acc, float p,
-                                          const float4* row) {
+template <int DPT>
+__device__ __forceinline__ float dot_dims(const float* a, const bf16* row) {
+  float w[DPT];
+  widen_dims<DPT>(w, row);
+  float dot = 0.f;
 #pragma unroll
-  for (int d4 = 0; d4 < N4; ++d4) {
-    const float4 w = row[d4];
+  for (int d = 0; d < DPT; ++d) dot = fmaf(a[d], w[d], dot);
+  return dot;
+}
+
+// acc[d] += p * row[d] over the lane's dims; row is in shared memory
+template <int DPT>
+__device__ __forceinline__ void axpy_dims(float* acc, float p,
+                                          const float* row) {
+  const float4* r = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int d4 = 0; d4 < DPT / 4; ++d4) {
+    const float4 w = r[d4];
     acc[4 * d4 + 0] = fmaf(p, w.x, acc[4 * d4 + 0]);
     acc[4 * d4 + 1] = fmaf(p, w.y, acc[4 * d4 + 1]);
     acc[4 * d4 + 2] = fmaf(p, w.z, acc[4 * d4 + 2]);
@@ -183,16 +270,25 @@ __device__ __forceinline__ void axpy_dims(float* acc, float p,
   }
 }
 
+template <int DPT>
+__device__ __forceinline__ void axpy_dims(float* acc, float p,
+                                          const bf16* row) {
+  float w[DPT];
+  widen_dims<DPT>(w, row);
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) acc[d] = fmaf(p, w[d], acc[d]);
+}
+
 // The score of (row, key): (a . b) * scale from the group's lanes, replaced
 // by -1e9 where the role codes mask the pair.  kc is the key's code, and
 // is_query whether the row is a query row.  Every lane of the warp must
 // call it together (it shuffles).
-template <int DH>
-__device__ __forceinline__ float masked_score(const float* a, const float4* b,
+template <int DH, typename T>
+__device__ __forceinline__ float masked_score(const float* a, const T* b,
                                               float scale, int kc,
                                               bool is_query) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
-  const float s = group_sum<G>(dot_dims<DPT / 4>(a, b)) * scale;
+  const float s = group_sum<G>(dot_dims<DPT>(a, b)) * scale;
   return (kc == 1 || (is_query && kc == 2)) ? s : kNeg;
 }
 

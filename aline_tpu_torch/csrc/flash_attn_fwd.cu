@@ -1,4 +1,5 @@
-// Role-masked flash-attention forward for Hopper (sm_90a), float32.
+// Role-masked flash-attention forward for Hopper (sm_90a), float32 and
+// bfloat16.
 //
 // Replaces the Pallas TPU kernel aline_tpu/ops/flash_attention.py:43
 // (_fwd_kernel, entered through flash_role_attention and _flash_fwd).  For
@@ -43,6 +44,13 @@
 //    and the row sum are rescaled once per chunk.
 //  * The score comes from masked_score (flash_attn_common.cuh), which the
 //    backward's passes call too.
+//
+// bfloat16 (flash_attn_fwd_bf16) is the same kernel with q, k, v and O in
+// bfloat16, as the TPU kernel runs with bfloat16 operands: a key row at
+// dh = 8 is 16 bytes, one cp.async, and the ring's stages hold bfloat16,
+// half the bytes a tile.  An element is widened to float32 as it is read;
+// the scores, the online softmax, the accumulator and lse are float32, and
+// O is rounded once to bfloat16 where it is stored.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -53,17 +61,37 @@ namespace {
 
 using namespace flash;
 
-template <int DH>
+// O_i = acc / l over a lane's dims, stored as T
+template <int DPT>
+__device__ __forceinline__ void store_out(float* dst, const float* acc,
+                                          float l) {
+  float4* d = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int d4 = 0; d4 < DPT / 4; ++d4)
+    d[d4] = make_float4(acc[4 * d4 + 0] / l, acc[4 * d4 + 1] / l,
+                        acc[4 * d4 + 2] / l, acc[4 * d4 + 3] / l);
+}
+
+template <int DPT>
+__device__ __forceinline__ void store_out(bf16* dst, const float* acc,
+                                          float l) {
+  float out[DPT];
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) out[d] = acc[d] / l;
+  store_dims<DPT>(dst, out, 1.f);
+}
+
+template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const Plan plan,
-                      float* __restrict__ o, float* __restrict__ lse, int H,
+flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const Plan plan,
+                      T* __restrict__ o, float* __restrict__ lse, int H,
                       int N, int n_pad, float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
   constexpr int kChunk = DH <= 16 ? 16 : 8;
-  __shared__ __align__(16) float ks[2][TILE * DH];
-  __shared__ __align__(16) float vs[2][TILE * DH];
+  __shared__ __align__(16) T ks[2][TILE * DH];
+  __shared__ __align__(16) T vs[2][TILE * DH];
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
@@ -73,11 +101,11 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool live = r < N;
   const int i = live ? pr.row_perm[r] : 0;
   const size_t head = (size_t)bh * N * DH;          // (b, h) in q, k, v, o
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
 
   float qr[DPT], acc[DPT];
-  load_dims<DPT / 4>(qr, q + head + (size_t)i * DH + part * DPT, live);
+  load_dims<DPT>(qr, q + head + (size_t)i * DH + part * DPT, live);
 #pragma unroll
   for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
   const bool is_query = r < pr.n_query;
@@ -98,8 +126,8 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();                         // tile t has landed
     __syncthreads();
-    const float4* k4 = reinterpret_cast<const float4*>(ks[t & 1]);
-    const float4* v4 = reinterpret_cast<const float4*>(vs[t & 1]);
+    const T* kt = ks[t & 1] + part * DPT;       // the lane's dims of a row
+    const T* vt = vs[t & 1] + part * DPT;
     const int n = min(TILE, warp_keys - j0);    // uniform in the warp
     for (int c0 = 0; c0 < n; c0 += kChunk) {
       float s[kChunk];
@@ -108,9 +136,8 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int u = 0; u < kChunk; ++u) {
         s[u] = kNeg;
         if (c0 + u < n) {                       // uniform: shuffles are safe
-          s[u] = masked_score<DH>(
-              qr, k4 + (c0 + u) * (DH / 4) + part * (DPT / 4), scale,
-              pr.code(j0 + c0 + u), is_query);
+          s[u] = masked_score<DH>(qr, kt + (c0 + u) * DH, scale,
+                                  pr.code(j0 + c0 + u), is_query);
           mc = fmaxf(mc, s[u]);
         }
       }
@@ -125,8 +152,7 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (c0 + u < n) {
           const float p = expf(s[u] - m);
           l += p;
-          axpy_dims<DPT / 4>(acc, p,
-                             v4 + (c0 + u) * (DH / 4) + part * (DPT / 4));
+          axpy_dims<DPT>(acc, p, vt + (c0 + u) * DH);
         }
       }
     }
@@ -135,57 +161,74 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the padded columns: score -1e9, v = 0 (adds 0 unless the row is blind)
   l += (float)n_pad * expf(kNeg - m);
   if (!live) return;
-  float4* dst = reinterpret_cast<float4*>(o + head + (size_t)i * DH + part * DPT);
-#pragma unroll
-  for (int d4 = 0; d4 < DPT / 4; ++d4)
-    dst[d4] = make_float4(acc[4 * d4 + 0] / l, acc[4 * d4 + 1] / l,
-                          acc[4 * d4 + 2] / l, acc[4 * d4 + 3] / l);
+  store_out<DPT>(o + head + (size_t)i * DH + part * DPT, acc, l);
   if (part == 0) lse[(size_t)bh * N + i] = m + logf(l);
 }
 
-template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const Plan& plan, float* o, float* lse, int B, int H,
-                   int N, int n_pad, float scale, cudaStream_t stream) {
+template <int DH, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
+                   T* o, float* lse, int B, int H, int N, int n_pad,
+                   float scale, cudaStream_t stream) {
   constexpr int ROWS = Split<DH>::ROWS;
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  flash_attn_fwd_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
+  flash_attn_fwd_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
       q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
   return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* key_perm,
+        const void* row_perm, const void* n_ctx, const void* n_vis,
+        const void* n_query, const void* dense, void* o, void* lse, int B,
+        int H, int N, int n_pad, int dh, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0) return 0;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const Plan plan{static_cast<const int*>(key_perm),
+                  static_cast<const int*>(row_perm),
+                  static_cast<const int*>(n_ctx), static_cast<const int*>(n_vis),
+                  static_cast<const int*>(n_query),
+                  static_cast<const int*>(dense)};
+  T* ot = static_cast<T*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 8: return launch<8>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
+    case 16: return launch<16>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
+    case 32: return launch<32>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
+    case 64: return launch<64>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  All pointers are device pointers to
-// contiguous, 16-byte aligned arrays: q, k, v, o [B, H, N, dh] and lse
-// [B, H, N] float32; the plan's key_perm, row_perm [B, N] and n_ctx,
-// n_vis, n_query, dense [B] int32 (flash_plan.cu).  n_pad = Np - N.
-// Returns the cudaError_t of the launch (0 = launched).
+// contiguous, 16-byte aligned arrays: q, k, v, o [B, H, N, dh] (float32 in
+// flash_attn_fwd, bfloat16 in flash_attn_fwd_bf16) and lse [B, H, N]
+// float32; the plan's key_perm, row_perm [B, N] and n_ctx, n_vis,
+// n_query, dense [B] int32 (flash_plan.cu).  n_pad = Np - N.  Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* key_perm, const void* row_perm,
                               const void* n_ctx, const void* n_vis,
                               const void* n_query, const void* dense, void* o,
                               void* lse, int B, int H, int N, int n_pad,
                               int dh, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0) return 0;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const Plan plan{static_cast<const int*>(key_perm),
-                  static_cast<const int*>(row_perm),
-                  static_cast<const int*>(n_ctx), static_cast<const int*>(n_vis),
-                  static_cast<const int*>(n_query),
-                  static_cast<const int*>(dense)};
-  float* of = static_cast<float*>(o);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 8: return launch<8>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
-    case 16: return launch<16>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
-    case 32: return launch<32>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
-    case 64: return launch<64>(qf, kf, vf, plan, of, lf, B, H, N, n_pad, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run<float>(q, k, v, key_perm, row_perm, n_ctx, n_vis, n_query, dense,
+                    o, lse, B, H, N, n_pad, dh, scale, stream);
+}
+
+extern "C" int flash_attn_fwd_bf16(const void* q, const void* k,
+                                   const void* v, const void* key_perm,
+                                   const void* row_perm, const void* n_ctx,
+                                   const void* n_vis, const void* n_query,
+                                   const void* dense, void* o, void* lse,
+                                   int B, int H, int N, int n_pad, int dh,
+                                   float scale, void* stream) {
+  return run<bf16>(q, k, v, key_perm, row_perm, n_ctx, n_vis, n_query, dense,
+                   o, lse, B, H, N, n_pad, dh, scale, stream);
 }

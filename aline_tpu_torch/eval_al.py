@@ -4,7 +4,10 @@
 Loads a trained run's config and its exported parameters, rolls out the
 amortized policy and the baseline strategies on fresh GP batches, prints
 the final log-prob and RMSE per strategy, and saves the per-step curves to
-``<run_dir>/eval/al_curves.npz``.
+``<run_dir>/eval/al_curves.npz``.  The model computes in the run's
+``dtype`` (bfloat16 for every committed checkpoint); to evaluate a run in
+float32, point RUN_DIR at a copy of its directory whose config.json says
+``"dtype": "float32"``.
 
 Usage:
     python -m aline_tpu_torch.eval_al RUN_DIR [--params NPZ]
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from aline_tpu_torch.eval.al_curves import compare_strategies
+from aline_tpu_torch.models.aline import compute_dtype
 from aline_tpu_torch.tasks import build_task
 from aline_tpu_torch.utils.serialization import AL1D_200K_PARAMS, load_model
 
@@ -60,6 +64,8 @@ def main(argv=None):
         raise NotImplementedError("--benchmark is not ported yet")
     cfg, model = load_model(args.run_dir, args.params, args.device)
     device = next(model.parameters()).device
+    print(f"computing in {compute_dtype(cfg)} (the run's dtype="
+          f"{cfg.dtype}) on {device}")
     task = build_task(cfg.task)
     seeds = ([int(s) for s in args.seeds.split(",")] if args.seeds
              else [args.seed])

@@ -61,12 +61,23 @@ class Aline(nn.Module):
                          time_offset=t_off)
 
 
-def build_model(cfg: Config, device) -> Aline:
-    """The model of a run config, in float32, on ``device``.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    Runs trained with ``dtype=bfloat16`` are evaluated in float32 here;
-    bfloat16 compute is not ported yet.
-    """
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The model's compute dtype: ``cfg.dtype`` where it is not float32,
+    else ``cfg.encoder.dtype``, as the JAX ``build_model`` sets it."""
+    name = cfg.dtype if cfg.dtype != "float32" else cfg.encoder.dtype
+    if name not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"dtype={name!r}; the port computes in "
+                                  f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def build_model(cfg: Config, device) -> Aline:
+    """The model of a run config on ``device``: float32 parameters,
+    computing in ``compute_dtype(cfg)`` (the embedder, the encoder and both
+    heads), as the JAX model does."""
     if cfg.head.continuous or cfg.head.single_head or cfg.head.value_head:
         raise NotImplementedError(
             "continuous, single_head and value heads are not ported yet")
@@ -75,14 +86,16 @@ def build_model(cfg: Config, device) -> Aline:
     if cfg.task.dim_y != 1:
         raise NotImplementedError("the GMM head takes scalar targets")
     enc = cfg.encoder
+    dtype = compute_dtype(cfg)
     embedder = Embedder(
         dim_x=cfg.task.dim_x, dim_y=cfg.task.dim_y,
         dim_embedding=enc.dim_embedding, dim_feedforward=enc.dim_feedforward,
         n_target_theta=(cfg.task.n_target_theta
                         if cfg.task.embedding_type in ("theta", "mix")
                         else 0),
-        embedding_type=cfg.task.embedding_type, device=device)
+        embedding_type=cfg.task.embedding_type, dtype=dtype, device=device)
     head = OutputHead(enc.dim_embedding, enc.dim_feedforward,
                       cfg.head.num_components, cfg.head.std_min,
-                      cfg.time_token, device)
-    return Aline(embedder, Encoder(enc, device), head)
+                      cfg.time_token, device, dtype=dtype,
+                      fused_gmm=cfg.head.fused_gmm)
+    return Aline(embedder, Encoder(enc, device, dtype), head)

@@ -5,6 +5,10 @@ add → norm) whose attention obeys the ALINE role mask, through one of
 three cores: compact keys, the flash kernels, or a dense bias (naive).
 An optional global time token, ``time_proj(t)``, leads the sequence.
 LayerNorm uses flax's epsilon, 1e-6.
+
+``dtype`` is the compute dtype, as flax's ``dtype``: in bfloat16 the dense
+layers compute as ``Dense`` does, the attention takes bfloat16 q, k and v,
+and each LayerNorm normalises in float32 and rounds once to bfloat16.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from aline_tpu_torch.config import EncoderConfig
+from aline_tpu_torch.models.dense import Dense
 from aline_tpu_torch.models.init import init_dense_
 from aline_tpu_torch.ops.attention import (
     CompactKeys,
@@ -35,13 +40,13 @@ class MultiHeadSelfAttention(nn.Module):
     """MHA with one q‖k‖v projection and a compact, flash or dense-bias
     core, whichever of ``compact``, ``codes`` and ``bias`` it is given."""
 
-    def __init__(self, dim_embedding: int, n_head: int, device=None):
+    def __init__(self, dim_embedding: int, n_head: int,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.n_head = n_head
-        self.qkv_proj = nn.Linear(dim_embedding, 3 * dim_embedding,
-                                  device=device)
-        self.out_proj = nn.Linear(dim_embedding, dim_embedding,
-                                  device=device)
+        self.qkv_proj = Dense(dim_embedding, 3 * dim_embedding, dtype,
+                              device)
+        self.out_proj = Dense(dim_embedding, dim_embedding, dtype, device)
 
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
@@ -68,31 +73,39 @@ class EncoderLayer(nn.Module):
     """Post-norm transformer layer with a relu feed-forward."""
 
     def __init__(self, dim_embedding: int, dim_feedforward: int,
-                 n_head: int, device=None):
+                 n_head: int, dtype=torch.float32, device=None):
         super().__init__()
-        self.self_attn = MultiHeadSelfAttention(dim_embedding, n_head, device)
+        self.dtype = dtype
+        self.self_attn = MultiHeadSelfAttention(dim_embedding, n_head, dtype,
+                                                device)
         self.norm1 = nn.LayerNorm(dim_embedding, eps=LAYER_NORM_EPS,
                                   device=device)
-        self.linear1 = nn.Linear(dim_embedding, dim_feedforward,
-                                 device=device)
-        self.linear2 = nn.Linear(dim_feedforward, dim_embedding,
-                                 device=device)
+        self.linear1 = Dense(dim_embedding, dim_feedforward, dtype, device)
+        self.linear2 = Dense(dim_feedforward, dim_embedding, dtype, device)
         self.norm2 = nn.LayerNorm(dim_embedding, eps=LAYER_NORM_EPS,
                                   device=device)
+
+    def _norm(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        """flax's ``LayerNorm(dtype)``: float32 statistics and
+        normalisation, one rounding to the compute dtype."""
+        return norm(x.float()).to(self.dtype)
 
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
                 compact: Optional[CompactKeys] = None,
                 codes: Optional[tuple] = None) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, roles, bias, compact, codes))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        x = self._norm(self.norm1,
+                       x + self.self_attn(x, roles, bias, compact, codes))
+        return self._norm(self.norm2,
+                          x + self.linear2(torch.relu(self.linear1(x))))
 
 
 class Encoder(nn.Module):
     """``num_layers`` EncoderLayers, registered as ``layer_{i}`` like the
     flax parameter tree, and ``time_proj`` with the time token."""
 
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, device=None,
+                 dtype=torch.float32):
         super().__init__()
         if cfg.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl="
@@ -104,10 +117,11 @@ class Encoder(nn.Module):
         self.impl = cfg.attention_impl
         self.with_time_token = cfg.with_time_token
         if cfg.with_time_token:
-            self.time_proj = nn.Linear(1, cfg.dim_embedding, device=device)
+            self.time_proj = Dense(1, cfg.dim_embedding, dtype, device)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
-                cfg.dim_embedding, cfg.dim_feedforward, cfg.n_head, device))
+                cfg.dim_embedding, cfg.dim_feedforward, cfg.n_head, dtype,
+                device))
         init_dense_(self)
 
     def forward(self, tokens: torch.Tensor, roles: Roles,

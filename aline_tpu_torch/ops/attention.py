@@ -10,7 +10,12 @@
   a column outside the set is masked for every row, and ``exp(-1e9 - m)``
   is 0 in float32.
 
-Scores and softmax run in float32.
+Scores and softmax run in float32.  With bfloat16 q, k and v (the model's
+compute dtype) each einsum runs in bfloat16, summed in float32 and rounded
+once, as XLA's bfloat16 einsum does: the scores are rounded before the
+float32 softmax, the weights are cast to bfloat16 before the product with
+v.  On the card ``resolve_device`` keeps cuBLAS from reducing bfloat16
+products in reduced precision.
 """
 from __future__ import annotations
 

@@ -33,6 +33,16 @@ Np columns (``sum(v) / Np``), where a dense softmax averages over N.  The
 backward recomputes ``P = exp(s - lse)`` from the saved lse on every
 column, masked ones included, as the TPU kernel does.
 
+q, k, v, O and dO are all float32 or all bfloat16; lse and the backward's
+row sums Δ are float32 in both.  In bfloat16 the TPU kernel scores in
+float32 from the bfloat16 operands, accumulates P·V in float32 and rounds
+O and dQ once; it sums dK and dV into bfloat16 outputs, one rounding per
+block of ``block_q(N)`` rows.  The plain versions do the same.  The CUDA
+kernels (separate ``*_bf16`` entry points, counted apart in ``LAUNCHES``)
+widen each element to float32 as they read it and sum dK and dV in float32
+over all rows, rounding once: they differ from the plain backward by its
+per-block roundings.
+
 On a CUDA tensor a wrapper launches its kernel or raises; there is no
 other path.
 """
@@ -48,7 +58,10 @@ from aline_tpu_torch.ops import _build
 
 # Kernel launches since the last reset, by kernel; chip runs read them to
 # show that a path went through the kernels.
-LAUNCHES = {"flash_plan": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0}
+LAUNCHES = {"flash_plan": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
+            "flash_attn_fwd_bf16": 0, "flash_attn_bwd_bf16": 0}
+
+DTYPES = (torch.float32, torch.bfloat16)
 
 DH_SUPPORTED = (8, 16, 32, 64)
 NEG = -1e9
@@ -120,39 +133,61 @@ def flash_plan(kcode, qrow) -> FlashPlan:
 
 
 def _masked_scores(q, k, kcode, qrow):
-    """[B, H, N, Nk] scores ``q·kᵀ/√dh``, replaced by -1e9 where masked."""
+    """[B, H, N, Nk] float32 scores ``q·kᵀ/√dh`` (of bfloat16 q and k
+    widened, not rounded), replaced by -1e9 where masked."""
     kc = kcode[:, None, None, :]
     allowed = (kc == 1) | ((qrow[:, None, :, None] == 1) & (kc == 2))
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     return torch.where(allowed, s, NEG)
 
 
 def flash_attn_fwd_plain(q, k, v, kcode, qrow):
     """The TPU kernel's forward, written literally over the Np padded
-    columns → (O [B, H, N, dh], lse [B, H, N])."""
+    columns → (O [B, H, N, dh] in q's dtype, lse [B, H, N] float32)."""
     pad = padded_len(q.shape[2]) - q.shape[2]
     s = _masked_scores(q, F.pad(k, (0, 0, 0, pad)), F.pad(kcode, (0, pad)),
                        qrow)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, F.pad(v, (0, 0, 0, pad))) / l
-    return o, (m + torch.log(l))[..., 0]
+    o = torch.einsum("bhqk,bhkd->bhqd", p,
+                     F.pad(v, (0, 0, 0, pad)).float()) / l
+    return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do):
-    """The TPU kernel's backward, written literally → (dQ, dK, dV).  The
-    padded columns are left out: their k and v are 0, so they add nothing
-    to dQ, and their dK and dV are discarded."""
+def flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do,
+                         per_block=True):
+    """The TPU kernel's backward, written literally → (dQ, dK, dV) in q's
+    dtype.  The padded columns are left out: their k and v are 0, so they
+    add nothing to dQ, and their dK and dV are discarded.  In bfloat16 the
+    products are float32 from the widened operands, Δ = sum(dO·O) is
+    rounded to bfloat16, and dK and dV are summed block by block of
+    ``block_q(N)`` rows into bfloat16, as the TPU kernel's revisited
+    output blocks sum them; with ``per_block`` False they are summed over
+    all rows in float32 and rounded once, as the CUDA kernel sums them."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = q.dtype
     p = torch.exp(_masked_scores(q, k, kcode, qrow) - lse[..., None])
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
-    delta = torch.sum(do * o, dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    # as XLA fuses the TPU kernel's bfloat16 sum(do * o): float32 products
+    # and sum, rounded once
+    delta = torch.sum(do.float() * o.float(), dim=-1,
+                      keepdim=True).to(dt).float()
     ds = p * (dp - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dq = (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(dt)
+    if dt == torch.float32 or not per_block:
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float()).to(dt)
+        dk = (torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale).to(dt)
+        return dq, dk, dv
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    bq = block_q(q.shape[2])
+    for i in range(0, q.shape[2], bq):
+        rows = slice(i, i + bq)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p[:, :, rows],
+                           do[:, :, rows].float()).to(dt)
+        dk += (torch.einsum("bhqk,bhqd->bhkd", ds[:, :, rows],
+                            q[:, :, rows].float()) * scale).to(dt)
     return dq, dk, dv
 
 
@@ -175,18 +210,23 @@ def _check_codes(kcode, qrow, q=None):
 
 def _check(q, **floats):
     """Shape, dtype, contiguity and device of q and of ``floats``, the
-    [B, H, N, dh] or [B, H, N] float32 tensors beside it."""
+    [B, H, N, dh] tensors beside it, all float32 or all bfloat16, and the
+    [B, H, N] float32 lse."""
     if q.dim() != 4:
         raise ValueError(f"q has shape {tuple(q.shape)}, expected "
                          f"[B, H, N, dh]")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q is {q.dtype}; the flash attention takes "
+                        f"float32 or bfloat16")
     for name, t in (("q", q), *floats.items()):
         shape = q.shape[:3] if name == "lse" else q.shape
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the flash attention "
-                            f"takes float32")
+        want = torch.float32 if name == "lse" else q.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; expected {want} with q "
+                            f"{q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if t.device != q.device:
@@ -206,14 +246,16 @@ def _kernel_device(q) -> bool:
     return True
 
 
-def _launch(name, tensors, *numbers):
-    """Launch kernel ``name`` on the device of ``tensors`` (passed as
-    device pointers, each 16-byte aligned), then ``numbers``."""
+def _launch(name, tensors, *numbers, entry=None):
+    """Launch entry point ``entry`` (default ``name``) of kernel library
+    ``name`` on the device of ``tensors`` (passed as device pointers, each
+    16-byte aligned), then ``numbers``; count it under ``entry``."""
+    entry = entry or name
     ptrs = [t.data_ptr() for t in tensors]
     if any(p % 16 for p in ptrs):
-        raise ValueError(f"a tensor argument of {name} is not 16-byte "
+        raise ValueError(f"a tensor argument of {entry} is not 16-byte "
                          f"aligned")
-    launch = getattr(_build.load(name), name)
+    launch = getattr(_build.load(name), entry)
     device = tensors[0].device
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
@@ -222,8 +264,13 @@ def _launch(name, tensors, *numbers):
         with torch.cuda.device(device):
             err = launch(*ptrs, *numbers, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    LAUNCHES[entry] += 1
+
+
+def _entry(name, q):
+    """The entry point of kernel ``name`` for q's dtype."""
+    return name if q.dtype == torch.float32 else f"{name}_bf16"
 
 
 def _kernel_plan(q, kcode, qrow, plan):
@@ -245,14 +292,14 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     """Role-masked attention forward.
 
     Args:
-        q/k/v: [B, H, N, dh] float32.
+        q/k/v: [B, H, N, dh], all float32 or all bfloat16.
         kcode, qrow: [B, N] int32 codes (module docstring).
         plan: ``flash_plan(kcode, qrow)``, built here if not given.  The
             kernel reads the mask through the plan alone, so a given plan
             must be the one of these codes.
     Returns:
-        (O [B, H, N, dh], lse [B, H, N]) float32; lse is the row
-        logsumexp over the Np padded columns, for the backward.
+        (O [B, H, N, dh] in q's dtype, lse [B, H, N] float32); lse is
+        the row logsumexp over the Np padded columns, for the backward.
     """
     _check(q, k=k, v=v)
     if not _kernel_device(q):
@@ -266,14 +313,15 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
         return o, lse                   # nothing to compute, no launch
     plan = _kernel_plan(q, kcode, qrow, plan)
     _launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
-            padded_len(N) - N, dh, 1.0 / math.sqrt(dh))
+            padded_len(N) - N, dh, 1.0 / math.sqrt(dh),
+            entry=_entry("flash_attn_fwd", q))
     return o, lse
 
 
 def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
                    plan: Optional[FlashPlan] = None):
     """Gradients of the role-masked attention for ``do = dL/dO``
-    → (dQ, dK, dV), each [B, H, N, dh].  ``plan`` as for
+    → (dQ, dK, dV), each [B, H, N, dh] in q's dtype.  ``plan`` as for
     ``flash_attn_fwd``.  On the card every gradient element is summed by
     one thread group in a fixed order (no atomics): the same inputs give
     bitwise the same gradients on every call."""
@@ -289,7 +337,8 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
     plan = _kernel_plan(q, kcode, qrow, plan)
     delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     _launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk, dv,
-                               delta), B, H, N, dh, 1.0 / math.sqrt(dh))
+                               delta), B, H, N, dh, 1.0 / math.sqrt(dh),
+            entry=_entry("flash_attn_bwd", q))
     return dq, dk, dv
 
 
@@ -312,7 +361,8 @@ class _FlashRoleAttention(torch.autograd.Function):
 
 def flash_role_attention(q, k, v, kcode, qrow,
                          plan: Optional[FlashPlan] = None):
-    """Differentiable role-masked attention: [B, H, N, dh] float32 q/k/v,
+    """Differentiable role-masked attention: [B, H, N, dh] q/k/v (float32
+    or bfloat16),
     [B, N] int32 kcode/qrow (and their ``flash_plan``, built here if not
     given) → O [B, H, N, dh].  Without a gradient to
     record it calls the forward alone and saves nothing."""

@@ -1,6 +1,8 @@
 """The training loop (``aline_tpu/train/loop.py``): the burning-phase
 schedule, one rollout + REINFORCE/NLL step + clipped AdamW update per
-epoch, logging and checkpoints.
+epoch, logging and checkpoints.  The model computes in the run's dtype
+(``models.aline.compute_dtype``); the parameters, AdamW and the loss stay
+float32, as in ``aline_tpu``.
 
 JAX compiles the whole step into one program per (phase, T, mask
 variant); here each step runs eagerly, so no step cache is kept.  The
@@ -79,8 +81,6 @@ def train_step(model, optimizer, scheduler, batch: Batch, T: int,
 def check_supported(cfg: Config) -> None:
     """Refuse, by name, the settings this port does not train with."""
     refused = {
-        "dtype=bfloat16 (bf16 training is not ported yet)":
-            cfg.dtype != "float32" or cfg.encoder.dtype != "float32",
         "encoder.dropout > 0 (dropout is not ported yet)":
             cfg.encoder.dropout > 0,
         "eval.EIG=true (the EIG bounds are not ported yet)": cfg.eval.EIG,

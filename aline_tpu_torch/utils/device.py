@@ -10,6 +10,8 @@ def resolve_device(device="cuda") -> torch.device:
 
     On CUDA it also turns TF32 off for matmuls and cuDNN: the port
     computes in float32, and TF32 keeps only about three decimal digits.
+    And it keeps bfloat16 GEMMs from reducing in reduced precision: a
+    bfloat16 product sums in float32 and rounds once, as XLA's does.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -19,4 +21,6 @@ def resolve_device(device="cuda") -> torch.device:
                 "(--device cpu) to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     return dev

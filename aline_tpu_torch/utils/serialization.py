@@ -75,9 +75,10 @@ def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
     for key, t in model.state_dict().items():
         owner, _, leaf = key.rpartition(".")
         a = t.detach().cpu().float().numpy()
-        if leaf == "weight" and kinds.get(owner) is nn.Linear:
+        kind = kinds.get(owner, type(None))
+        if leaf == "weight" and issubclass(kind, nn.Linear):
             leaf, a = "kernel", a.T
-        elif leaf == "weight" and kinds.get(owner) is nn.LayerNorm:
+        elif leaf == "weight" and issubclass(kind, nn.LayerNorm):
             leaf = "scale"
         parts = ["params"] + (owner.split(".") if owner else []) + [leaf]
         out["/".join(parts)] = np.ascontiguousarray(a)
@@ -95,7 +96,10 @@ def save_params_npz(path: str, model: nn.Module) -> str:
 def load_model(run_dir: str, params_npz, device="cuda"
                ) -> Tuple[Config, Aline]:
     """(config, model in eval mode) of a run directory, with the
-    parameters of ``params_npz``, on ``device``."""
+    parameters of ``params_npz``, on ``device``.  The model computes in the
+    run's ``dtype`` (bfloat16 for every committed checkpoint; a copy of the
+    run's config.json with ``"dtype": "float32"`` gives float32); the
+    parameters are float32 either way."""
     dev = resolve_device(device)
     cfg = load_config(run_dir)
     model = build_model(cfg, dev)

@@ -49,6 +49,25 @@ Phases, each printing its result lines; any failure exits non-zero:
              backward at the training shape under
              ``torch.cuda.set_sync_debug_mode("error")``: the plan, the
              kernels and their wrappers never wait for the host.
+3d. bf16 flash kernels — the bf16 forms of the flash forward (eval,
+             training and burning shapes) and backward (training, burning)
+             against their plain versions in bf16 on the card: O and dQ
+             within one bf16 ulp of each element plus 1e-5 (O) or 1e-4 (dQ)
+             of the largest, dK and dV plus (blocks + 1) * 2^-8 of the
+             largest (the plain version sums them into bf16 block by block
+             of block_q rows, as the TPU kernel does; the kernel sums in
+             float32 and rounds once), lse 1e-4; and dK, dV against the
+             plain version summed as the kernel sums them (over all rows in
+             float32, rounded once: ``per_block=False``) within one ulp plus
+             1e-4 of the largest element; backward bitwise repeatable.
+             Times as in 3c; bytes at 2 an element of q, k, v, O, dO, dQ,
+             dK, dV and 4 of lse and D; the products of two bf16 operands
+             (q·kᵀ, dO·vᵀ) at the bf16 tensor cores' 989 TFLOP/s, those
+             with a float32 operand (p, dS) at 67 (``tc_bound_ms``; all at
+             67: ``fma_bound_ms``); library: SDPA in bf16.
+Phases 4, 4b, 5, 6, 6b, 7 and 7b compute in float32 (``dtype=float32``
+pinned), as before the port followed the run's dtype.
+
 4. slice   — the flagship GP-AL-1D eval (checkpoints/al1d_200k, weights
              from the committed npz): a B=100, n_query=2000 GP batch and
              the three-strategy T=30 active-learning rollout through
@@ -60,9 +79,24 @@ Phases, each printing its result lines; any failure exits non-zero:
              compact path on the card: forwards along its aline trajectory
              within 5e-4, rows that choose alike within 1e-4, and a row
              that chooses differently does so at a tie (log-probs within
-             1e-3); the compact path on the CPU is held to the same and
-             reported beside flash as the witness of how many rows leave
-             a tie by rounding alone.
+             1e-3); the compact path on the CPU (its first 25 rows) is
+             held to the same and reported beside flash as the witness of
+             how many rows leave a tie by rounding alone.
+4c. bf16 slice — the flagship at its own dtype, bf16, compact (``auto``),
+             on the same batch: 93 GMM forwards (the pool, 2001 tokens;
+             the target sets take the bf16 einsums), finite curves, aline
+             improves; device busy time under the profiler.  Held against
+             the port on the CPU in bf16 over 8 rows along the CPU's
+             trajectory (``hold_trajectory``: limits BF16_CARD_SHARE,
+             BF16_CARD_ULPS, BF16_TIE_ULPS); exact and near ties counted.
+             Control: phase 4's float32 card path read the same way must
+             fail BF16_CARD_SHARE.
+4d. bf16 flash slice — the same with ``attention_impl=flash``: 279 bf16
+             flash forwards and 93 plans; held the same way against the
+             flash path on the CPU (3 rows), and against 4c: flash keeps
+             the scores in float32 where compact rounds them to bf16, so
+             the two bf16 paths' mean |log-prob difference| may not exceed
+             that of compact in bf16 against compact in float32 (phase 4).
 5. parity  — a small batch through the slice on the CPU (plain versions)
              and on the card (kernels): curves within 1e-4, same indices.
 6. train   — the GP-AL-1D training recipe (B=200, n_query_init=200,
@@ -80,9 +114,19 @@ Phases, each printing its result lines; any failure exits non-zero:
              within 1e-4 of each element plus 1e-4 of the largest, and the
              updated params within 1e-4 wherever the two devices' gradients
              agree to 1% (see ``train_step_parity``).
+6c. bf16 train — the recipe in bf16 (``bench.py``'s dtype), compact and
+             flash, 2 burning and 2 main epochs each: no GMM launch (the
+             token sets have 102 tokens, ``fused_gmm=auto``), per epoch 2T
+             plans, 6T bf16 flash forwards and 3T backwards with flash.
 7b. flash + time-token step parity — the same check for a fresh model
              from the seed with ``encoder.with_time_token=true
              time_token=true encoder.attention_impl=flash``.
+7c. bf16 step parity — one bf16 step on the card against one on the CPU:
+             the flagship (compact), a fresh flash model with the time
+             token, and the flagship with ``head.fused_gmm=on`` (both GMM
+             kernels on the bf16 path); same designs, losses within 1e-3
+             of the loss's scale, each parameter's gradient within a
+             relative L2 error of BF16_GRAD_RTOL.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -112,17 +156,20 @@ TOL = 1e-4
 FWD_TOL = 5e-4
 TIE = 1e-3
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, dense TF32
-# on the tensor cores, HBM3 rate
+# and bf16 on the tensor cores, HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 T_STEPS, BATCH, N_QUERY = 30, 100, 2000
 # the GP-AL-1D training recipe (bench.py, train.py's docstring)
 TRAIN_ARGS = ["task=al_mix", "task.dim_x=1", "task.n_target_theta=2",
               "task.n_query_init=200", "batch_size=200", "min_T=30", "T=30",
               "rollout_remat=true", "burning_epoch=2", "max_epoch=5",
-              "checkpoint=0", "verbose=1000"]
+              "checkpoint=0", "verbose=1000", "dtype=float32"]
 FLASH_TRAIN_ARGS = ["encoder.attention_impl=flash", "max_epoch=4"]
+# bench.py's production dtype, 2 burning and 2 main epochs
+BF16_TRAIN_ARGS = ["dtype=bfloat16", "max_epoch=4"]
 TIME_FLASH_ARGS = ["encoder.attention_impl=flash",
                    "encoder.with_time_token=true", "time_token=true"]
 
@@ -272,19 +319,36 @@ def phase_kernels():
     return rows, worst
 
 
-def gmm_bound(mma_flops, other_flops, nbytes):
-    """The least time of a GMM kernel's two forms: every FLOP on float32
-    FMAs, or the D x F products (``mma_flops``) as 3xTF32 on the tensor
-    cores and the rest on FMAs; each against the bytes."""
-    fma = bound(mma_flops + other_flops, nbytes)
-    t_tc = 3 * mma_flops / PEAK_TF32_FLOPS + other_flops / PEAK_F32_FLOPS
+def split_bound(tc_s, tc_flops, other_flops, nbytes):
+    """The least time of a kernel's two forms: every FLOP on float32 FMAs
+    (``fma_bound_ms``), or ``tc_flops`` of them on the tensor cores, in
+    ``tc_s`` seconds, and the rest on FMAs (``tc_bound_ms``); each against
+    the bytes."""
+    fma = bound(tc_flops + other_flops, nbytes)
+    t_tc = tc_s + other_flops / PEAK_F32_FLOPS
     tc = max(t_tc, nbytes / PEAK_HBM_BYTES) * 1e3
     best = (dict(bound_ms=tc, bound_by="operations" if t_tc >= nbytes /
                  PEAK_HBM_BYTES else "bytes")
             if tc <= fma["bound_ms"] else
             dict(bound_ms=fma["bound_ms"], bound_by=fma["bound_by"]))
     return dict(best, fma_bound_ms=fma["bound_ms"], tc_bound_ms=tc,
-                flops=mma_flops + other_flops, bytes=nbytes)
+                flops=tc_flops + other_flops, bytes=nbytes)
+
+
+def gmm_bound(mma_flops, other_flops, nbytes):
+    """A GMM kernel's bound: its D x F products (``mma_flops``) as 3xTF32
+    on the tensor cores (three TF32 products each), or on FMAs."""
+    return split_bound(3 * mma_flops / PEAK_TF32_FLOPS, mma_flops,
+                       other_flops, nbytes)
+
+
+def bf16_flash_bound(bf16_flops, f32_flops, nbytes):
+    """A bf16 flash kernel's bound: its products of two bfloat16 operands
+    (``bf16_flops``: q·kᵀ, and dO·vᵀ in the backward) at the bf16 tensor
+    cores' rate with float32 sums, those with a float32 operand (p or dS)
+    on FMAs."""
+    return split_bound(bf16_flops / PEAK_BF16_FLOPS, bf16_flops, f32_flops,
+                       nbytes)
 
 
 def grads_close(got, ref):
@@ -413,6 +477,7 @@ FLASH_CASES = {
     "eval_late": (BATCH, 4, N_QUERY + 1, 102, 8, False, False, T_STEPS + 1),
 }
 CHECK_ROWS = 8            # batch rows compared at the eval shapes
+WITNESS_ROWS = 25         # phase 4b's compact rollout on the CPU
 # larger [B, H, N, N] plain and SDPA backwards are not timed, but at the
 # eval shapes (7.1 GB of scores: the few such tensors each holds fit the
 # card's 80 GB)
@@ -594,7 +659,8 @@ def phase_flash_no_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    counts = {n: c for n, c in launches().items() if n.startswith("flash")}
+    counts = {n: c for n, c in launches().items()
+              if n.startswith("flash") and c}
     if counts != {"flash_plan": 1, "flash_attn_fwd": 1, "flash_attn_bwd": 1}:
         raise AssertionError(f"no-sync run launched {counts}")
     log("kernels", f"flash plan, forward and backward at "
@@ -615,11 +681,15 @@ def run_slice(tag, cfg, model, batch, gen):
     wall_s = time.perf_counter() - t0
     counts = launches()
     forwards = (T_STEPS + 1) * len(curves)
-    flash = cfg.encoder.attention_impl == "flash"
-    want = {"gmm_head_fwd": 2 * forwards, "gmm_head_bwd": 0,
-            "flash_plan": forwards if flash else 0,
-            "flash_attn_fwd": cfg.encoder.num_layers * forwards if flash
-            else 0, "flash_attn_bwd": 0}
+    head = model.head.target_head
+    # the GMM kernel per forward: the pool's and the targets' token sets,
+    # where the head's rule sends them (bfloat16: the pool only)
+    per_forward = (int(head.use_kernel(batch.n_points))
+                   + int(head.use_kernel(batch.n_target)))
+    want = expected_launches(
+        cfg, gmm_head_fwd=per_forward * forwards,
+        flash_plan=forwards, flash_attn_fwd=cfg.encoder.num_layers
+        * forwards)
     if counts != want:
         raise AssertionError(f"kernel launches in the {tag} slice {counts}, "
                              f"expected {want}")
@@ -654,12 +724,57 @@ def run_slice(tag, cfg, model, batch, gen):
         curves
 
 
+def run_copy(name, dtype=None, attention_impl=None, fused_gmm=None):
+    """A copy of the flagship's run directory (its config.json only, with
+    the given changes) under ``OUT_DIR``, for ``load_model``."""
+    run_dir = OUT_DIR / name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    run_cfg = json.loads((RUN_DIR / "config.json").read_text())
+    if dtype is not None:
+        run_cfg["dtype"] = dtype
+    if attention_impl is not None:
+        run_cfg["encoder"]["attention_impl"] = attention_impl
+    if fused_gmm is not None:
+        run_cfg["head"]["fused_gmm"] = fused_gmm
+    (run_dir / "config.json").write_text(json.dumps(run_cfg, indent=2))
+    return str(run_dir)
+
+
+def f32_run():
+    """The flagship's run directory pinned to float32 (phases 4-7b)."""
+    return run_copy("f32_run", dtype="float32")
+
+
+def batch_rows(batch, rows, device):
+    """The first ``rows`` batch rows of ``batch`` on ``device``."""
+    per_row = ("x", "y", "ctx_mask", "target_x", "target_all", "theta",
+               "ctx_idx")
+    return batch.to(device).replace(**{
+        f: getattr(batch, f)[:rows].to(device) for f in per_row
+        if getattr(batch, f) is not None})
+
+
+def expected_launches(cfg, *, gmm_head_fwd=0, gmm_head_bwd=0, flash_plan=0,
+                      flash_attn_fwd=0, flash_attn_bwd=0):
+    """Every counter's expected launches on a path of ``cfg``: the flash
+    counts go to the run's dtype's entries, and to none without flash."""
+    from aline_tpu_torch.models.aline import compute_dtype
+    want = {name: 0 for name in launches()}
+    want.update(gmm_head_fwd=gmm_head_fwd, gmm_head_bwd=gmm_head_bwd)
+    if cfg.encoder.attention_impl == "flash":
+        sfx = "" if compute_dtype(cfg) == torch.float32 else "_bf16"
+        want.update({"flash_plan": flash_plan,
+                     f"flash_attn_fwd{sfx}": flash_attn_fwd,
+                     f"flash_attn_bwd{sfx}": flash_attn_bwd})
+    return want
+
+
 def phase_slice():
     from aline_tpu_torch.tasks import build_task
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
 
-    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    cfg, model = load_model(f32_run(), AL1D_200K_PARAMS, "cuda")
     task = build_task(cfg.task)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -687,39 +802,38 @@ def phase_flash_slice(batch, compact):
     greedy choices agree throughout within 1e-4; and every row that chose
     differently doing so at a tie of the compact path's own log-probs
     (within ``TIE``).  The witness: the compact path itself on the CPU,
-    on the same rows, whose rows that leave the card's trajectory must do
-    so at ties too.  Both final mean log-prob differences are reported: a
-    row that leaves a tie the other way follows another trajectory."""
+    on the first WITNESS_ROWS rows, whose rows that leave the card's
+    trajectory must do so at ties too.  Both final mean log-prob
+    differences are reported: a row that leaves a tie the other way
+    follows another trajectory."""
     from aline_tpu_torch.eval.al_curves import al_rollout_curves
     from aline_tpu_torch.tasks.base import init_ctx_idx, select_design
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
 
-    run_dir = OUT_DIR / "flash_run"
-    run_dir.mkdir(parents=True, exist_ok=True)
-    run_cfg = json.loads((RUN_DIR / "config.json").read_text())
-    run_cfg["encoder"]["attention_impl"] = "flash"
-    (run_dir / "config.json").write_text(json.dumps(run_cfg, indent=2))
-    cfg, model = load_model(str(run_dir), AL1D_200K_PARAMS, "cuda")
+    cfg, model = load_model(run_copy("flash_run", dtype="float32",
+                                     attention_impl="flash"),
+                            AL1D_200K_PARAMS, "cuda")
     if cfg.encoder.attention_impl != "flash":
         raise AssertionError("the run config did not select flash")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec, curves = run_slice("flash slice", cfg, model, batch, gen)
 
-    _, model_c = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
-    _, model_cpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
-    batch_cpu = batch.to("cpu")
+    _, model_c = load_model(f32_run(), AL1D_200K_PARAMS, "cuda")
+    _, model_cpu = load_model(f32_run(), AL1D_200K_PARAMS, "cpu")
     t0 = time.perf_counter()
-    witness = al_rollout_curves(model_cpu, batch_cpu, T_STEPS,
-                                strategy="aline")
+    witness = al_rollout_curves(model_cpu,
+                                batch_rows(batch, WITNESS_ROWS, "cpu"),
+                                T_STEPS, strategy="aline")
     witness_s = time.perf_counter() - t0
     ref = compact["aline"]
     runs = {"flash": {k: v.cpu() for k, v in curves["aline"].items()},
             "compact CPU": witness}
     ref_idx = ref["idx"].cpu()
     for run in runs.values():
-        run["differs"], run["first"] = first_change(run["idx"], ref_idx)
-        run["gap"] = torch.zeros(BATCH)
+        n = run["idx"].shape[0]
+        run["differs"], run["first"] = first_change(run["idx"], ref_idx[:n])
+        run["gap"] = torch.zeros(n)
 
     b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T_STEPS,
                                 batch.n_points))
@@ -728,10 +842,7 @@ def phase_flash_slice(batch, compact):
     with torch.no_grad():
         for t in range(T_STEPS + 1):
             out_f, out_c = model(b), model_c(b)
-            out_h = model_cpu(b.to("cpu").replace(
-                **{f: getattr(b, f)[:CHECK_ROWS].cpu() for f in (
-                    "x", "y", "ctx_mask", "target_x", "target_all", "theta",
-                    "ctx_idx")}))
+            out_h = model_cpu(batch_rows(b, CHECK_ROWS, "cpu"))
             for key, a, r in (
                     ("flash vs compact", out_f, out_c),
                     ("compact CPU vs card", out_h, out_c)):
@@ -747,8 +858,10 @@ def phase_flash_slice(batch, compact):
             # log-prob (card) of its own choice minus that of the other
             lp = out_c.design_out.zt.clamp_min(1e-30).log().cpu()
             for run in runs.values():
+                n = run["idx"].shape[0]
                 here = run["differs"] & (run["first"] == t)
-                gap = lp[rows, ref_idx[:, t]] - lp[rows, run["idx"][:, t]]
+                gap = (lp[rows[:n], ref_idx[:n, t]]
+                       - lp[rows[:n], run["idx"][:, t]])
                 run["gap"] = torch.where(here, gap, run["gap"])
             b, _, _ = select_design(b, ref["idx"][:, t])
     log("flash slice", f"along the compact path's aline trajectory, design "
@@ -757,20 +870,22 @@ def phase_flash_slice(batch, compact):
         f"the card ({CHECK_ROWS} rows) within "
         f"{err['compact CPU vs card']:.3e}")
     summary = {}
-    ref_final = ref["log_prob"][:, -1].mean().item()
     for name, run in runs.items():
         same = ~run["differs"]
+        n = same.numel()
+        ref_lp = ref["log_prob"][:n].cpu()
         summary[name] = dict(
-            rows_differing=int(run["differs"].sum()),
+            rows=n, rows_differing=int(run["differs"].sum()),
             max_tie_gap=run["gap"].max().item(),
             same_rows_curve_max_abs=(
-                (run["log_prob"] - ref["log_prob"].cpu()).abs()[same].max()
+                (run["log_prob"] - ref_lp).abs()[same].max()
                 .item() if same.any() else 0.0),
             final_mean_log_prob_diff=abs(
-                run["log_prob"][:, -1].mean().item() - ref_final))
+                run["log_prob"][:, -1].mean().item()
+                - ref_lp[:, -1].mean().item()))
         r = summary[name]
         log("flash slice", f"{name} against compact on the card, same "
-            f"batch: {r['rows_differing']} of {BATCH} rows chose "
+            f"batch: {r['rows_differing']} of {n} rows chose "
             f"differently at some step, largest log-prob gap where they did "
             f"{r['max_tie_gap']:.3e}; the other rows' curves within "
             f"{r['same_rows_curve_max_abs']:.3e}; final mean log-prob "
@@ -797,8 +912,8 @@ def phase_parity():
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
 
-    cfg, model_cpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
-    _, model_gpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    cfg, model_cpu = load_model(f32_run(), AL1D_200K_PARAMS, "cpu")
+    _, model_gpu = load_model(f32_run(), AL1D_200K_PARAMS, "cuda")
     batch = build_task(cfg.task).sample_batch(
         torch.Generator().manual_seed(1), 4, n_query=64)
     worst = 0.0
@@ -828,7 +943,6 @@ def phase_train(smi, tag="train", extra=()):
     out_dir = OUT_DIR / f"{tag.replace(' ', '_')}_smoke"
     cfg = parse_overrides(TRAIN_ARGS + list(extra)
                           + [f"output_dir={out_dir}"])
-    flash = cfg.encoder.attention_impl == "flash"
     trainer = Trainer(cfg, device="cuda")
     before = {n: p.detach().clone()
               for n, p in trainer.model.named_parameters()}
@@ -846,10 +960,14 @@ def phase_train(smi, tag="train", extra=()):
         counts = launches()
         T = int(m["T"])
         fwd = T * (2 if cfg.rollout_remat else 1)
-        layers = cfg.encoder.num_layers if flash else 0
-        want = {"gmm_head_fwd": fwd, "gmm_head_bwd": T,
-                "flash_plan": fwd if flash else 0,
-                "flash_attn_fwd": layers * fwd, "flash_attn_bwd": layers * T}
+        layers = cfg.encoder.num_layers
+        # the training loss reads the targets' posterior alone
+        gmm = int(trainer.model.head.target_head.use_kernel(
+            trainer.task.n_target_data + trainer.task.n_target_theta))
+        want = expected_launches(
+            cfg, gmm_head_fwd=gmm * fwd, gmm_head_bwd=gmm * T,
+            flash_plan=fwd, flash_attn_fwd=layers * fwd,
+            flash_attn_bwd=layers * T)
         if counts != want:
             raise AssertionError(f"{tag} epoch {epoch}: launches {counts}, "
                                  f"expected {want} (T={T}, rollout_remat="
@@ -881,7 +999,8 @@ def phase_train(smi, tag="train", extra=()):
     warm_ms = 1e3 * statistics.median(warm)
     rollouts_s = cfg.batch_size / (warm_ms / 1e3)
     log(tag, f"B={cfg.batch_size} n_query={cfg.task.n_query_init} "
-        f"T={cfg.T} f32 attention_impl={cfg.encoder.attention_impl}: warm "
+        f"T={cfg.T} dtype={cfg.dtype} attention_impl="
+        f"{cfg.encoder.attention_impl}: warm "
         f"epoch {warm_ms:.1f} ms, {rollouts_s:.1f} "
         f"rollouts/s, peak memory {peak / 2**30:.3f} GiB ({smi})")
     return dict(epochs=per_epoch, warm_ms=warm_ms, rollouts_s=rollouts_s,
@@ -891,7 +1010,15 @@ def phase_train(smi, tag="train", extra=()):
 def train_step_parity(label, cfg, model_cpu, *, time_token=False):
     """One optimizer step of ``model_cpu`` on the CPU (plain versions)
     and of a copy on the card (kernels), from the same B=4, n_query=16,
-    T=5 batch with the data mask and the same Gumbel noise."""
+    T=5 batch with the data mask and the same Gumbel noise.  In float32
+    the losses are held to 1e-4 and the gradients element by element (see
+    below); in bfloat16 (``model_cpu`` computing in it) the losses to
+    ``BF16_LOSS_RTOL`` of the loss's scale and each parameter's gradient to
+    a relative L2 error of ``BF16_GRAD_RTOL``, without the entries that
+    shift every logit of a softmax alike (``shift_invariant``).  Returns
+    the worst error and the card step's launches."""
+    from aline_tpu_torch.models.aline import compute_dtype
+    bf16 = compute_dtype(cfg) == torch.bfloat16
     from aline_tpu_torch.models.heads import gumbel_noise
     from aline_tpu_torch.ops.target_mask import target_weight_vectors
     from aline_tpu_torch.tasks import build_task, init_ctx_idx
@@ -916,6 +1043,7 @@ def train_step_parity(label, cfg, model_cpu, *, time_token=False):
     runs, idx = {}, {}
     for name, model, dev in (("cpu", model_cpu, "cpu"),
                              ("gpu", model_gpu, "cuda")):
+        reset_launches()
         with torch.no_grad():
             idx[name] = rollout(model, batch.to(dev), T, w_q.to(dev),
                                 w_p.to(dev), noise.to(dev),
@@ -929,10 +1057,14 @@ def train_step_parity(label, cfg, model_cpu, *, time_token=False):
         runs[name] = (m, {n: p.detach().cpu() for n, p in
                           model.named_parameters()},
                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    counts = launches()
     (m_c, p_c, g_c), (m_g, p_g, g_g) = runs["cpu"], runs["gpu"]
     if not torch.equal(idx["cpu"], idx["gpu"]):
         raise AssertionError(f"{label}: CPU and card drew different designs "
                              f"from the same noise")
+    if bf16:
+        return bf16_step_parity(label, cfg, model_cpu, m_c, m_g, g_c,
+                                g_g), counts
     worst = 0.0
     for k in ("loss", "design_loss", "predict_loss"):
         abs_err, _, ok = close(m_g[k].cpu(), m_c[k])
@@ -974,14 +1106,14 @@ def train_step_parity(label, cfg, model_cpu, *, time_token=False):
         f"designs; grads within tolerance; updated params within "
         f"{worst:.3e} on the {resolved_n} of {total_n} entries whose "
         f"gradient the two devices resolve")
-    return worst
+    return worst, counts
 
 
 def phase_train_parity():
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
-    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
-    return train_step_parity("train parity", cfg, model)
+    cfg, model = load_model(f32_run(), AL1D_200K_PARAMS, "cpu")
+    return train_step_parity("train parity", cfg, model)[0]
 
 
 def phase_flash_train_parity():
@@ -994,7 +1126,487 @@ def phase_flash_train_parity():
         torch.default_generator.manual_seed(cfg.seed)
         model = build_model(cfg, "cpu")
     return train_step_parity("flash time parity", cfg, model,
-                             time_token=True)
+                             time_token=True)[0]
+
+
+# -- bfloat16 (phases 3d, 4c, 4d, 6c, 7c) -------------------------------------
+
+BF16 = torch.bfloat16
+BF16_ULP = 2.0 ** -7     # bfloat16's spacing relative to a value, at most
+# Phase 3d: a bf16 flash kernel against its plain version in bf16 on the
+# same inputs.  Both compute in float32 and round each output once, so O
+# and dQ are within one ulp of each element plus a float32 floor of the
+# largest one; dK and dV also by the plain version's per-block roundings
+# (as the TPU kernel sums them into bf16 per block of block_q rows): up to
+# 2^-8 of a partial sum per block.
+BF16_FLASH_CASES = {"eval": ("fwd",), "train": ("fwd", "bwd"),
+                    "burning": ("fwd", "bwd")}
+# Phases 4c and 4d, the card against the port on the CPU in bf16 (one
+# code): the float32 sums inside each bf16 layer run in other orders on the
+# two devices, which now and then moves a bf16 rounding, and the compact
+# path's bf16 attention scores (ulp 2^-4 at |s| >= 16) carry such a move
+# on through the layers.  Along the CPU's trajectory, at least
+# BF16_CARD_SHARE of the design-score and posterior-mean elements lie
+# within one bf16 ulp of the CPU's (elements under 2^-6 of the tensor's
+# largest counted at that floor's ulp), none beyond BF16_CARD_ULPS; a row
+# may leave the CPU's trajectory only where the CPU's bf16 design scores
+# of the two candidates lie within BF16_TIE_ULPS (0: an exact tie).  The
+# readings behind each limit (NVIDIA H100 80GB HBM3) are in PERF.md,
+# section 6: BF16_CARD_ULPS is at least 1.4 times the largest distance
+# read, BF16_TIE_ULPS the largest tie gap read.  Phase 4c's control, the
+# card in float32 held to the CPU in bf16, must fail the share: else the
+# share could not tell apart a card path that skips bf16.
+BF16_CARD_SHARE = 0.9
+BF16_CARD_ULPS = 2048
+BF16_TIE_ULPS = 2
+BF16_WITNESS_ROWS = 8        # 4c: the compact path on the CPU
+BF16_FLASH_WITNESS_ROWS = 3  # 4d: the flash plain versions on the CPU
+# Phase 7c: one bf16 step on the card against one on the CPU.  Where the
+# float32 sums inside the bf16 layers run in other orders, a bf16 rounding
+# moves, and the move reaches every gradient through the backward pass.
+# On an NVIDIA H100 80GB HBM3 the worst parameter read 0.25% (compact),
+# 0.32% (fused_gmm=on) and 2.6% (flash with the time token).
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_RTOL = 4e-2
+
+
+def bf16_close(got, ref, floor):
+    """(max abs error, within tolerance) for a bf16 output: one bf16 ulp
+    of each element plus ``floor`` of ref's largest element."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    ok = bool((err <= BF16_ULP * ref.abs() + floor * ref.abs().max()).all())
+    return err.max().item(), ok
+
+
+def phase_flash_kernels_bf16():
+    """3d: the bf16 flash kernels at the eval, training and burning
+    shapes against their plain versions in bf16 on the card; times."""
+    from aline_tpu_torch.ops import flash_attention as fa
+    rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for seed, (what, parts) in enumerate(BF16_FLASH_CASES.items()):
+        q, k, v, kcode, qrow, do = (
+            t.to(BF16) if t.is_floating_point() else t
+            for t in flash_inputs(*FLASH_CASES[what], seed=60 + seed))
+        B, H, N, dh = q.shape
+        plan = fa.flash_plan(kcode, qrow)
+        n = CHECK_ROWS if what in PLAIN_BWD_EVAL else B
+        cq, ck, cv, cdo = (t[:n].contiguous() for t in (q, k, v, do))
+        ckc, cqr = kcode[:n].contiguous(), qrow[:n].contiguous()
+        o, lse = fa.flash_attn_fwd(cq, ck, cv, ckc, cqr)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_attn_fwd_plain(cq, ck, cv, ckc, cqr)
+        errs = {}
+        err, ok = bf16_close(o, ref_o, 1e-5)
+        lse_err, _, lse_ok = close(lse, ref_lse)
+        if not (ok and lse_ok and o.dtype == BF16):
+            raise AssertionError(f"bf16 flash_attn_fwd disagrees with its "
+                                 f"plain version at {what}: O {err:.3e}, "
+                                 f"lse {lse_err:.3e}")
+        errs.update(O=err, lse=lse_err)
+        if "bwd" in parts:
+            grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"bf16 flash_attn_bwd is not "
+                                     f"deterministic at {what}")
+            ref = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            blocks = -(-N // fa.block_q(N))
+            floors = (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))
+            for name, a, r, floor in zip(("dq", "dk", "dv"), grads, ref,
+                                         floors):
+                err, ok = bf16_close(a, r, floor)
+                if not (ok and a.dtype == BF16):
+                    raise AssertionError(
+                        f"bf16 flash_attn_bwd {name} disagrees with its "
+                        f"plain version at {what}: max abs {err:.3e} "
+                        f"(largest {r.float().abs().max():.3e})")
+                errs[name] = err
+            # the kernel's own sums: over all rows in float32, rounded once
+            once = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo,
+                                           per_block=False)
+            for name, a, r in zip(("dk", "dv"), grads[1:], once[1:]):
+                err, ok = bf16_close(a, r, TOL)
+                if not ok:
+                    raise AssertionError(
+                        f"bf16 flash_attn_bwd {name} disagrees with the plain "
+                        f"version summed once at {what}: max abs {err:.3e}")
+                errs[f"{name} vs summed once"] = err
+            del grads, again, ref, once
+        del ref_o, ref_lse
+        worst["fwd"] = max(worst["fwd"], errs["O"], errs["lse"])
+        worst["bwd"] = max([worst["bwd"]] + [e for name, e in errs.items()
+                                             if name.startswith("d")])
+
+        kc = kcode[:, None, None, :]
+        allowed = (kc == 1) | ((qrow[:, None, :, None] == 1) & (kc == 2))
+        o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)
+        pairs = H * score_pairs(kcode, qrow)
+        # 2 bytes an element of q, k, v, O (dO, dQ, dK, dV); 4 of lse (and
+        # the backward's D) and of the codes
+        fwd_bytes = 2 * 4 * B * H * N * dh + 4 * B * H * N + 4 * 2 * B * N
+        bwd_bytes = (2 * 8 * B * H * N * dh + 4 * 2 * B * H * N
+                     + 4 * 2 * B * N)
+        rec = dict(shape=[B, H, N, dh], dtype="bfloat16", n_checked=n,
+                   errors=errs)
+        rec["fwd"] = dict(
+            shape=[B, H, N, dh],
+            ms=time_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)),
+            device_ms=device_ms(lambda: fa.flash_attn_fwd(q, k, v, kcode,
+                                                          qrow, plan)),
+            plain_ms=time_ms(lambda: fa.flash_attn_fwd_plain(
+                q, k, v, kcode, qrow), reps=3, iters=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed)),
+            pairs=pairs, **bf16_flash_bound(2 * pairs * dh, 2 * pairs * dh,
+                                            fwd_bytes))
+        if "bwd" in parts:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+            rec["bwd"] = dict(
+                shape=[B, H, N, dh],
+                ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
+                                                     lse, do, plan)),
+                device_ms=device_ms(lambda: fa.flash_attn_bwd(
+                    q, k, v, kcode, qrow, o, lse, do, plan)),
+                plain_ms=time_ms(lambda: fa.flash_attn_bwd_plain(
+                    q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    sdpa, leaves, do, retain_graph=True)),
+                pairs=pairs, **bf16_flash_bound(4 * pairs * dh,
+                                                6 * pairs * dh, bwd_bytes))
+            del leaves, sdpa
+        rows[what] = rec
+        for part in parts:
+            r = rec[part]
+            log("kernels", f"bf16 flash_attn_{part} {what} B={B} H={H} "
+                f"N={N} dh={dh}: kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, SDPA "
+                f"bf16 {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']}; FMA bound {r['fma_bound_ms']:.4f} "
+                f"ms)")
+        log("kernels", f"bf16 flash {what}: {n} of {B} batch rows checked, "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        del q, k, v, do, o, lse, allowed, plan
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def device_busy(fn):
+    """(device busy ms, wall ms) of ``fn`` under ``torch.profiler``: the
+    union of the kernels' intervals, and the host clock around the run
+    (slowed by the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aline_tpu_torch.utils.profiling import busy_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    return busy_us(kernels) / 1e3, wall * 1e3
+
+
+def design_forward(model, b):
+    """(model output, the raw design scores [B, n_points]) of one eval
+    forward: the scores are the acquisition head's output, bf16 values
+    widened to float32 in a bf16 model."""
+    seen = []
+    hook = model.head.acquisition_head.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        out = model(b)
+    finally:
+        hook.remove()
+    return out, seen[0]
+
+
+def bf16_ulps(got, ref):
+    """The distance of ``got`` from ``ref`` in bf16 ulps of each ref
+    element, elements under 2^-6 of ref's largest counted at that floor."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    mag = ref.abs().clamp_min(2.0 ** -6 * ref.abs().max())
+    return (got - ref).abs() / (BF16_ULP * mag)
+
+
+def score_gap_ulps(scores, a, b):
+    """[rows] distance in bf16 ulps between scores[r, a[r]] and
+    scores[r, b[r]] (bf16 values), through the bf16 bit patterns."""
+    bits = scores.to(BF16).view(torch.int16).to(torch.int32)
+    key = torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    rows = torch.arange(scores.shape[0])
+    return (key[rows, a] - key[rows, b]).abs()
+
+
+def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
+                    max_ulps=None):
+    """Along the reference's aline trajectory ``ref_idx`` [rows, T] over
+    the first ``rows`` rows of ``batch``: every model of ``others``
+    ({name: (model, its own idx [rows, T])}) is run on the reference's
+    state at every step, its design scores and posterior means held to
+    ``max_ulps`` of the reference's; and every row whose own choices leave
+    the reference's must do so where the reference's bf16 design scores
+    of the two candidates lie within BF16_TIE_ULPS.  With ``max_ulps``
+    None both are only read.  Returns the readings per model."""
+    from aline_tpu_torch.tasks.base import init_ctx_idx, select_design
+    b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T_STEPS,
+                                batch.n_points))
+    ref_dev = next(ref_model.parameters()).device
+    b = batch_rows(b, rows, ref_dev)
+    ref_idx = ref_idx.cpu()
+    res = {}
+    for name, (_, idx) in others.items():
+        differs, first = first_change(idx.cpu(), ref_idx)
+        res[name] = dict(differs=differs, first=first, ulps=0.0, near=0,
+                         n=0, gap=torch.zeros(rows, dtype=torch.int32))
+    with torch.no_grad():
+        for t in range(T_STEPS + 1):
+            out_r, s_r = design_forward(ref_model, b)
+            for name, (model, idx) in others.items():
+                dev = next(model.parameters()).device
+                out, s = design_forward(model, b.to(dev))
+                r = res[name]
+                for u in (bf16_ulps(s, s_r), bf16_ulps(
+                        out.posterior_out.mixture_means,
+                        out_r.posterior_out.mixture_means)):
+                    r["ulps"] = max(r["ulps"], u.max().item())
+                    r["near"] += int((u <= 1).sum())
+                    r["n"] += u.numel()
+                if t < T_STEPS:
+                    here = r["differs"] & (r["first"] == t)
+                    gap = score_gap_ulps(s_r.cpu(), ref_idx[:, t],
+                                         idx.cpu()[:, t])
+                    r["gap"] = torch.where(here, gap, r["gap"])
+            if t == T_STEPS:
+                break
+            b, _, _ = select_design(b, ref_idx[:, t].to(ref_dev))
+    share = BF16_CARD_SHARE if max_ulps else None
+    summary, bad = {}, []
+    for name, r in res.items():
+        d = r["differs"]
+        summary[name] = dict(
+            rows=rows, forward_max_ulps=r["ulps"],
+            forward_share_within_1ulp=r["near"] / r["n"],
+            rows_differing=int(d.sum()),
+            exact_ties=int((d & (r["gap"] == 0)).sum()),
+            max_tie_gap_ulps=int(r["gap"][d].max()) if d.any() else 0)
+        sm = summary[name]
+        log(tag, f"{name} along the reference's aline trajectory ({rows} "
+            f"rows): forwards within {sm['forward_max_ulps']:.1f} bf16 ulps "
+            f"(limit {max_ulps}), {sm['forward_share_within_1ulp']:.4%} of "
+            f"the elements within 1 (limit {share}); "
+            f"{sm['rows_differing']} rows leave the "
+            f"trajectory, {sm['exact_ties']} of them at exact bf16 ties, "
+            f"largest score gap where they do {sm['max_tie_gap_ulps']} ulps "
+            f"(limit {BF16_TIE_ULPS if max_ulps else None})")
+        if max_ulps is None:
+            continue
+        if (sm["forward_max_ulps"] > max_ulps
+                or sm["forward_share_within_1ulp"] < BF16_CARD_SHARE):
+            bad.append(f"{name}: forwards {sm['forward_max_ulps']:.1f} "
+                       f"ulps, {sm['forward_share_within_1ulp']:.4%} within 1")
+        if sm["max_tie_gap_ulps"] > BF16_TIE_ULPS:
+            bad.append(f"{name}: a row leaves at a score gap of "
+                       f"{sm['max_tie_gap_ulps']} ulps")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    return summary
+
+
+def phase_slice_bf16(batch, curves_f32):
+    """4c: the flagship eval at its own dtype, bf16, compact (``auto``),
+    at the full eval size; its device busy time; held against the port on
+    the CPU in bf16 over the first BF16_WITNESS_ROWS rows.  The control:
+    the card in float32 (phase 4's path and its ``curves_f32``) read the
+    same way must fall below BF16_CARD_SHARE."""
+    from aline_tpu_torch.eval.al_curves import (
+        al_rollout_curves, compare_strategies)
+    from aline_tpu_torch.models.aline import compute_dtype
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+
+    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cuda")
+    if compute_dtype(cfg) != BF16:
+        raise AssertionError(f"the flagship loads in {compute_dtype(cfg)}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec, curves = run_slice("bf16 slice", cfg, model, batch, gen)
+    busy, wall = device_busy(lambda: compare_strategies(
+        model, batch, T_STEPS, gen, time_token=cfg.time_token))
+    rec.update(busy_ms=busy, profiled_wall_ms=wall)
+    log("bf16 slice", f"under the profiler: device busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall ({100 * busy / wall:.1f}%)")
+    _, model_cpu = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
+    rows = BF16_WITNESS_ROWS
+    t0 = time.perf_counter()
+    witness = al_rollout_curves(model_cpu, batch_rows(batch, rows, "cpu"),
+                                T_STEPS, strategy="aline")
+    rec["witness_s"] = time.perf_counter() - t0
+    rec["against_cpu"] = hold_trajectory(
+        "bf16 slice", batch, witness["idx"], model_cpu,
+        {"card": (model, curves["aline"]["idx"][:rows])}, rows,
+        BF16_CARD_ULPS)
+    _, model_f32 = load_model(f32_run(), AL1D_200K_PARAMS, "cuda")
+    control = hold_trajectory(
+        "bf16 slice", batch, witness["idx"], model_cpu,
+        {"float32 card (control)": (model_f32,
+                                    curves_f32["aline"]["idx"][:rows])},
+        rows)
+    rec["control_f32"] = control
+    log("bf16 slice", f"CPU witness rollout ({rows} rows): "
+        f"{rec['witness_s']:.1f} s")
+    share = control["float32 card (control)"]["forward_share_within_1ulp"]
+    if share >= BF16_CARD_SHARE:
+        raise AssertionError(f"bf16 slice: the float32 card keeps {share:.4%}"
+                             f" of the elements within one ulp of the CPU's "
+                             f"bf16, so BF16_CARD_SHARE cannot tell it apart")
+    return rec, curves, model
+
+
+def mean_curve_gap(a, b):
+    """Mean |difference| of two strategies' log-prob curves, all rows and
+    steps, and the difference of their final means, per strategy."""
+    return {name: dict(
+        mean_abs=(a[name]["log_prob"] - b[name]["log_prob"]).abs().mean()
+        .item(),
+        final_mean_diff=(a[name]["log_prob"][:, -1].mean()
+                         - b[name]["log_prob"][:, -1].mean()).item())
+        for name in a}
+
+
+def phase_flash_slice_bf16(batch, compact, model_c, compact_f32):
+    """4d: the same eval with attention_impl=flash in bf16.  Held against
+    the port's flash path on the CPU in bf16 (the same function: the
+    kernels against the plain versions along the path) on the first
+    BF16_FLASH_WITNESS_ROWS rows, as 4c holds compact; and against 4c's
+    compact path on the card, which rounds the attention scores to bf16
+    where flash keeps float32:
+    the mean |log-prob difference| of the two bf16 paths, over all rows,
+    steps and strategies, may not exceed the one between the compact path
+    in bf16 and in float32 (phase 4) on the same batch."""
+    from aline_tpu_torch.eval.al_curves import al_rollout_curves
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+    run_dir = run_copy("flash_bf16_run", attention_impl="flash")
+    cfg, model = load_model(run_dir, AL1D_200K_PARAMS, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec, curves = run_slice("bf16 flash slice", cfg, model, batch, gen)
+    _, model_cpu = load_model(run_dir, AL1D_200K_PARAMS, "cpu")
+    rows = BF16_FLASH_WITNESS_ROWS
+    t0 = time.perf_counter()
+    witness = al_rollout_curves(model_cpu, batch_rows(batch, rows, "cpu"),
+                                T_STEPS, strategy="aline")
+    rec["witness_s"] = time.perf_counter() - t0
+    rec["against_cpu"] = hold_trajectory(
+        "bf16 flash slice", batch, witness["idx"], model_cpu,
+        {"card": (model, curves["aline"]["idx"][:rows])}, rows,
+        BF16_CARD_ULPS)
+    rec["against_compact"] = hold_trajectory(
+        "bf16 flash slice", batch, compact["aline"]["idx"], model_c,
+        {"flash vs compact": (model, curves["aline"]["idx"])}, BATCH)
+    gaps = {"flash vs compact, bf16": mean_curve_gap(curves, compact),
+            "compact bf16 vs f32": mean_curve_gap(compact, compact_f32)}
+    rec["curve_gaps"] = gaps
+    for what, g in gaps.items():
+        log("bf16 flash slice", f"{what}: " + ", ".join(
+            f"{n} mean |dlog-prob| {v['mean_abs']:.4f}, final mean "
+            f"{v['final_mean_diff']:+.4f}" for n, v in g.items()))
+    paths_gap, dtype_gap = (
+        statistics.mean(v["mean_abs"] for v in g.values())
+        for g in gaps.values())
+    log("bf16 flash slice", f"CPU witness rollout ({rows} rows): "
+        f"{rec['witness_s']:.1f} s; flash vs compact {paths_gap:.4f} "
+        f"against bf16 vs f32 {dtype_gap:.4f}")
+    if paths_gap > dtype_gap:
+        raise AssertionError(f"bf16 flash slice: flash and compact differ "
+                             f"by {paths_gap:.4f}, more than bf16 and f32 "
+                             f"({dtype_gap:.4f})")
+    return rec
+
+
+def shift_invariant(model):
+    """{parameter name: mask of the entries that shift every logit of a
+    softmax alike} (the score head's output bias, the key third of each
+    qkv bias): no loss moves them, and their gradient is rounding noise."""
+    out = {}
+    for name, p in model.named_parameters():
+        if name.endswith("acquisition_head.predictor_fc2.bias"):
+            out[name] = torch.ones(p.shape, dtype=torch.bool)
+        elif name.endswith("self_attn.qkv_proj.bias"):
+            d = p.numel() // 3
+            out[name] = torch.arange(p.numel()) // d == 1
+    return out
+
+
+def bf16_step_parity(label, cfg, model, m_c, m_g, g_c, g_g):
+    """The bf16 checks of ``train_step_parity``: losses and per-parameter
+    gradients of the card step against the CPU step."""
+    worst = 0.0
+    # the design loss is a small difference of normalised rewards: each
+    # term is held to BF16_LOSS_RTOL of the loss's scale
+    scale = abs(float(m_c["predict_loss"])) + abs(float(m_c["design_loss"]))
+    for k in ("loss", "design_loss", "predict_loss"):
+        a, r = float(m_g[k]), float(m_c[k])
+        if abs(a - r) > BF16_LOSS_RTOL * scale:
+            raise AssertionError(f"{label} {k}: CPU {r:.6f}, card {a:.6f}")
+    invariant = shift_invariant(model)
+    worst_name = None
+    for n, g in g_c.items():
+        keep = ~invariant.get(n, torch.zeros(g.shape, dtype=torch.bool))
+        ref, got = g[keep], g_g[n][keep]
+        rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        if rel > BF16_GRAD_RTOL:
+            raise AssertionError(f"{label}: grad of {n} differs between CPU "
+                                 f"and card by {rel:.3e} (relative L2)")
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(label, f"one bf16 step, B=4 n_query=16 T=5, attention_impl="
+        f"{cfg.encoder.attention_impl}, fused_gmm={cfg.head.fused_gmm}: "
+        f"loss CPU {float(m_c['loss']):.6f}, card {float(m_g['loss']):.6f}, "
+        f"same designs; per-parameter gradients within {worst:.3e} "
+        f"(relative L2, {worst_name}; limit {BF16_GRAD_RTOL})")
+    return worst
+
+
+def phase_train_parity_bf16():
+    """7c: one bf16 step on the card against one on the CPU: the flagship
+    (compact), a fresh flash model with the time token, and the flagship
+    with fused_gmm=on (both GMM kernels on the bf16 path)."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.models.aline import build_model
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+    out = {}
+    cfg, model = load_model(str(RUN_DIR), AL1D_200K_PARAMS, "cpu")
+    out["compact"] = train_step_parity("bf16 parity", cfg, model)
+    cfg = parse_overrides(TRAIN_ARGS + TIME_FLASH_ARGS + ["dtype=bfloat16"])
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(cfg.seed)
+        model = build_model(cfg, "cpu")
+    out["flash time"] = train_step_parity("bf16 flash time parity", cfg,
+                                          model, time_token=True)
+    cfg, model = load_model(run_copy("fused_gmm_run", fused_gmm="on"),
+                            AL1D_200K_PARAMS, "cpu")
+    out["fused_gmm=on"] = train_step_parity("bf16 fused_gmm parity", cfg,
+                                            model)
+    for label, (_, counts) in out.items():
+        log("bf16 parity", f"{label}: card step launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+    sfx = {"compact": (), "flash time": ("flash_attn_fwd_bf16",
+                                         "flash_attn_bwd_bf16"),
+           "fused_gmm=on": ("gmm_head_fwd", "gmm_head_bwd")}
+    for label, names in sfx.items():
+        missing = [n for n in names if not out[label][1][n]]
+        if missing:
+            raise AssertionError(f"bf16 {label} step launched no {missing}")
+    return {label: dict(max_rel=w, launches=c)
+            for label, (w, c) in out.items()}
 
 
 def main():
@@ -1003,23 +1615,35 @@ def main():
     gmm_rows, gmm_err = phase_kernels()
     bwd_rows, bwd_err = phase_kernels_bwd()
     flash_rows, flash_err = phase_flash_kernels()
+    bf16_rows, bf16_err = phase_flash_kernels_bf16()
     slice_rec, batch, curves = phase_slice()
     flash_slice_rec = phase_flash_slice(batch, curves)
-    del batch, curves
+    bf16_slice_rec, bf16_curves, model_c = phase_slice_bf16(batch, curves)
+    bf16_flash_slice_rec = phase_flash_slice_bf16(batch, bf16_curves, model_c,
+                                                  curves)
+    del batch, curves, bf16_curves, model_c
     parity_err = phase_parity()
     train_rec = phase_train(smi)
     flash_train_rec = phase_train(smi, "flash train", FLASH_TRAIN_ARGS)
+    bf16_train_rec = phase_train(smi, "bf16 train", BF16_TRAIN_ARGS)
+    bf16_flash_train_rec = phase_train(smi, "bf16 flash train",
+                                       BF16_TRAIN_ARGS + FLASH_TRAIN_ARGS)
     train_parity_err = phase_train_parity()
     flash_parity_err = phase_flash_train_parity()
+    bf16_parity = phase_train_parity_bf16()
 
     paths = {"eval": slice_rec, "train": train_rec,
-             "flash_eval": flash_slice_rec, "flash_train": flash_train_rec}
+             "flash_eval": flash_slice_rec, "flash_train": flash_train_rec,
+             "eval_bf16": bf16_slice_rec, "train_bf16": bf16_train_rec,
+             "flash_eval_bf16": bf16_flash_slice_rec,
+             "flash_train_bf16": bf16_flash_train_rec}
 
-    def record(name, replaces, row, err, **extra):
+    def record(name, replaces, row, err, source=None, dtype="float32",
+               **extra):
         by_path = {p: rec["launches"][name] for p, rec in paths.items()}
         return {"name": name, "route": "cuda",
-                "source": f"aline_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, **extra,
+                "source": f"aline_tpu_torch/csrc/{source or name}.cu",
+                "replaces": replaces, "dtype": dtype, **extra,
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "ms": row["ms"], "device_ms": row["device_ms"],
@@ -1042,18 +1666,29 @@ def main():
         record("flash_attn_fwd", "aline_tpu/ops/flash_attention.py:43",
                flash_rows["eval"]["fwd"], flash_err["fwd"]),
         record("flash_attn_bwd", "aline_tpu/ops/flash_attention.py:65",
-               flash_rows["train"]["bwd"], flash_err["bwd"])]
+               flash_rows["train"]["bwd"], flash_err["bwd"]),
+        # the bf16 forms: the same sources' *_bf16 entry points
+        record("flash_attn_fwd_bf16", "aline_tpu/ops/flash_attention.py:43",
+               bf16_rows["eval"]["fwd"], bf16_err["fwd"],
+               source="flash_attn_fwd", dtype="bfloat16"),
+        record("flash_attn_bwd_bf16", "aline_tpu/ops/flash_attention.py:65",
+               bf16_rows["train"]["bwd"], bf16_err["bwd"],
+               source="flash_attn_bwd", dtype="bfloat16")]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, torch=torch.__version__, build_s=build_s,
         gmm_head_fwd=gmm_rows, gmm_head_bwd=bwd_rows, flash=flash_rows,
-        slice=slice_rec, flash_slice=flash_slice_rec,
+        flash_bf16=bf16_rows, slice=slice_rec, flash_slice=flash_slice_rec,
+        slice_bf16=bf16_slice_rec, flash_slice_bf16=bf16_flash_slice_rec,
         parity_max_abs=parity_err, train=train_rec,
-        flash_train=flash_train_rec, train_parity_max_abs=train_parity_err,
-        flash_train_parity_max_abs=flash_parity_err, kernels=kernels,
-        device=device), indent=1))
+        flash_train=flash_train_rec, train_bf16=bf16_train_rec,
+        flash_train_bf16=bf16_flash_train_rec,
+        train_parity_max_abs=train_parity_err,
+        flash_train_parity_max_abs=flash_parity_err,
+        train_parity_bf16=bf16_parity, kernels=kernels, device=device),
+        indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

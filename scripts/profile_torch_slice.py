@@ -11,13 +11,16 @@ npz) through ``compare_strategies`` once to warm up, then once more under
 * the device time of the port's kernels (GMM head, flash attention) and
   their shares.
 
-``--attention-impl flash`` runs the flagship through a copy of its run
-config that selects the flash kernels (written under outputs/).
+The model computes in the run's dtype (bfloat16: the flagship's
+config.json) unless ``--dtype`` says otherwise; the dtype is printed.
+``--attention-impl flash`` and ``--dtype`` run the flagship through a copy
+of its run config with those changes (written under outputs/).
 
 Usage:
     python scripts/profile_torch_slice.py [--batch-size 100]
         [--n-query 2000] [--T 30] [--attention-impl auto|flash]
         [--trace chiprun_out/slice_trace.json]
+        [--dtype float32|bfloat16]
 """
 import argparse
 import json
@@ -29,22 +32,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def busy_us(events):
-    """Length of the union of [start, end) device intervals, in µs."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch-size", type=int, default=100)
@@ -53,6 +40,9 @@ def main():
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--attention-impl", default="auto",
                     choices=("auto", "compact", "flash", "naive"))
+    ap.add_argument("--dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="compute dtype (default: the run's own)")
     ap.add_argument("--trace", default=None,
                     help="also write a chrome trace here")
     args = ap.parse_args()
@@ -61,22 +51,26 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from aline_tpu_torch.eval.al_curves import compare_strategies
+    from aline_tpu_torch.models.aline import compute_dtype
+    from aline_tpu_torch.utils.profiling import busy_us
     from aline_tpu_torch.tasks import build_task
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run_dir = os.path.join(root, "checkpoints", "al1d_200k")
-    if args.attention_impl != "auto":
+    if args.attention_impl != "auto" or args.dtype:
         with open(os.path.join(run_dir, "config.json")) as f:
             run_cfg = json.load(f)
         run_cfg["encoder"]["attention_impl"] = args.attention_impl
-        run_dir = os.path.join(root, "outputs",
-                               f"profile_{args.attention_impl}")
+        run_cfg["dtype"] = args.dtype or run_cfg["dtype"]
+        run_dir = os.path.join(root, "outputs", f"profile_"
+                               f"{args.attention_impl}_{run_cfg['dtype']}")
         os.makedirs(run_dir, exist_ok=True)
         with open(os.path.join(run_dir, "config.json"), "w") as f:
             json.dump(run_cfg, f, indent=2)
     cfg, model = load_model(run_dir, AL1D_200K_PARAMS, "cuda")
+    dtype = str(compute_dtype(cfg)).removeprefix("torch.")
     task = build_task(cfg.task)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = task.sample_batch(gen, args.batch_size, n_query=args.n_query)
@@ -107,7 +101,8 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, "
-          f"attention_impl={args.attention_impl}, three strategies: wall "
+          f"attention_impl={args.attention_impl}, dtype={dtype}, three "
+          f"strategies: wall "
           f"{wall_s * 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.1f} ms ({100 * busy / (wall_s * 1e6):.1f}% of "
           f"wall), kernel time summed {device_us / 1e3:.1f} ms")
@@ -121,7 +116,7 @@ def main():
         print(f"{k}: {t / 1e3:.2f} ms, {100 * t / device_us:.1f}% of "
               f"kernel time")
     print(json.dumps(dict(card=smi, attention_impl=args.attention_impl,
-                          wall_ms=wall_s * 1e3,
+                          dtype=dtype, wall_ms=wall_s * 1e3,
                           busy_ms=busy / 1e3, kernel_ms=device_us / 1e3,
                           kernels_ms={k: t / 1e3 for k, t in ours.items()},
                           top=[[n, c, t / 1e3] for n, (c, t) in rows[:10]])))

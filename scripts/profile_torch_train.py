@@ -2,8 +2,9 @@
 """Where the time of the PyTorch port's GP-AL-1D training step goes, on
 the GPU.
 
-Builds the training recipe (B=200, n_query_init=200, T=30, f32,
-rollout_remat) from a fresh flax-equal init, starts in the main phase
+Builds the training recipe (B=200, n_query_init=200, T=30,
+rollout_remat; bench.py's dtype, bfloat16, unless ``--dtype`` says
+otherwise, printed) from a fresh flax-equal init, starts in the main phase
 (both losses, the layerwise lr), runs a few warm-up epochs, then a few
 more under ``torch.profiler`` and prints:
 
@@ -19,7 +20,7 @@ more under ``torch.profiler`` and prints:
 Usage:
     python scripts/profile_torch_train.py [--batch-size 200] [--T 30]
         [--warmup 3] [--epochs 3] [--attention-impl auto|flash]
-        [--trace train_trace.json]
+        [--dtype bfloat16|float32] [--trace train_trace.json]
 """
 import argparse
 import json
@@ -29,9 +30,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-from profile_torch_slice import busy_us  # noqa: E402
 
 
 def main():
@@ -44,6 +42,8 @@ def main():
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--attention-impl", default="auto",
                     choices=("auto", "compact", "flash", "naive"))
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     ap.add_argument("--out-dir", default="outputs/profile_train")
     ap.add_argument("--trace", default=None,
                     help="also write a chrome trace here")
@@ -54,6 +54,7 @@ def main():
 
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.train.loop import Trainer
+    from aline_tpu_torch.utils.profiling import busy_us
 
     n = args.warmup + args.epochs
     cfg = parse_overrides([
@@ -61,6 +62,7 @@ def main():
         f"task.n_query_init={args.n_query}", f"batch_size={args.batch_size}",
         f"min_T={args.T}", f"T={args.T}", "burning_epoch=0",
         f"encoder.attention_impl={args.attention_impl}",
+        f"dtype={args.dtype}",
         f"max_epoch={n}", "checkpoint=0", "verbose=1000",
         f"output_dir={args.out_dir}"])
     trainer = Trainer(cfg, device="cuda")
@@ -100,7 +102,8 @@ def main():
     print("unprofiled epochs (ms, the first one cold): "
           + ", ".join(f"{1e3 * t:.1f}" for t in warm))
     print(f"B={args.batch_size} n_query={args.n_query} T={args.T}, "
-          f"attention_impl={args.attention_impl}, main phase, "
+          f"attention_impl={args.attention_impl}, dtype={args.dtype}, "
+          f"main phase, "
           f"{args.epochs} epochs: wall {wall_s * 1e3:.1f} ms "
           f"({per_epoch_ms:.1f} ms/epoch, "
           f"{args.batch_size / (per_epoch_ms / 1e3):.1f} rollouts/s), "
@@ -127,7 +130,7 @@ def main():
         print(f"{e.self_cpu_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:80]}")
     print(json.dumps(dict(card=smi, attention_impl=args.attention_impl,
-                          unprofiled_ms=[1e3 * t for t in warm],
+                          dtype=args.dtype, unprofiled_ms=[1e3 * t for t in warm],
                           wall_ms=wall_s * 1e3,
                           ms_per_epoch=per_epoch_ms, busy_ms=busy / 1e3,
                           kernel_ms=device_us / 1e3,

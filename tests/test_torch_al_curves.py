@@ -8,6 +8,7 @@ agree to atol = rtol = 1e-4 (float32 on both sides, JAX at highest
 matmul precision; the difference is summation order).
 """
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
@@ -92,9 +93,20 @@ def test_small_rollout_matches_jax(small, strategy, mask):
                         strategy)
 
 
+def f32_run_copy(run_dir):
+    """``run_dir`` (a pathlib.Path) made a copy of the flagship's run
+    directory, its config.json only, set to compute in float32."""
+    with open(os.path.join(RUN_DIR, "config.json")) as f:
+        run_cfg = json.load(f)
+    run_cfg["dtype"] = "float32"
+    (run_dir / "config.json").write_text(json.dumps(run_cfg))
+    return str(run_dir)
+
+
 @pytest.fixture(scope="module")
-def flagship():
-    """The al1d_200k run in float32 in both packages, from the npz."""
+def flagship(tmp_path_factory):
+    """The al1d_200k run in float32 in both packages, from the npz (the
+    port's through a copy of its config.json set to float32)."""
     cfg = jax_load_config(RUN_DIR)
     cfg.dtype = "float32"
     jmodel = jax_build_model(cfg)
@@ -103,7 +115,8 @@ def flagship():
                                 sep="/")
     jbatch = JaxGPTask(cfg.task).sample_batch(jax.random.key(5), 4,
                                               n_query=40)
-    _, model = load_model(RUN_DIR, AL1D_200K_PARAMS, "cpu")
+    run_dir = f32_run_copy(tmp_path_factory.mktemp("al1d_200k_f32"))
+    _, model = load_model(run_dir, AL1D_200K_PARAMS, "cpu")
     return jmodel, params, model, jbatch
 
 

@@ -12,6 +12,19 @@ float32 accuracy (tests/test_torch_gmm_tf32.py), summed in another order
 (the backward's weight gradients over every row, in per-CTA partials and
 then over CTAs); the flash kernels sum a row's softmax online, over key
 tiles.
+
+The bfloat16 flash kernels against their plain versions in bfloat16, on
+the same bfloat16 inputs: both compute in float32 and round each output
+once, so an element may land on the other side of a rounding boundary.
+O and dQ: within 2^-7 of each element's magnitude (one bfloat16 ulp at
+most) plus 1e-5 (O) or 1e-4 (dQ) of the largest element.  dK and dV: the
+plain version sums them into bfloat16 block by block of ``block_q(N)``
+rows, as the TPU kernel does, each addition rounding by up to 2^-8 of a
+partial sum, where the kernels sum in float32 and round once: within
+2^-7 of each element plus (n_blocks + 1) * 2^-8 of the largest.  Against
+the plain version summed as the kernels sum them (``per_block=False``),
+dK and dV lie within 2^-7 of each element plus 1e-4 of the largest.  lse
+is float32: 1e-4.
 """
 import pytest
 import torch
@@ -262,6 +275,79 @@ def test_flash_backward_kernel_matches_plain(cuda, shape):
     want = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _assert_grad_close(a, b, name)
+
+
+BF16_ULP = 2.0 ** -7   # bfloat16's spacing, relative to a value, at most
+
+
+def _assert_bf16_close(got, want, floor, name):
+    """Within one bfloat16 ulp of each element plus ``floor`` of the
+    largest element."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = BF16_ULP * want.abs() + floor * want.abs().max()
+    assert bool((err <= bound).all()), (
+        f"{name}: max abs error {err.max().item():.3e}, largest element "
+        f"{want.abs().max().item():.3e}")
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_bf16_flash_forward_kernel_matches_plain(cuda, shape):
+    q, k, v, kcode, qrow, _ = _flash_inputs(*shape)
+    q, k, v = _bf16(q, k, v)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attn_fwd_bf16"] == \
+        before["flash_attn_fwd_bf16"] + 1
+    assert fa.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+    want_o, want_lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
+    _assert_bf16_close(o, want_o, 1e-5, "O")
+    torch.testing.assert_close(lse, want_lse, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_bf16_flash_backward_kernel_matches_plain(cuda, shape):
+    q, k, v, kcode, qrow, do = _flash_inputs(*shape, seed=1)
+    q, k, v, do = _bf16(q, k, v, do)
+    o, lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
+    before = fa.LAUNCHES["flash_attn_bwd_bf16"]
+    got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attn_bwd_bf16"] == before + 1
+    want = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
+    N = q.shape[2]
+    blocks = -(-N // fa.block_q(N))
+    for name, a, b, floor in zip(("dq", "dk", "dv"), got, want,
+                                 (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))):
+        _assert_bf16_close(a, b, floor, name)
+    once = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do,
+                                   per_block=False)
+    for name, a, b in zip(("dk", "dv"), got[1:], once[1:]):
+        _assert_bf16_close(a, b, TOL, f"{name} vs summed once")
+
+
+def test_bf16_flash_autograd_runs_both_kernels(cuda):
+    q, k, v, kcode, qrow, do = _flash_inputs(4, 4, 201, 102, 8, True, True)
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_role_attention(*leaves, kcode, qrow)
+    out.backward(do.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
+    for name in ("flash_attn_fwd_bf16", "flash_attn_bwd_bf16"):
+        assert fa.LAUNCHES[name] == before[name] + 1, name
+    again = [t.detach().clone().requires_grad_() for t in leaves]
+    fa.flash_role_attention(*again, kcode, qrow).backward(
+        do.to(torch.bfloat16))
+    for a, b in zip(leaves, again):          # no atomics: bitwise
+        assert torch.equal(a.grad, b.grad)
 
 
 def test_flash_backward_kernel_is_deterministic(cuda):

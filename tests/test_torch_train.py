@@ -457,8 +457,7 @@ def test_resume_is_bitwise_exact(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for over, what in (("dtype=bfloat16", "bfloat16"),
-                       ("encoder.dropout=0.1", "dropout"),
+    for over, what in (("encoder.dropout=0.1", "dropout"),
                        ("eval.EIG=true", "EIG"), ("mesh_data=2", "mesh"),
                        ("remat_policy=dots", "remat_policy")):
         _, tc = _cfgs(tmp_path, over)
