@@ -2,8 +2,9 @@
 
 A copy of the fields of ``aline_tpu/config.py`` (same names and defaults,
 so a run directory written by the JAX trainer loads unchanged), of its
-hydra-style ``key=value`` override parser and GP task presets, and of the
-JSON reader and writer in ``aline_tpu/utils/serialization.py``.
+hydra-style ``key=value`` override parser and the presets of the ported
+tasks, and of the JSON reader and writer in
+``aline_tpu/utils/serialization.py``.
 """
 from __future__ import annotations
 
@@ -105,9 +106,21 @@ class GPTaskConfig(TaskConfig):
     data_gen: str = "uniform"
 
 
+@dataclass
+class LocationFindingConfig(TaskConfig):
+    """Hidden-source location finding (``aline_tpu/config.py``
+    LocationFindingConfig)."""
+    target: str = "location_finding"
+    K: int = 1
+    theta_dist: str = "uniform"
+    outcome_scale: float = 10.0
+    base_signal: float = 0.1
+    max_signal: float = 1e-4
+
+
 def _task_presets():
-    """The GP presets of ``aline_tpu/config.py`` (the reference's
-    config/task/al_*.yaml values)."""
+    """The presets of ``aline_tpu/config.py`` whose tasks are ported (the
+    reference's config/task/*.yaml values)."""
     return {
         "al_data": GPTaskConfig(
             name="AL_data", dim_x=1, embedding_type="data",
@@ -124,12 +137,17 @@ def _task_presets():
             mask_type=["all"], n_context_init=1, n_query_init=200,
             n_target_data=0, n_target_theta=2,
             design_scale=5.0, noise_scale=0.01),
+        "location_finding": LocationFindingConfig(
+            name="Location", dim_x=2, embedding_type="theta",
+            mask_type=["all"], n_context_init=1, n_query_init=200,
+            n_target_data=0, n_target_theta=2, K=1,
+            theta_dist="uniform", design_scale=1.0, outcome_scale=10.0,
+            noise_scale=0.5, base_signal=0.1, max_signal=1e-4),
     }
 
 
 # presets of aline_tpu/config.py whose tasks the port has not yet
-_UNPORTED_TASK_PRESETS = ("benchmark", "ces", "hpo", "location_finding",
-                          "psychometric")
+_UNPORTED_TASK_PRESETS = ("benchmark", "ces", "hpo", "psychometric")
 
 
 @dataclass
@@ -180,9 +198,10 @@ class Config:
     eval: EvalConfig = field(default_factory=EvalConfig)
 
 
-# Only the GP task is ported; other targets load as the base TaskConfig
-# and are refused by tasks.build_task.
-_TASK_CFG_BY_TARGET = {"gp": GPTaskConfig}
+# The ported tasks; other targets load as the base TaskConfig and are
+# refused by tasks.build_task.
+_TASK_CFG_BY_TARGET = {"gp": GPTaskConfig,
+                       "location_finding": LocationFindingConfig}
 _GROUPS = {"encoder": EncoderConfig, "embedder": EmbedderConfig,
            "head": HeadConfig, "eval": EvalConfig}
 

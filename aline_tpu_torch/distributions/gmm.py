@@ -13,9 +13,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 def normal_log_prob(value, loc, scale):
-    """Elementwise Normal log-density (broadcasting)."""
+    """Elementwise Normal log-density (broadcasting); ``scale`` may be a
+    tensor or a Python number."""
     z = (value - loc) / scale
-    return -0.5 * (z * z + _LOG_2PI) - torch.log(scale)
+    log_scale = (torch.log(scale) if isinstance(scale, torch.Tensor)
+                 else math.log(scale))
+    return -0.5 * (z * z + _LOG_2PI) - log_scale
 
 
 def gmm_log_prob(value, means, stds, weights):

@@ -134,7 +134,15 @@ def init_ctx_idx(batch: Batch, capacity: int) -> Batch:
 
 
 class Task:
-    """Base simulator: design-space conventions and batch packing."""
+    """Base simulator: design-space conventions and batch packing.
+
+    Subclasses implement ``sample_theta(gen, shape)`` (latent draws from
+    the prior), ``simulate(gen, x, theta)`` (outcomes at designs x in the
+    real design space), ``log_likelihood(y, xi, theta)`` (pointwise
+    log p(y | xi, theta), broadcasting over a leading contrastive axis)
+    and ``sample_batch(gen, batch_size, n_query=None)``.  Every draw comes
+    from the explicit ``torch.Generator`` ``gen``, on its device.
+    """
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -150,6 +158,34 @@ class Task:
                                if cfg.embedding_type in ("theta", "mix")
                                else 0)
         self.design_scale = float(cfg.design_scale)
+
+    # -- design space ------------------------------------------------------
+    def to_design_space(self, xi):
+        return xi * self.design_scale
+
+    def normalise_design(self, x):
+        return x / self.design_scale
+
+    def unnormalise_design(self, x):
+        return x * self.design_scale
+
+    def normalise_outcomes(self, y):
+        return y
+
+    # -- abstract ----------------------------------------------------------
+    def sample_theta(self, gen: torch.Generator, shape: Tuple[int, ...]):
+        raise NotImplementedError
+
+    def simulate(self, gen: torch.Generator, x: torch.Tensor,
+                 theta) -> torch.Tensor:
+        raise NotImplementedError
+
+    def log_likelihood(self, y, xi, theta):
+        raise NotImplementedError
+
+    def sample_batch(self, gen: torch.Generator, batch_size: int,
+                     n_query: Optional[int] = None) -> Batch:
+        raise NotImplementedError
 
     def _initial_ctx_mask(self, batch_size: int, n_points: int,
                           device) -> torch.Tensor:

@@ -83,7 +83,6 @@ def check_supported(cfg: Config) -> None:
     refused = {
         "encoder.dropout > 0 (dropout is not ported yet)":
             cfg.encoder.dropout > 0,
-        "eval.EIG=true (the EIG bounds are not ported yet)": cfg.eval.EIG,
         "mesh_data > 1 (the port trains on one device)": cfg.mesh_data > 1,
         "remat_policy other than 'full' (not ported yet)":
             cfg.remat_policy != "full",
@@ -245,10 +244,14 @@ class Trainer:
         m["T"] = T
         return m
 
-    def train(self, tracker=None):
+    def train(self, eval_hook=None, tracker=None):
         """The epochs from ``start_epoch`` to ``cfg.max_epoch``; returns
         the host time of each epoch (work is queued on the device, so an
-        epoch's time is only whole at the ``verbose`` sync points)."""
+        epoch's time is only whole at the ``verbose`` sync points).
+
+        ``eval_hook``: optional callable(trainer, epoch) → dict of bounds,
+        run every ``verbose`` epochs when ``cfg.eval.EIG``; its numbers go
+        to the tracker and the log."""
         cfg = self.cfg
         self._ensure_phase(phase_for_epoch(cfg, self.start_epoch))
         if cfg.load_checkpoint:
@@ -274,6 +277,14 @@ class Trainer:
                     f"likelihood: {m['likelihood']:.4f}, design_loss: "
                     f"{m['design_loss']:.4f}, predict_loss: "
                     f"{m['predict_loss']:.4f}")
+                if cfg.eval.EIG and eval_hook is not None:
+                    bounds = eval_hook(self, epoch)
+                    if tracker is not None:
+                        tracker.log({k: v for k, v in bounds.items()
+                                     if isinstance(v, (int, float))},
+                                    step=epoch)
+                    self.logger.info(f"PCE: {bounds.get('pce_mean')}\t"
+                                     f"NMC: {bounds.get('nmc_mean')}")
             next_epoch = epoch + 1
             if cfg.checkpoint and next_epoch % cfg.checkpoint == 0:
                 self.save(next_epoch)

@@ -36,7 +36,8 @@ class RolloutOutputs(NamedTuple):
 
 def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             w_pred: torch.Tensor, gumbel: Optional[torch.Tensor] = None, *,
-            time_token: bool = False, use_remat: bool = True,
+            time_token: bool = False, time_forward: bool = True,
+            use_remat: bool = True,
             remat_policy: str = "full",
             sel_targets: Optional[tuple] = None) -> RolloutOutputs:
     """Run T acquisition steps.
@@ -46,8 +47,10 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             (:func:`aline_tpu_torch.ops.target_mask.target_weight_vectors`).
         gumbel: [T, B, n_points] standard Gumbel noise: stochastic designs
             (training); None: greedy argmax designs.
-        time_token: feed step t's time scalar t/T to the model (the
-            training direction; the AL curves use (T - t)/T).
+        time_token: feed step t's time scalar to the model.
+        time_forward: the scalar counts up, t/T (the training direction);
+            False: down, (T - t)/T (the eval direction of ``aline_tpu``,
+            ``eval/traces.py``).
         use_remat: recompute each step's activations in the backward pass.
         sel_targets: static tuple of the attendable target indices (the
             True set of ``batch.target_mask``) for the compact attention;
@@ -78,9 +81,12 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
     per_step = []
     for t in range(T):
         noise = gumbel[t] if training else None
-        tt = (torch.full((), t, dtype=torch.float32,
-                         device=batch.t.device) / T
-              if time_token else torch.zeros((), device=batch.t.device))
+        if time_token:
+            tt = torch.full((), t, dtype=torch.float32,
+                            device=batch.t.device)
+            tt = (tt if time_forward else T - tt) / T
+        else:
+            tt = torch.zeros((), device=batch.t.device)
         if use_remat:
             res = checkpoint(step, ctx_mask, ctx_idx, noise, tt,
                              use_reentrant=False)

@@ -23,6 +23,12 @@ from aline_tpu_torch.utils.device import resolve_device
 # The flagship GP-AL-1D run's parameters (checkpoints/al1d_200k).
 AL1D_200K_PARAMS = (Path(__file__).resolve().parents[1] / "assets"
                     / "al1d_200k_params.npz")
+# The location-finding BED run's parameters (checkpoints/loc_100k).
+LOC_100K_PARAMS = (Path(__file__).resolve().parents[1] / "assets"
+                   / "loc_100k_params.npz")
+# ... and a copy of its config.json, which names the run those belong to.
+LOC_100K_CONFIG = (Path(__file__).resolve().parents[1] / "assets"
+                   / "loc_100k_config.json")
 
 
 def _torch_key(flax_key: str) -> Tuple[str, bool]:

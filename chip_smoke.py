@@ -128,6 +128,33 @@ pinned), as before the port followed the run's dtype.
              of the loss's scale, each parameter's gradient within a
              relative L2 error of BF16_GRAD_RTOL.
 
+8. bed     — ``python -m aline_tpu_torch.eval_bed`` (its ``main``) on
+             checkpoints/loc_100k, weights from the committed npz, in its
+             bf16, at ``scripts/eval_bed.py``'s full protocol (M=2000,
+             B=200, n_query=2000, T=34, L=1e6, seed 0) with the random
+             baseline: per-step sPCE and sNMC (mean ± SE) of both; the
+             final sPCE within BED_SIGMAS combined standard errors of the
+             JAX package's bounds at the same protocol on a TPU
+             (``benchmarks/artifacts``; bound values, not times); nmc >=
+             pce - 1e-5 in every row and step; no kernel launched (none
+             of the path's shapes takes one); wall time split into the
+             rollout and the EIG stage, the EIG stage per batch against
+             its bounds (``eig_fold_bound``), peak memory, and the device
+             busy share and top kernels of one batch.
+8b. bed witness — a full-size batch's greedy bf16 traces on the card
+             against the port on the CPU over 8 rows, held as 4c; the
+             bounds on 20,000 CPU-drawn thetas within 1e-4 of the CPU's,
+             final and stepwise; and one bound on the card's own draws
+             (L=1e5, four chunks) under
+             ``torch.cuda.set_sync_debug_mode("error")``.
+9. train loc — ``python -m aline_tpu_torch.train`` (its ``main``) with the
+             recipe of loc_100k's config.json (B=200, T=30, bf16, fresh
+             init) and ``eval.EIG=true``: 2 burning and 3 main epochs; the
+             in-training bounds once, at the config's eval.L=50000,
+             M=2000, batch_size=1000, finite in metrics.jsonl; the final
+             per-step bounds at eval.*_final with M_final cut to 200; no
+             kernel launched; warm epoch, the hook's wall and peak memory.
+
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -135,11 +162,13 @@ is ``{"ok": true, "device": {...}}``.  A fuller record goes to
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -724,12 +753,14 @@ def run_slice(tag, cfg, model, batch, gen):
         curves
 
 
-def run_copy(name, dtype=None, attention_impl=None, fused_gmm=None):
-    """A copy of the flagship's run directory (its config.json only, with
-    the given changes) under ``OUT_DIR``, for ``load_model``."""
+def run_copy(name, dtype=None, attention_impl=None, fused_gmm=None,
+             src=RUN_DIR):
+    """A copy of the flagship's run directory, or of ``src`` (its
+    config.json only, with the given changes) under ``OUT_DIR``, for
+    ``load_model`` and the entry points, which write under it."""
     run_dir = OUT_DIR / name
     run_dir.mkdir(parents=True, exist_ok=True)
-    run_cfg = json.loads((RUN_DIR / "config.json").read_text())
+    run_cfg = json.loads((src / "config.json").read_text())
     if dtype is not None:
         run_cfg["dtype"] = dtype
     if attention_impl is not None:
@@ -1293,10 +1324,15 @@ def phase_flash_kernels_bf16():
     return rows, worst
 
 
+# the kernels by summed device time that device_busy names
+BUSY_TOP_KERNELS = 10
+
+
 def device_busy(fn):
-    """(device busy ms, wall ms) of ``fn`` under ``torch.profiler``: the
-    union of the kernels' intervals, and the host clock around the run
-    (slowed by the profiler)."""
+    """(device busy ms, wall ms, {kernel: ms}) of ``fn`` under
+    ``torch.profiler``: the union of the kernels' intervals, the host
+    clock around the run (slowed by the profiler), and the
+    ``BUSY_TOP_KERNELS`` kernels by their summed device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from aline_tpu_torch.utils.profiling import busy_us
@@ -1311,7 +1347,13 @@ def device_busy(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
-    return busy_us(kernels) / 1e3, wall * 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+    ranked = sorted(by_name.items(),
+                    key=lambda kv: -kv[1])[:BUSY_TOP_KERNELS]
+    return busy_us(kernels) / 1e3, wall * 1e3, dict(ranked)
 
 
 def design_forward(model, b):
@@ -1346,7 +1388,7 @@ def score_gap_ulps(scores, a, b):
 
 
 def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
-                    max_ulps=None):
+                    max_ulps=None, T=T_STEPS):
     """Along the reference's aline trajectory ``ref_idx`` [rows, T] over
     the first ``rows`` rows of ``batch``: every model of ``others``
     ({name: (model, its own idx [rows, T])}) is run on the reference's
@@ -1356,7 +1398,7 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
     of the two candidates lie within BF16_TIE_ULPS.  With ``max_ulps``
     None both are only read.  Returns the readings per model."""
     from aline_tpu_torch.tasks.base import init_ctx_idx, select_design
-    b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T_STEPS,
+    b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T,
                                 batch.n_points))
     ref_dev = next(ref_model.parameters()).device
     b = batch_rows(b, rows, ref_dev)
@@ -1367,7 +1409,7 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
         res[name] = dict(differs=differs, first=first, ulps=0.0, near=0,
                          n=0, gap=torch.zeros(rows, dtype=torch.int32))
     with torch.no_grad():
-        for t in range(T_STEPS + 1):
+        for t in range(T + 1):
             out_r, s_r = design_forward(ref_model, b)
             for name, (model, idx) in others.items():
                 dev = next(model.parameters()).device
@@ -1379,12 +1421,12 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
                     r["ulps"] = max(r["ulps"], u.max().item())
                     r["near"] += int((u <= 1).sum())
                     r["n"] += u.numel()
-                if t < T_STEPS:
+                if t < T:
                     here = r["differs"] & (r["first"] == t)
                     gap = score_gap_ulps(s_r.cpu(), ref_idx[:, t],
                                          idx.cpu()[:, t])
                     r["gap"] = torch.where(here, gap, r["gap"])
-            if t == T_STEPS:
+            if t == T:
                 break
             b, _, _ = select_design(b, ref_idx[:, t].to(ref_dev))
     share = BF16_CARD_SHARE if max_ulps else None
@@ -1437,7 +1479,7 @@ def phase_slice_bf16(batch, curves_f32):
         raise AssertionError(f"the flagship loads in {compute_dtype(cfg)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec, curves = run_slice("bf16 slice", cfg, model, batch, gen)
-    busy, wall = device_busy(lambda: compare_strategies(
+    busy, wall, _ = device_busy(lambda: compare_strategies(
         model, batch, T_STEPS, gen, time_token=cfg.time_token))
     rec.update(busy_ms=busy, profiled_wall_ms=wall)
     log("bf16 slice", f"under the profiler: device busy {busy:.1f} ms of "
@@ -1609,6 +1651,350 @@ def phase_train_parity_bf16():
             for label, (w, c) in out.items()}
 
 
+# Phases 8, 8b and 9: location finding and its sPCE/sNMC bounds on
+# checkpoints/loc_100k (weights from the committed npz), in the run's own
+# dtype, bfloat16; the bounds in float32.
+LOC_RUN = ROOT / "checkpoints" / "loc_100k"
+# scripts/eval_bed.py's full protocol (its defaults; T = eval.T_final -
+# n_context_init = 34, so 35 steps of bounds)
+BED = dict(L=1_000_000, M=2000, batch_size=200, n_query=2000, T=34, seed=0)
+# The JAX package's per-step bounds at the same protocol, computed on a TPU
+# (bound values, not times): the policy's, and random designs'.  The
+# port's final sPCE must lie within BED_SIGMAS combined standard errors
+# of each.
+ARTIFACTS = ROOT / "benchmarks" / "artifacts"
+JAX_BED = {"aline": (ARTIFACTS / "loc_r4_100k_N2000_T35_L1e6.npz", ""),
+           "random": (ARTIFACTS / "loc_r3_random_N2000_T35_L1e6.npz",
+                      "random_")}
+BED_SIGMAS = 4
+# nmc - pce >= log(L / (L + 1)) for the same draws; the float32 rounding
+# of two bounds near 10 moves it by a few 1e-6
+BED_NMC_SLACK = 1e-5
+BED_WITNESS_ROWS = 8
+BED_WITNESS_L = 20_000
+# Phase 9: the loc recipe of loc_100k's config.json (B=200, T=30,
+# n_query_init=200, bf16, its eval group), fresh init, 2 burning and 3
+# main epochs; the in-training bounds run once (epoch 0) at the config's
+# eval.L=50000, M=2000, batch_size=1000, and the final per-step bounds at
+# eval.*_final with M_final cut to one batch of 200
+LOC_TRAIN_ARGS = ["task=location_finding", "batch_size=200", "min_T=30",
+                  "T=30", "dtype=bfloat16", "rollout_remat=true",
+                  "eval.EIG=true", "eval.L=50000", "eval.M=2000",
+                  "eval.batch_size=1000", "eval.L_final=1000000",
+                  "eval.M_final=200", "eval.batch_size_final=200",
+                  "eval.n_query_final=2000", "eval.T_final=35",
+                  "burning_epoch=2", "max_epoch=5", "verbose=5",
+                  "checkpoint=0"]
+# NVIDIA H100 SXM, per SM and clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): 128 float32
+# add/multiply/FMA and 16 special-function (rcp, lg2, ex2) results; 132
+# SMs at the 1.98 GHz boost clock (the 67 TFLOP/s of PEAK_F32_FLOPS)
+PEAK_F32_INSTR = 132 * 128 * 1.98e9
+PEAK_MUFU_INSTR = 132 * 16 * 1.98e9
+
+
+def eig_fold_bound(terms, K, D):
+    """Bounds of the EIG chunk fold over ``terms`` (l, b, t) terms of
+    location finding with K sources in D dimensions, from the code of
+    ``tasks/location_finding.py`` and ``eval/eig.py``:
+
+    * fused, in registers: per term 2KD + 2K + 8 float32 instructions
+      (differences, squares, the sums, the offsets, the Gaussian's
+      centring, scaling and square, the cumulative sum, the shift and the
+      sum of the fold) and K + 2 special-function ones (K reciprocals, a
+      log, an exp); its bytes (the thetas' draws, the [B, Th] inputs and
+      outputs) are negligible beside them, so operations bound it.
+    * eager, as PyTorch runs it: 4KD + 6K + 25 float32 passes (reads plus
+      writes) over the [Lc, B, Th] block per term: the [.., K, D]
+      differences and squares, 12 elementwise passes, the cumulative sum
+      and the fold's max, shift, exp and sum, at the HBM rate.
+
+    Returns (fused seconds, eager seconds)."""
+    f32 = terms * (2 * K * D + 2 * K + 8) / PEAK_F32_INSTR
+    mufu = terms * (K + 2) / PEAK_MUFU_INSTR
+    eager = terms * 4 * (4 * K * D + 6 * K + 25) / PEAK_HBM_BYTES
+    return max(f32, mufu), eager
+
+
+def timed_calls(store, kind, fn):
+    """``fn`` wrapped to append its host time, between two synchronises,
+    to ``store`` (with the EIG calls' shapes and results)."""
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec = dict(kind=kind, s=time.perf_counter() - t0)
+        if kind == "eig":
+            x = args[2]
+            rec.update(B=x.shape[0], Th=x.shape[1], L=args[4],
+                       pce=out[0].cpu(), nmc=out[1].cpu())
+        store.append(rec)
+        return out
+    return wrapper
+
+
+def patched(patches):
+    """Set ``(module, name, value)`` attributes; returns the undo list."""
+    undo = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
+    return undo
+
+
+def bed_argv(run_dir, M):
+    return [run_dir, "--L", str(BED["L"]), "--M", str(M), "--batch-size",
+            str(BED["batch_size"]), "--n-query", str(BED["n_query"]),
+            "--T", str(BED["T"]), "--seed", str(BED["seed"]),
+            "--device", "cuda"]
+
+
+def phase_bed(smi):
+    """8: ``python -m aline_tpu_torch.eval_bed`` on loc_100k at the full
+    protocol with the random-design baseline, through its ``main``;
+    per-step bounds, the final sPCE against the JAX package's, nmc >= pce
+    in every row and step, no kernel launched, wall time split into the
+    rollout and the EIG stage, the EIG stage per batch against its
+    bounds, peak memory, and the device busy share of one batch."""
+    from aline_tpu_torch import eval_bed
+    from aline_tpu_torch.config import load_config
+    from aline_tpu_torch.eval import eig
+
+    run_dir = run_copy("bed_run", src=LOC_RUN)
+    cfg = load_config(run_dir)
+    calls = []
+    undo = patched([
+        (eig, "get_traces", timed_calls(calls, "rollout", eig.get_traces)),
+        (eig, "compute_eig_from_history", timed_calls(
+            calls, "eig", eig.compute_eig_from_history)),
+        (eval_bed, "compute_eig_from_history", timed_calls(
+            calls, "eig", eval_bed.compute_eig_from_history))])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_bed.main(bed_argv(run_dir, BED["M"])
+                            + ["--with-random-baseline"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patched(undo)
+    if counts != expected_launches(cfg):
+        raise AssertionError(f"bed: kernel launches {counts}, expected none")
+    n_batches = -(-BED["M"] // BED["batch_size"])
+    rollouts = [c for c in calls if c["kind"] == "rollout"]
+    eigs = [c for c in calls if c["kind"] == "eig"]
+    if len(rollouts) != n_batches or len(eigs) != 2 * n_batches:
+        raise AssertionError(f"bed: {len(rollouts)} rollouts and "
+                             f"{len(eigs)} EIG calls for {n_batches} batches")
+    steps = BED["T"] + 1
+    rec = dict(wall_s=wall, peak_bytes=peak, launches=counts)
+    for who, prefix in (("aline", "aline_"), ("random", "random_")):
+        m = {k: res[f"{prefix}{k}"] for k in ("pce_mean", "pce_err",
+                                              "nmc_mean", "nmc_err")}
+        for k, v in m.items():
+            if v.shape != (steps,) or not np.isfinite(v).all():
+                raise AssertionError(f"bed {who} {k}: shape {v.shape}, "
+                                     f"finite {np.isfinite(v).all()}")
+        path, key = JAX_BED[who]
+        with np.load(path) as ref:
+            want = float(ref[f"{key}pce_mean"][BED["T"]])
+            want_se = float(ref[f"{key}pce_err"][BED["T"]])
+        got, se = float(m["pce_mean"][-1]), float(m["pce_err"][-1])
+        limit = BED_SIGMAS * math.sqrt(want_se ** 2 + se ** 2)
+        for k in ("pce", "nmc"):
+            log("bed", f"{who} s{k.upper()} per step (mean ± SE): " + ", ".join(
+                f"{a:.3f}±{b:.3f}" for a, b in zip(m[f"{k}_mean"],
+                                                    m[f"{k}_err"])))
+        log("bed", f"{who}: final sPCE {got:.4f} ± {se:.4f} (SE), the JAX "
+            f"package on a TPU {want:.3f} ± {want_se:.3f}: |diff| "
+            f"{abs(got - want):.4f}, limit {limit:.4f} (bound values, not "
+            f"times)")
+        rec[who] = dict({k: v.tolist() for k, v in m.items()},
+                        final_pce=got, final_se=se, jax_final_pce=want,
+                        jax_final_se=want_se, limit=limit)
+        if abs(got - want) > limit:
+            raise AssertionError(f"bed {who}: final sPCE {got:.4f} is "
+                                 f"{abs(got - want):.4f} from {want:.3f}")
+    gap = min(float((c["nmc"] - c["pce"]).min()) for c in eigs)
+    rec["min_nmc_minus_pce"] = gap
+    log("bed", f"nmc - pce over every row and step: least {gap:.3e} "
+        f"(log(L/(L+1)) = {math.log(BED['L'] / (BED['L'] + 1)):.3e}, "
+        f"limit -{BED_NMC_SLACK})")
+    if gap < -BED_NMC_SLACK:
+        raise AssertionError(f"bed: nmc < pce - {BED_NMC_SLACK} ({gap})")
+    rollout_s = sum(c["s"] for c in rollouts)
+    eig_s = [c["s"] for c in eigs]
+    c0 = eigs[0]
+    terms = c0["L"] * c0["B"] * c0["Th"]
+    bound_s, eager_s = eig_fold_bound(terms, cfg.task.K, cfg.task.dim_x)
+    eig_ms = 1e3 * statistics.median(eig_s)
+    rec.update(rollout_s=rollout_s, eig_s=sum(eig_s),
+               eig_ms_per_batch=eig_ms, eig_ms_by_batch=[1e3 * s
+                                                          for s in eig_s],
+               eig_bound_ms=1e3 * bound_s, eig_bound_by="operations",
+               eig_eager_bytes_ms=1e3 * eager_s, eig_terms_per_batch=terms)
+    log("bed", f"M={BED['M']} B={BED['batch_size']} n_query={BED['n_query']}"
+        f" T={BED['T']} L={BED['L']}: {wall:.3f} s wall; rollout "
+        f"{rollout_s:.3f} s ({n_batches} batches); EIG {sum(eig_s):.3f} s "
+        f"({len(eigs)} calls: policy and random); peak memory "
+        f"{peak / 2**30:.3f} GiB ({smi})")
+    log("bed", f"EIG stage per batch ({terms:.3e} terms): {eig_ms:.1f} ms "
+        f"(median); bound {1e3 * bound_s:.2f} ms (operations, fused), the "
+        f"eager passes' bytes {1e3 * eager_s:.1f} ms")
+    busy_dir = run_copy("bed_busy_run", src=LOC_RUN)
+    busy, pwall, top = device_busy(lambda: eval_bed.main(
+        bed_argv(busy_dir, BED["batch_size"])))
+    rec.update(busy_ms_one_batch=busy, profiled_wall_ms_one_batch=pwall,
+               top_kernels_ms_one_batch=top)
+    log("bed", f"one policy batch under the profiler: device busy "
+        f"{busy:.1f} ms of {pwall:.1f} ms wall ({100 * busy / pwall:.1f}%);"
+        f" kernels by device time: " + "; ".join(
+            f"{name[:60]} {ms:.1f} ms" for name, ms in top.items()))
+    return rec
+
+
+def trace_indices(x_trace, points, n_ctx):
+    """[B, T] indices among ``points`` [B, N, D] (unnormalised) of a
+    trace's chosen designs ``x_trace[:, n_ctx:]``."""
+    hits = (x_trace[:, n_ctx:, None, :] == points[:, None]).all(-1)
+    if not (hits.sum(-1) == 1).all():
+        raise AssertionError("a traced design is not one pool point")
+    return hits.float().argmax(-1)
+
+
+def phase_bed_witness():
+    """8b: the card against the port on the CPU: greedy bf16 traces of
+    BED_WITNESS_ROWS rows of a full-size batch, held as 4c holds the
+    flagship (``hold_trajectory``: BF16_CARD_SHARE, BF16_CARD_ULPS, and a
+    row leaves the CPU's trajectory only at a tie of at most
+    BF16_TIE_ULPS); the bounds on
+    pre-drawn thetas (drawn on the CPU) within 1e-4, final and stepwise;
+    and one bound on the card's own draws with any host synchronisation
+    an error."""
+    from aline_tpu_torch.eval.eig import compute_eig_from_history
+    from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+
+    cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    _, model_cpu = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cpu")
+    task = build_task(cfg.task)
+    T, rows, n_ctx = BED["T"], BED_WITNESS_ROWS, task.n_context_init
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = task.sample_batch(gen, BED["batch_size"], n_query=BED["n_query"])
+    reset_launches()
+    _, x_card, _ = get_traces(model, task, batch, T)
+    if any(launches().values()):
+        raise AssertionError(f"bed witness: launches {launches()}")
+    cpu_batch = batch_rows(batch, rows, "cpu")
+    t0 = time.perf_counter()
+    theta0, x, y = get_traces(model_cpu, task, cpu_batch, T)
+    witness_s = time.perf_counter() - t0
+    points = task.unnormalise_design(cpu_batch.x)
+    summary = hold_trajectory(
+        "bed witness", batch, trace_indices(x, points, n_ctx), model_cpu,
+        {"card": (model, trace_indices(x_card[:rows].cpu(), points, n_ctx))},
+        rows, BF16_CARD_ULPS, T=T)["card"]
+    rec = dict(traces=summary, witness_s=witness_s)
+    thetas = task.sample_theta(torch.Generator().manual_seed(2),
+                               (BED_WITNESS_L, rows))
+    dev = [t.cuda() for t in (theta0, x, y, thetas)]
+    for stepwise in (False, True):
+        want = compute_eig_from_history(task, theta0, x, y, 0, 0,
+                                        stepwise=stepwise, thetas=thetas)
+        got = compute_eig_from_history(task, *dev[:3], 0, 0,
+                                       stepwise=stepwise, thetas=dev[3])
+        for name, g, w in zip(("pce", "nmc"), got, want):
+            err, rel, ok = close(g.cpu(), w)
+            rec[f"{name}_{'stepwise' if stepwise else 'final'}"] = err
+            log("bed witness", f"{name} on {BED_WITNESS_L} CPU-drawn thetas"
+                f" ({rows} rows, stepwise={stepwise}): card vs CPU max abs "
+                f"{err:.3e}, rel {rel:.3e} (tolerance {TOL})")
+            if not ok:
+                raise AssertionError(f"bed witness: {name} off by {err}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pce, nmc = compute_eig_from_history(task, *dev[:3], 100_000, 5,
+                                            stepwise=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (torch.isfinite(pce).all() and torch.isfinite(nmc).all()):
+        raise AssertionError("bed witness: non-finite bounds")
+    log("bed witness", f"compute_eig_from_history at L=100000 on the card's "
+        f"draws under set_sync_debug_mode('error'): no host "
+        f"synchronisation; CPU witness traces ({rows} rows) "
+        f"{witness_s:.1f} s")
+    return rec
+
+
+def phase_train_loc(smi):
+    """9: ``python -m aline_tpu_torch.train`` with the loc recipe and
+    ``eval.EIG=true``, through its ``main``: no kernel launched; finite
+    in-training bounds in metrics.jsonl; warm ms per epoch, the hook's
+    wall time and peak memory."""
+    from aline_tpu_torch.train import __main__ as entry
+    from aline_tpu_torch.train.loop import Trainer
+
+    out_dir = OUT_DIR / "loc_train_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)     # metrics.jsonl appends
+    calls = []
+    epoch_fn = Trainer.train_epoch
+
+    def timed_epoch(self, epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = epoch_fn(self, epoch)
+        torch.cuda.synchronize()
+        calls.append(dict(kind="epoch", epoch=epoch, phase=self.phase,
+                          s=time.perf_counter() - t0))
+        return m
+
+    undo = patched([(Trainer, "train_epoch", timed_epoch),
+                    (entry, "eval_boed", timed_calls(calls, "eval_boed",
+                                                     entry.eval_boed))])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = entry.main(LOC_TRAIN_ARGS + ["device=cuda",
+                                               f"output_dir={out_dir}"])
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patched(undo)
+    if counts != expected_launches(trainer.cfg):
+        raise AssertionError(f"train loc: launches {counts}, expected none")
+    recs = [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    bounds = [r for r in recs if "pce_mean" in r]
+    if len(bounds) != 1 or not all(
+            math.isfinite(bounds[0][k]) for k in ("pce_mean", "nmc_mean")):
+        raise AssertionError(f"train loc: in-training bounds {bounds}")
+    epochs = [c for c in calls if c["kind"] == "epoch"]
+    hook_s, final_s = (c["s"] for c in calls if c["kind"] == "eval_boed")
+    warm_ms = 1e3 * statistics.median(
+        [e["s"] for e in epochs if e["phase"] == "main"][1:])
+    log("train loc", "epochs " + ", ".join(
+        f"{e['epoch']} ({e['phase']}) {1e3 * e['s']:.1f} ms" for e in epochs))
+    cfg = trainer.cfg
+    log("train loc", f"B={cfg.batch_size} T={cfg.T} n_query_init="
+        f"{cfg.task.n_query_init} {cfg.dtype}: warm epoch {warm_ms:.1f} ms; "
+        f"EIG hook (L={cfg.eval.L}, M={cfg.eval.M}, batch "
+        f"{cfg.eval.batch_size}, T={cfg.T - cfg.task.n_context_init}) "
+        f"{hook_s:.3f} s: sPCE {bounds[0]['pce_mean']:.4f}, sNMC "
+        f"{bounds[0]['nmc_mean']:.4f}; final bounds (M={cfg.eval.M_final})"
+        f" {final_s:.3f} s; peak memory {peak / 2**30:.3f} GiB ({smi})")
+    return dict(epochs=epochs, warm_ms=warm_ms, hook_s=hook_s,
+                final_bounds_s=final_s, bounds=bounds[0], peak_bytes=peak,
+                launches=counts)
+
+
 def main():
     smi = phase_device()
     build_s = phase_build()
@@ -1631,12 +2017,16 @@ def main():
     train_parity_err = phase_train_parity()
     flash_parity_err = phase_flash_train_parity()
     bf16_parity = phase_train_parity_bf16()
+    bed_rec = phase_bed(smi)
+    bed_witness = phase_bed_witness()
+    loc_train_rec = phase_train_loc(smi)
 
     paths = {"eval": slice_rec, "train": train_rec,
              "flash_eval": flash_slice_rec, "flash_train": flash_train_rec,
              "eval_bf16": bf16_slice_rec, "train_bf16": bf16_train_rec,
              "flash_eval_bf16": bf16_flash_slice_rec,
-             "flash_train_bf16": bf16_flash_train_rec}
+             "flash_train_bf16": bf16_flash_train_rec, "bed": bed_rec,
+             "train_loc": loc_train_rec}
 
     def record(name, replaces, row, err, source=None, dtype="float32",
                **extra):
@@ -1687,7 +2077,9 @@ def main():
         flash_train_bf16=bf16_flash_train_rec,
         train_parity_max_abs=train_parity_err,
         flash_train_parity_max_abs=flash_parity_err,
-        train_parity_bf16=bf16_parity, kernels=kernels, device=device),
+        train_parity_bf16=bf16_parity, bed=bed_rec,
+        bed_witness=bed_witness, train_loc=loc_train_rec, kernels=kernels,
+        device=device),
         indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

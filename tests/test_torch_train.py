@@ -458,11 +458,27 @@ def test_resume_is_bitwise_exact(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     for over, what in (("encoder.dropout=0.1", "dropout"),
-                       ("eval.EIG=true", "EIG"), ("mesh_data=2", "mesh"),
+                       ("mesh_data=2", "mesh"),
                        ("remat_policy=dots", "remat_policy")):
         _, tc = _cfgs(tmp_path, over)
         with pytest.raises(NotImplementedError, match=what):
             Trainer(tc, device="cpu")
+    # eval.EIG is ported: the trainer takes it and calls the hook every
+    # ``verbose`` epochs, and only with eval.EIG
+    calls = []
+
+    def hook(trainer, epoch):
+        calls.append((trainer, epoch))
+        return {"pce_mean": 1.0, "nmc_mean": 2.0}
+
+    _, tc = _cfgs(tmp_path, "eval.EIG=true", "max_epoch=5", "verbose=2")
+    trainer = Trainer(tc, device="cpu")
+    trainer.train(eval_hook=hook)
+    assert [e for _, e in calls] == [0, 2, 4]
+    assert all(t is trainer for t, _ in calls)
+    _, tc = _cfgs(tmp_path, "max_epoch=3", "verbose=1")
+    Trainer(tc, device="cpu").train(eval_hook=hook)
+    assert len(calls) == 3
 
 
 def test_cli_trains_and_eval_reads_the_model(tmp_path, capsys):
