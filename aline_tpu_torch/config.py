@@ -118,6 +118,34 @@ class LocationFindingConfig(TaskConfig):
     max_signal: float = 1e-4
 
 
+@dataclass
+class CESTaskConfig(TaskConfig):
+    """CES utility experiment (``aline_tpu/config.py`` CESTaskConfig)."""
+    target: str = "ces"
+    epsilon: float = 2.0 ** (-22)
+    # the censored tail's asymptote: "log_ndtr" (exact, the default) or
+    # "reference" (the reference's hand-rolled branch, for parity runs)
+    tail_mode: str = "log_ndtr"
+
+
+@dataclass
+class PsychometricConfig(TaskConfig):
+    """Psychometric function task (``aline_tpu/config.py``
+    PsychometricConfig)."""
+    target: str = "psychometric"
+
+
+@dataclass
+class HPOTaskConfig(TaskConfig):
+    """HPO-B lookup task (``aline_tpu/config.py`` HPOTaskConfig)."""
+    target: str = "hpo"
+    meta_dataset: str = "ranger"
+    min_n_context: int = 5
+    max_n_context: int = 10
+    normalize_y: bool = False
+    data_path: Optional[str] = None
+
+
 def _task_presets():
     """The presets of ``aline_tpu/config.py`` whose tasks are ported (the
     reference's config/task/*.yaml values)."""
@@ -137,17 +165,35 @@ def _task_presets():
             mask_type=["all"], n_context_init=1, n_query_init=200,
             n_target_data=0, n_target_theta=2,
             design_scale=5.0, noise_scale=0.01),
+        "ces": CESTaskConfig(
+            name="CES", dim_x=6, embedding_type="theta",
+            mask_type=["all"], n_context_init=1, n_query_init=200,
+            n_target_data=0, n_target_theta=5,
+            design_scale=100.0, noise_scale=0.005),
         "location_finding": LocationFindingConfig(
             name="Location", dim_x=2, embedding_type="theta",
             mask_type=["all"], n_context_init=1, n_query_init=200,
             n_target_data=0, n_target_theta=2, K=1,
             theta_dist="uniform", design_scale=1.0, outcome_scale=10.0,
             noise_scale=0.5, base_signal=0.1, max_signal=1e-4),
+        "psychometric": PsychometricConfig(
+            name="Psychometric", dim_x=1, embedding_type="theta",
+            mask_type=["predefined"],
+            predefined_masks=[[False, False, True, True],
+                              [True, True, False, False]],
+            predefined_mask_weights=[1.0, 1.0],
+            n_context_init=1, n_query_init=200,
+            n_target_data=0, n_target_theta=4, design_scale=5.0),
+        "hpo": HPOTaskConfig(
+            name="HPO", dim_x=9, embedding_type="data",
+            mask_type=["all"], n_context_init=5, n_query_init=100,
+            n_target_data=100, n_target_theta=0,
+            meta_dataset="ranger"),
     }
 
 
 # presets of aline_tpu/config.py whose tasks the port has not yet
-_UNPORTED_TASK_PRESETS = ("benchmark", "ces", "hpo", "psychometric")
+_UNPORTED_TASK_PRESETS = ("benchmark",)
 
 
 @dataclass
@@ -201,7 +247,10 @@ class Config:
 # The ported tasks; other targets load as the base TaskConfig and are
 # refused by tasks.build_task.
 _TASK_CFG_BY_TARGET = {"gp": GPTaskConfig,
-                       "location_finding": LocationFindingConfig}
+                       "location_finding": LocationFindingConfig,
+                       "ces": CESTaskConfig,
+                       "psychometric": PsychometricConfig,
+                       "hpo": HPOTaskConfig}
 _GROUPS = {"encoder": EncoderConfig, "embedder": EmbedderConfig,
            "head": HeadConfig, "eval": EvalConfig}
 

@@ -59,11 +59,15 @@ def derive_seed(seed: int, *path: int) -> int:
 
 
 # Bytes of one float32 [Lc, B, Th] block of the chunk fold.  At its peak
-# the fold holds about 2·K·D + 2 such blocks at once (the [Lc, B, Th, K,
-# D] differences and their squares, then the log-likelihood and the
-# shifted exponentials), so 256 MiB a block keeps a K=1, D=2 fold near
-# 1.5 GiB of device memory, and each of its eager passes still runs over
-# tens of millions of elements.
+# the fold holds about 2·K·D + 2 such blocks at once for location finding
+# (the [Lc, B, Th, K, D] differences and their squares, then the
+# log-likelihood and the shifted exponentials), so 256 MiB a block keeps
+# a K=1, D=2 fold near 1.5 GiB of device memory, and each of its eager
+# passes still runs over tens of millions of elements.  CES holds about
+# eight blocks (the [Lc, B, Th, 3] basket powers and the censored
+# density's terms): one chunk at its BED shape (Lc=32768 at the L_chunk
+# cap, B=100, Th=16: 200 MiB blocks) took 1.624 GiB above the traces on
+# an H100 (chip_smoke.py phase 10b), so the rule fits both tasks.
 CHUNK_BLOCK_BYTES = 256 * 2**20
 
 

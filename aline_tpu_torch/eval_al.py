@@ -1,13 +1,15 @@
 """Headless active-learning evaluation on the card
 (the port of ``scripts/eval_al.py``).
 
-Loads a trained run's config and its exported parameters, rolls out the
+Loads a trained run's config and its parameters (``--params``, the run's
+own npz, or the committed npz of a banked run such as checkpoints/al1d_200k:
+``utils/serialization.py`` ``weights_path``), rolls out the
 amortized policy and the baseline strategies on fresh GP batches, prints
 the final log-prob and RMSE per strategy, and saves the per-step curves to
 ``<run_dir>/eval/al_curves.npz``.  The model computes in the run's
 ``dtype`` (bfloat16 for every committed checkpoint); to evaluate a run in
 float32, point RUN_DIR at a copy of its directory whose config.json says
-``"dtype": "float32"``.
+``"dtype": "float32"``, with ``--params`` (the copy is no banked run).
 
 Usage:
     python -m aline_tpu_torch.eval_al RUN_DIR [--params NPZ]
@@ -25,19 +27,20 @@ import torch
 from aline_tpu_torch.eval.al_curves import compare_strategies
 from aline_tpu_torch.models.aline import compute_dtype
 from aline_tpu_torch.tasks import build_task
-from aline_tpu_torch.utils.serialization import AL1D_200K_PARAMS, load_model
+from aline_tpu_torch.utils.serialization import load_model, weights_path
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("run_dir")
-    ap.add_argument("--params", default=str(AL1D_200K_PARAMS),
+    ap.add_argument("--params", default=None,
                     help="npz of the run's flax parameters "
-                         "(scripts/export_params_npz.py)")
+                         "(scripts/export_params_npz.py); default: "
+                         "utils/serialization.py weights_path")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--file-name", default="aline",
-                    help="accepted for scripts/eval_al.py's command lines; "
-                         "the weights come from --params")
+                    help="the run's model name: its weights are "
+                         "RUN_DIR/model/<name>.npz")
     ap.add_argument("--batch-size", type=int, default=100)
     ap.add_argument("--T", type=int, default=30)
     ap.add_argument("--n-query", type=int, default=500)
@@ -62,7 +65,9 @@ def main(argv=None):
         raise NotImplementedError("--with-gp-baselines is not ported yet")
     if args.benchmark:
         raise NotImplementedError("--benchmark is not ported yet")
-    cfg, model = load_model(args.run_dir, args.params, args.device)
+    cfg, model = load_model(
+        args.run_dir, weights_path(args.run_dir, args.file_name, args.params),
+        args.device)
     device = next(model.parameters()).device
     print(f"computing in {compute_dtype(cfg)} (the run's dtype="
           f"{cfg.dtype}) on {device}")

@@ -1,13 +1,16 @@
 """Headless BED evaluation on the card (the port of
 ``scripts/eval_bed.py``).
 
-Loads a trained run's config and its parameters (``weights_path``), rolls
+Loads a trained run's config and its parameters (``weights_path`` of
+``utils/serialization.py``: ``--params``, the run's own npz, or the
+committed npz of a banked run), rolls
 the policy out greedily on fresh batches and computes the per-step sPCE and
 sNMC bounds (``eval/eig.py``), optionally beside random designs at the
 same protocol, and saves them to
 ``<run_dir>/eval/{bed,random}_bounds_N<n_query>_T<T>_L<L>.npz`` with
 ``scripts/eval_bed.py``'s keys.  The model computes in the run's
-``dtype`` (bfloat16 for checkpoints/loc_100k); the bounds in float32.
+``dtype`` (bfloat16 for checkpoints/loc_100k and ces_200k); the bounds
+in float32.
 
 Usage:
     python -m aline_tpu_torch.eval_bed RUN_DIR [--file-name NAME]
@@ -17,7 +20,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import json
 import os
 
 import numpy as np
@@ -31,10 +33,11 @@ from aline_tpu_torch.eval.eig import (
 )
 from aline_tpu_torch.models.aline import compute_dtype
 from aline_tpu_torch.tasks import build_task
-from aline_tpu_torch.utils.serialization import (
+from aline_tpu_torch.utils.serialization import (  # noqa: F401
     LOC_100K_CONFIG,
     LOC_100K_PARAMS,
     load_model,
+    weights_path,
 )
 
 
@@ -43,8 +46,8 @@ def parse_args(argv=None):
     ap.add_argument("run_dir")
     ap.add_argument("--params", default=None,
                     help="npz of the run's flax parameters "
-                         "(scripts/export_params_npz.py); default: see "
-                         "weights_path")
+                         "(scripts/export_params_npz.py); default: "
+                         "utils/serialization.py weights_path")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--file-name", default="aline",
                     help="the run's model name: its weights are "
@@ -62,26 +65,6 @@ def parse_args(argv=None):
                     help="only compute the random-design baseline")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
-
-
-def weights_path(run_dir: str, file_name: str, params=None) -> str:
-    """The npz of the run's weights: ``params`` when given; else
-    ``<run_dir>/model/<file_name stem>.npz``, which the port's trainer
-    writes; else, for a run whose config.json is checkpoints/loc_100k's
-    (an orbax tree the port does not read), the committed export of its
-    parameters.  Raises FileNotFoundError for any other run."""
-    if params is not None:
-        return str(params)
-    own = os.path.join(run_dir, "model", f"{file_name.split('.')[0]}.npz")
-    if os.path.exists(own):
-        return own
-    with open(os.path.join(run_dir, "config.json")) as f:
-        run_cfg = json.load(f)
-    if run_cfg == json.loads(LOC_100K_CONFIG.read_text()):
-        return str(LOC_100K_PARAMS)
-    raise FileNotFoundError(
-        f"no weights for {run_dir}: {own} does not exist and the run is not "
-        f"checkpoints/loc_100k; pass --params or --file-name")
 
 
 def random_design_bounds(task, T: int, L: int, M: int, batch_size: int,

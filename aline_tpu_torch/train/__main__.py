@@ -10,6 +10,10 @@ or location finding with its bounds (``eval.EIG=true``):
     python -m aline_tpu_torch.train task=location_finding eval.EIG=true \
         dtype=bfloat16 max_epoch=100000 burning_epoch=20000
 
+and the same for ``task=ces`` (with ``eval.EIG=true``),
+``task=psychometric`` (predefined target masks) and ``task=hpo
+task.meta_dataset=rpart`` (batches from the host numpy generator).
+
 Runs on the GPU unless ``device=cpu`` is given.  Writes ``config.json``,
 ``logs/``, ``metrics.jsonl``, the checkpoint (``<checkpoint_name>.pt``)
 and the final parameters as ``model/<file_name stem>.npz`` (the flax

@@ -8,8 +8,10 @@ JAX compiles the whole step into one program per (phase, T, mask
 variant); here each step runs eagerly, so no step cache is kept.  The
 host streams follow JAX's order, so that a seed gives JAX's sequence of
 (phase, T, mask): ``T`` is drawn from the host ``random.Random`` first,
-then the mask.  The GP batch and the design noise come from a
-``torch.Generator`` on the run's device, whose draws differ from JAX's.
+then the mask.  The simulated tasks' batches and the design noise come
+from a ``torch.Generator`` on the run's device, whose draws differ from
+JAX's; the HPO task's batches from the host numpy ``Generator`` of the
+seed, as JAX's do, so they are JAX's bit for bit.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from aline_tpu_torch.ops.target_mask import (
 )
 from aline_tpu_torch.tasks import build_task
 from aline_tpu_torch.tasks.base import Batch, init_ctx_idx
+from aline_tpu_torch.tasks.hpo import HPOTask
 from aline_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from aline_tpu_torch.train.loss import total_loss
 from aline_tpu_torch.train.optimizer import (
@@ -114,8 +117,8 @@ class Trainer:
         self.task = build_task(cfg.task)
         seed = cfg.seed if cfg.fix_seed else None
         self.pyrng = pyrandom.Random(seed)
-        # aline_tpu draws from numpy only for HPO tasks; kept so that
-        # checkpoints carry the same streams
+        # the HPO task's batches come from numpy on the host, as in
+        # aline_tpu: the same seed gives the JAX trainer's batches
         self.nprng = np.random.default_rng(seed)
         self.gen = torch.Generator(device=self.device)
         if seed is None:
@@ -127,6 +130,11 @@ class Trainer:
                 torch.default_generator.manual_seed(cfg.seed)
                 model = build_model(cfg, "cpu")
         self.model = model.to(self.device).train()
+        if isinstance(self.task, HPOTask):
+            # aline_tpu initialises its parameters on a batch of 2 drawn
+            # here; the port draws it too, so the streams stay aligned
+            self.task.sample_batch(self.nprng, 2,
+                                   min(4, cfg.task.n_query_init))
         self._sel_variants: set = set()
         self._sel_disabled = not cfg.static_mask_keys
         self.optimizer = self.scheduler = None
@@ -225,7 +233,11 @@ class Trainer:
         T = self.pyrng.randint(cfg.min_T, cfg.T)
         # burning shrinks the query pool to T
         n_query = cfg.T if phase == "burning" else cfg.task.n_query_init
-        batch = self.task.sample_batch(self.gen, cfg.batch_size, n_query)
+        if isinstance(self.task, HPOTask):
+            batch = self.task.sample_batch(self.nprng, cfg.batch_size,
+                                           n_query, device=self.device)
+        else:
+            batch = self.task.sample_batch(self.gen, cfg.batch_size, n_query)
         mask, w_q, w_p = self._epoch_mask_and_weights()
         batch = batch.replace(
             target_mask=torch.from_numpy(mask).to(self.device))

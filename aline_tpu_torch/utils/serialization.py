@@ -8,6 +8,7 @@ from a port model, so both packages' runs load the same way.
 """
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import Dict, Mapping, Tuple
@@ -18,17 +19,46 @@ from torch import nn
 
 from aline_tpu_torch.config import Config, load_config
 from aline_tpu_torch.models.aline import Aline, build_model
+from aline_tpu_torch.tasks import build_task
 from aline_tpu_torch.utils.device import resolve_device
 
+ASSETS = Path(__file__).resolve().parents[1] / "assets"
+
+# The banked runs under checkpoints/ whose parameters are committed (their
+# orbax trees the port does not read): checkpoint name → (a copy of the
+# run's config.json, which names the run those belong to; the npz of its
+# flax parameters, written by scripts/export_params_npz.py).
+BANKED_RUNS = {name: (ASSETS / f"{name}_config.json",
+                      ASSETS / f"{name}_params.npz")
+               for name in ("al1d_200k", "loc_100k", "ces_200k",
+                            "psych_100k", "hpo_glmnet_15k", "hpo_ranger_15k",
+                            "hpo_rpart_15k", "hpo_rpart_45k", "hpo_svm_15k",
+                            "hpo_xgboost_15k")}
 # The flagship GP-AL-1D run's parameters (checkpoints/al1d_200k).
-AL1D_200K_PARAMS = (Path(__file__).resolve().parents[1] / "assets"
-                    / "al1d_200k_params.npz")
-# The location-finding BED run's parameters (checkpoints/loc_100k).
-LOC_100K_PARAMS = (Path(__file__).resolve().parents[1] / "assets"
-                   / "loc_100k_params.npz")
-# ... and a copy of its config.json, which names the run those belong to.
-LOC_100K_CONFIG = (Path(__file__).resolve().parents[1] / "assets"
-                   / "loc_100k_config.json")
+AL1D_200K_PARAMS = BANKED_RUNS["al1d_200k"][1]
+# The location-finding BED run's config copy and parameters.
+LOC_100K_CONFIG, LOC_100K_PARAMS = BANKED_RUNS["loc_100k"]
+
+
+def weights_path(run_dir: str, file_name: str, params=None) -> str:
+    """The npz of a run's weights: ``params`` when given; else
+    ``<run_dir>/model/<file_name stem>.npz``, which the port's trainer
+    writes; else, for a run whose config.json is a banked run's, that
+    run's committed npz.  Raises FileNotFoundError for any other run."""
+    if params is not None:
+        return str(params)
+    own = os.path.join(run_dir, "model", f"{file_name.split('.')[0]}.npz")
+    if os.path.exists(own):
+        return own
+    with open(os.path.join(run_dir, "config.json")) as f:
+        run_cfg = json.load(f)
+    for config, params_npz in BANKED_RUNS.values():
+        if run_cfg == json.loads(config.read_text()):
+            return str(params_npz)
+    raise FileNotFoundError(
+        f"no weights for {run_dir}: {own} does not exist and the run is not "
+        f"one of the banked runs {sorted(BANKED_RUNS)}; pass --params or "
+        f"--file-name")
 
 
 def _torch_key(flax_key: str) -> Tuple[str, bool]:
@@ -108,6 +138,9 @@ def load_model(run_dir: str, params_npz, device="cuda"
     parameters are float32 either way."""
     dev = resolve_device(device)
     cfg = load_config(run_dir)
+    # the HPO task sets dim_x from its data (flax takes it from the
+    # batch), so the task is built before the model
+    build_task(cfg.task)
     model = build_model(cfg, dev)
     with np.load(params_npz) as flat:
         state = convert_flax_params(dict(flat), model)

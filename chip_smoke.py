@@ -155,10 +155,53 @@ pinned), as before the port followed the run's dtype.
              per-step bounds at eval.*_final with M_final cut to 200; no
              kernel launched; warm epoch, the hook's wall and peak memory.
 
+Phases 10-13 run the remaining tasks of the paper on their banked
+checkpoints, in their bf16, through the entry points; no kernel lies on
+these paths, and each phase checks that none was launched:
+
+10. ces bed — ``eval_bed``'s ``main`` on checkpoints/ces_200k at the JAX
+             run's protocol (T=15, L=1e7, n_query=2000, batch 100, seed 0)
+             with the random baseline, M cut to CES_SMOKE_M=200 (named in
+             its log line; ``--ces-M 2000`` runs the full protocol): the
+             final sPCE of both within SIGMAS combined standard errors of
+             the JAX package's at M=2000 on a TPU (the port's SEs are its
+             own), nmc >= pce - 1e-5 in every row and step; the rollout
+             against the EIG stage, that stage per batch against its fused
+             bound (``ces_fold_bound``), peak memory.
+10b. ces witness — the censored log-density card vs CPU in both tail
+             modes on a grid of limits with |z| up to 200, values inside
+             and outside (tolerance as tests/test_torch_ces.py holds the
+             port to JAX); the CES bounds of card traces on 20,000
+             CPU-drawn thetas card vs CPU within 1e-5 relative plus what
+             float32 rounding may move the log-likelihoods by
+             (``ces_loglik_rounding``); one chunk's peak memory; one bound
+             under ``torch.cuda.set_sync_debug_mode("error")``.
+11. psych   — ``eval_psychometric`` and ``eval_psi`` (``main``) on
+             checkpoints/psych_100k (B=100, n_query=300, T=30, seeds 0, 1,
+             2, three masks): each final mean LL and RMSE over the 300
+             rows within SIGMAS combined standard errors of the JAX
+             package's (benchmarks/artifacts/psych_r4_100k_curves.npz,
+             psych_psi_curves.npz; read with numpy); two-step PSI and
+             random rollouts under set_sync_debug_mode("error").
+12. hpo     — ``eval_hpo`` (``main``) on the six checkpoints/hpo_* runs
+             (the fixed test set, T=30, n_query=100, n_target=100): the
+             policy's final mean LL and RMSE within SIGMAS combined
+             standard errors of the run's JAX curves; the rows whose curve
+             leaves the artifact's by more than the step-0 rounding gap,
+             and by how much.
+13. train tasks — ``train``'s ``main`` on the ces (EIG hook once),
+             psychometric (predefined masks) and hpo (rpart) recipes in
+             bf16, B=200, 2 burning and 3 main epochs: finite losses, warm
+             epoch ms, peak memory.
+
+``--only ces psych hpo train_tasks`` runs phase 1 and the named ones of
+10-13 alone (no kernels line); the driver's run takes no arguments.
+
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
 """
+import argparse
 import copy
 import json
 import math
@@ -1995,8 +2038,637 @@ def phase_train_loc(smi):
                 launches=counts)
 
 
-def main():
+# Phases 10-13: the CES, psychometric and HPO-B tasks on their banked
+# checkpoints (weights from the committed npz files, through the weights
+# table of utils/serialization.py), in their own dtype, bfloat16.  No
+# kernel runs on these paths: the GMM kernel takes token sets of 1024 or
+# more in bf16 (the BED traces read the 5 theta tokens only; the
+# psychometric pool has 301 tokens, HPO's 105), and ``auto`` attention is
+# the compact core.
+CES_RUN = ROOT / "checkpoints" / "ces_200k"
+PSYCH_RUN = ROOT / "checkpoints" / "psych_100k"
+# scripts/eval_bed.py's protocol for ces_200k as the JAX package ran it
+# on a TPU (16 steps of bounds, so --T 15); M is cut to CES_SMOKE_M in the
+# smoke run (``--ces-M 2000`` gives the full protocol)
+CES_BED = dict(L=10_000_000, batch_size=100, n_query=2000, T=15, seed=0)
+CES_SMOKE_M = 200
+JAX_CES = {"aline": (ARTIFACTS / "ces_r4_200k_N2000_T15_L1e7.npz", "aline_"),
+           "random": (ARTIFACTS / "ces_r3_random_N2000_T15_L1e7.npz",
+                      "random_")}
+CES_WITNESS_ROWS = 8
+CES_WITNESS_L = 20_000
+# card against CPU: the censored log-density as tests/test_torch_ces.py
+# holds the port to JAX; the bounds on CPU-drawn thetas within this
+# relative to max(|bound|, 1), plus what float32 rounding may move the
+# cumulative log-likelihoods by (``ces_loglik_rounding``)
+CES_BOUND_RTOL = 1e-5
+CENSORED_EPS = 2.0 ** -22
+# the z-scores of the censored grid's limits: body (where
+# tail_mode="reference"'s log(0.5 (1 + erf)) keeps its digits), deep
+# tail, beyond
+CENSORED_Z = {"body": (0.0, 1.5), "deep": (5.5, 38.0), "beyond": (38.0, 200.0)}
+F32_ULP = 2.0 ** -24
+# scripts/eval_psychometric.py's and eval_psi.py's protocol for
+# psych_100k; the JAX package's curves on a TPU (eval_psychometric.py)
+# and on the CPU (eval_psi.py forces it)
+PSYCH = dict(batch_size=100, n_query=300, T=30, seeds=(0, 1, 2))
+PSYCH_MASKS = ("threshold_slope", "guess_lapse", "all")
+JAX_PSYCH = ARTIFACTS / "psych_r4_100k_curves.npz"
+JAX_PSI = ARTIFACTS / "psych_psi_curves.npz"
+# the six HPO-B runs and the JAX package's test curves of each on a TPU
+# (checkpoints/MANIFEST.md names the run each came from)
+HPO_RUNS = {"hpo_glmnet_15k": "hpo_r3_glmnet_test_curves.npz",
+            "hpo_rpart_15k": "hpo_r3_rpart_test_curves.npz",
+            "hpo_xgboost_15k": "hpo_r3_xgboost_test_curves.npz",
+            "hpo_ranger_15k": "hpo_r4_ranger_test_curves.npz",
+            "hpo_svm_15k": "hpo_r4_svm_test_curves.npz",
+            "hpo_rpart_45k": "hpo_r4_rpart45k_test_curves.npz"}
+HPO = dict(T=30, n_query=100, n_target=100)
+SIGMAS = 4
+# Phase 13: each recipe of the banked runs' config.json (B=200, bf16),
+# fresh init, 2 burning and 3 main epochs; CES with its EIG hook once
+# (the config's eval.L, M, batch_size) and the final bounds cut to one
+# batch at L_final=1e6
+TASK_TRAIN_ARGS = {
+    "ces": ["task=ces", "min_T=10", "T=10", "eval.EIG=true",
+            "eval.L=50000", "eval.M=2000", "eval.batch_size=500",
+            "eval.L_final=1000000", "eval.M_final=100",
+            "eval.batch_size_final=100", "eval.n_query_final=2000",
+            "eval.T_final=15"],
+    "psychometric": [
+        "task=psychometric", "task.mask_type=[predefined]",
+        "task.predefined_masks=[[false,false,true,true],"
+        "[true,true,false,false],[true,true,true,true]]",
+        "task.predefined_mask_weights=[1,1,1]", "min_T=30", "T=30"],
+    "hpo": ["task=hpo", "task.meta_dataset=rpart", "head.std_min=0.05",
+            "min_T=30", "T=30"]}
+TASK_TRAIN_COMMON = ["batch_size=200", "dtype=bfloat16", "rollout_remat=true",
+                     "burning_epoch=2", "max_epoch=5", "verbose=5",
+                     "checkpoint=0"]
+
+
+def within_sigmas(tag, what, got, want):
+    """Hold the mean of ``got`` (rows) to that of ``want`` within SIGMAS
+    combined standard errors; returns the record."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    se_g = got.std(ddof=1) / math.sqrt(got.size)
+    se_w = want.std(ddof=1) / math.sqrt(want.size)
+    limit = SIGMAS * math.sqrt(se_g ** 2 + se_w ** 2)
+    diff = abs(got.mean() - want.mean())
+    log(tag, f"{what}: {got.mean():.4f} ± {se_g:.4f} (SE, {got.size} rows), "
+        f"the JAX package {want.mean():.4f} ± {se_w:.4f}: |diff| "
+        f"{diff:.4f}, limit {limit:.4f}")
+    if not diff <= limit:
+        raise AssertionError(f"{tag} {what}: {got.mean():.4f} is {diff:.4f}"
+                             f" from {want.mean():.4f} (limit {limit:.4f})")
+    return dict(mean=got.mean(), se=se_g, jax_mean=want.mean(), jax_se=se_w,
+                limit=limit)
+
+
+def ces_fold_bound(terms):
+    """The least time of the CES fold over ``terms`` (l, b, t) terms,
+    fused in registers, from the code of ``tasks/ces.py`` with everything
+    that does not depend on l hoisted: per basket three ex2 (x_i^rho from
+    a hoisted log2 x_i) and a lg2 and an ex2 for the outer power, so 10
+    special-function results, and one exp of the fold; 40 float32
+    instructions (the powers' products, the weighted sums, the difference,
+    the scale, the z-score and the Gaussian, the cumulative sum and the
+    fold's max, shift and sum).  The data's y lie at a limit or inside
+    per (b, t), so no term needs both branches; the limit's log_ndtr is
+    not counted.  Returns seconds (operations bound it)."""
+    return max(terms * 40 / PEAK_F32_INSTR, terms * 11 / PEAK_MUFU_INSTR)
+
+
+def phase_ces_bed(smi, M):
+    """10: ``python -m aline_tpu_torch.eval_bed`` on ces_200k at the JAX
+    run's protocol (T=15, L=1e7, n_query=2000, batch 100) with M rows,
+    through its ``main``: final sPCE of the policy and of random designs
+    within SIGMAS combined standard errors of the JAX package's on a TPU
+    (M=2000 there), nmc >= pce - BED_NMC_SLACK in every row and step, no
+    kernel launched; wall time split into the rollout and the EIG stage,
+    the EIG stage per batch against ``ces_fold_bound``, peak memory."""
+    from aline_tpu_torch import eval_bed
+    from aline_tpu_torch.config import load_config
+    from aline_tpu_torch.eval import eig
+
+    run_dir = run_copy("ces_bed_run", src=CES_RUN)
+    cfg = load_config(run_dir)
+    calls = []
+    undo = patched([
+        (eig, "get_traces", timed_calls(calls, "rollout", eig.get_traces)),
+        (eig, "compute_eig_from_history", timed_calls(
+            calls, "eig", eig.compute_eig_from_history)),
+        (eval_bed, "compute_eig_from_history", timed_calls(
+            calls, "eig", eval_bed.compute_eig_from_history))])
+    argv = [run_dir, "--L", str(CES_BED["L"]), "--M", str(M),
+            "--batch-size", str(CES_BED["batch_size"]), "--n-query",
+            str(CES_BED["n_query"]), "--T", str(CES_BED["T"]), "--seed",
+            str(CES_BED["seed"]), "--device", "cuda",
+            "--with-random-baseline"]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_bed.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patched(undo)
+    if counts != expected_launches(cfg):
+        raise AssertionError(f"ces bed: kernel launches {counts}, "
+                             f"expected none")
+    n_batches = -(-M // CES_BED["batch_size"])
+    rollouts = [c for c in calls if c["kind"] == "rollout"]
+    eigs = [c for c in calls if c["kind"] == "eig"]
+    if len(rollouts) != n_batches or len(eigs) != 2 * n_batches:
+        raise AssertionError(f"ces bed: {len(rollouts)} rollouts and "
+                             f"{len(eigs)} EIG calls for {n_batches} batches")
+    cut = "" if M == 2000 else f" (M cut from 2000 to {M}: SEs are the run's)"
+    rec = dict(M=M, wall_s=wall, peak_bytes=peak, launches=counts)
+    for who in ("aline", "random"):
+        m = {k: res[f"{who}_{k}"] for k in ("pce_mean", "pce_err",
+                                           "nmc_mean", "nmc_err")}
+        for k, v in m.items():
+            if v.shape != (CES_BED["T"] + 1,) or not np.isfinite(v).all():
+                raise AssertionError(f"ces bed {who} {k}: shape {v.shape}")
+        path, key = JAX_CES[who]
+        with np.load(path) as ref:
+            want = float(ref[f"{key}pce_mean"][-1])
+            want_se = float(ref[f"{key}pce_err"][-1])
+        got, se = float(m["pce_mean"][-1]), float(m["pce_err"][-1])
+        limit = SIGMAS * math.sqrt(want_se ** 2 + se ** 2)
+        log("ces bed", f"{who} sPCE per step (mean ± SE): " + ", ".join(
+            f"{a:.3f}±{b:.3f}" for a, b in zip(m["pce_mean"], m["pce_err"])))
+        log("ces bed", f"{who}: final sPCE {got:.4f} ± {se:.4f} (SE, M={M})"
+            f", the JAX package on a TPU {want:.3f} ± {want_se:.3f} "
+            f"(M=2000): |diff| {abs(got - want):.4f}, limit {limit:.4f}"
+            f"{cut}; final sNMC {float(m['nmc_mean'][-1]):.3f}")
+        rec[who] = dict({k: v.tolist() for k, v in m.items()},
+                        final_pce=got, final_se=se, jax_final_pce=want,
+                        jax_final_se=want_se, limit=limit)
+        if abs(got - want) > limit:
+            raise AssertionError(f"ces bed {who}: final sPCE {got:.4f} is "
+                                 f"{abs(got - want):.4f} from {want:.3f}")
+    gap = min(float((c["nmc"] - c["pce"]).min()) for c in eigs)
+    rec["min_nmc_minus_pce"] = gap
+    if gap < -BED_NMC_SLACK:
+        raise AssertionError(f"ces bed: nmc < pce - {BED_NMC_SLACK} ({gap})")
+    rollout_s = sum(c["s"] for c in rollouts)
+    eig_s = [c["s"] for c in eigs]
+    terms = eigs[0]["L"] * eigs[0]["B"] * eigs[0]["Th"]
+    bound_s = ces_fold_bound(terms)
+    eig_ms = 1e3 * statistics.median(eig_s)
+    rec.update(rollout_s=rollout_s, eig_s=sum(eig_s), eig_ms_per_batch=eig_ms,
+               eig_ms_by_batch=[1e3 * s for s in eig_s],
+               eig_bound_ms=1e3 * bound_s, eig_bound_by="operations",
+               eig_terms_per_batch=terms)
+    log("ces bed", f"nmc - pce over every row and step: least {gap:.3e} "
+        f"(limit -{BED_NMC_SLACK}); no kernel launched")
+    log("ces bed", f"M={M} B={CES_BED['batch_size']} n_query="
+        f"{CES_BED['n_query']} T={CES_BED['T']} L={CES_BED['L']}: "
+        f"{wall:.3f} s wall; rollout {rollout_s:.3f} s ({n_batches} "
+        f"batches); EIG {sum(eig_s):.3f} s ({len(eigs)} calls: policy and "
+        f"random), {eig_ms:.1f} ms a batch (median, {terms:.3e} terms) "
+        f"against a fused bound of {1e3 * bound_s:.2f} ms (operations); "
+        f"peak memory {peak / 2**30:.3f} GiB ({smi})")
+    return rec
+
+
+def censored_grid(seed, n, case):
+    """loc, scale [n, 1] whose limits have z-scores in CENSORED_Z[case],
+    and values [n, 8]: both limits, four inside, two just outside (the
+    grid of tests/test_torch_ces.py)."""
+    rng = np.random.default_rng(seed)
+    eps, up = np.float32(CENSORED_EPS), np.float32(1 - CENSORED_EPS)
+    logit_up = float(np.log(np.float64(up)) - np.log1p(-np.float64(up)))
+    lo, hi = CENSORED_Z[case]
+    if case == "body":
+        z_l = rng.uniform(-hi, hi - 0.2, size=n)
+        z_u = rng.uniform(z_l + 0.1, hi)
+    else:
+        z_l = -rng.uniform(lo, hi, size=n)
+        z_u = rng.uniform(lo, hi, size=n)
+    scale = 2 * logit_up / (z_u - z_l)
+    loc = -logit_up - z_l * scale
+    with np.errstate(over="ignore"):
+        inside = np.clip(1 / (1 + np.exp(-(loc[:, None] + scale[:, None]
+                                           * rng.normal(size=(n, 4))))),
+                         1e-6, 1 - 1e-6)
+    values = np.concatenate(
+        [np.full((n, 1), eps), np.full((n, 1), up), inside,
+         np.full((n, 1), np.nextafter(eps, np.float32(0))),
+         np.full((n, 1), np.nextafter(up, np.float32(1)))], axis=1)
+    f32 = np.float32
+    return loc[:, None].astype(f32), scale[:, None].astype(f32), \
+        values.astype(f32)
+
+
+def censored_tolerance(loc, scale, values, ref):
+    """1e-6 of max(|ref|, 1) plus 4 float32 ulps of the sizes of the
+    log-density's terms (tests/test_torch_ces.py)."""
+    v, loc, scale = (a.astype(np.float64) for a in (values, loc, scale))
+    logs = np.abs(np.log(v)) + np.abs(np.log1p(-v))
+    z = (np.log(v) - np.log1p(-v) - loc) / scale
+    sizes = (1 + 0.5 * z * z + np.abs(z) * (logs + np.abs(loc)) / scale
+             + logs + np.abs(np.log(scale)))
+    return 1e-6 * np.maximum(np.abs(ref), 1) + 4 * F32_ULP * sizes
+
+
+def ces_loglik_rounding(task, x, y, theta):
+    """[..., B, Th] what float32 rounding may move the cumulative CES
+    log-likelihood of designs x [B, Th, 6] and outcomes y [B, Th, 1] under
+    theta [..., B, 5] by (in float64, on the CPU; a bound moves by theta_0's
+    and by the contrastive draws' weighted by their share of its
+    logsumexp): per step 4 ulps of the
+    sizes that make the z-score, (|U(b1)| + |U(b2)|) u for mu (the
+    utilities cancel in their difference) and |logit(y)|, over sigma, times
+    |z| + 1, and of 0.5 z^2 and the logs; then summed over the steps.
+    sigma goes down to 1e-5, so the z-score's rounding leads."""
+    theta = theta[..., None, :]
+    mu, sigma = (t.double() for t in task._response_params(x, theta))
+    xi = torch.clamp(x, 0.01, 100.0)
+    rho, alpha = theta[..., 0:1], theta[..., 1:4]
+    u = torch.exp(theta[..., 4:5]).double()
+    sizes = (task.utility(xi[..., :3], rho, alpha).double().abs()
+             + task.utility(xi[..., 3:], rho, alpha).double().abs()) * u
+    y = y.double()
+    logit = torch.log(y) - torch.log1p(-y)
+    z = (logit - mu) / sigma
+    per_step = 4 * F32_ULP * ((z.abs() + 1) * (sizes + logit.abs() + 1)
+                              / sigma + 0.5 * z * z + 20)
+    return torch.cumsum(per_step[..., 0], dim=-1)
+
+
+def phase_ces_witness():
+    """10b: the card against the CPU: the censored log-density on a grid
+    that covers both limits, the deep tail (|z| from 5.5 to 38) and beyond
+    (to 200) and values outside the limits, in both tail modes; the CES
+    bounds of card traces on CPU-drawn thetas within CES_BOUND_RTOL plus
+    the log-likelihoods' rounding (``ces_loglik_rounding``); the
+    peak memory of one chunk of the fold at the BED shape; and one bound
+    with any host synchronisation an error."""
+    from aline_tpu_torch.distributions.censored_sigmoid_normal import (
+        CensoredSigmoidNormal)
+    from aline_tpu_torch.eval.eig import chunk_size, compute_eig_from_history
+    from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import load_model, weights_path
+
+    rec = {}
+    eps, up = CENSORED_EPS, 1 - CENSORED_EPS
+    for mode in ("log_ndtr", "reference"):
+        worst = 0.0
+        for i, case in enumerate(CENSORED_Z):
+            loc, scale, values = censored_grid(i, 2000, case)
+            out = []
+            for dev in ("cpu", "cuda"):
+                d = CensoredSigmoidNormal(torch.from_numpy(loc).to(dev),
+                                          torch.from_numpy(scale).to(dev),
+                                          eps, up, tail_mode=mode)
+                out.append(d.log_prob(torch.from_numpy(values).to(dev))
+                           .cpu().numpy())
+            cpu, card = out
+            if not (np.isneginf(cpu[:, 6:]).all()
+                    and np.isneginf(card[:, 6:]).all()
+                    and np.isfinite(card[:, :6]).all()):
+                raise AssertionError(f"ces witness {mode} {case}: limits")
+            ratio = (np.abs(card[:, :6] - cpu[:, :6])
+                     / censored_tolerance(loc, scale, values[:, :6],
+                                          cpu[:, :6])).max()
+            worst = max(worst, float(ratio))
+            if ratio > 1:
+                raise AssertionError(f"ces witness {mode} {case}: card vs "
+                                     f"CPU at {ratio:.2f} of the tolerance")
+        rec[f"censored_{mode}_worst_share_of_tolerance"] = worst
+        log("ces witness", f"censored log-density, tail_mode={mode}: card "
+            f"vs CPU on 3 x 2000 x 8 values (limits with |z| up to 200, "
+            f"inside, outside): worst {worst:.3f} of the tolerance")
+
+    run_dir = run_copy("ces_witness_run", src=CES_RUN)
+    cfg, model = load_model(run_dir, weights_path(run_dir, "aline"), "cuda")
+    task = build_task(cfg.task)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = task.sample_batch(gen, CES_BED["batch_size"],
+                              n_query=CES_BED["n_query"])
+    reset_launches()
+    theta0, x, y = get_traces(model, task, batch, CES_BED["T"])
+    if any(launches().values()):
+        raise AssertionError(f"ces witness: launches {launches()}")
+    rows = CES_WITNESS_ROWS
+    cpu_in = [t[:rows].cpu() for t in (theta0, x, y)]
+    thetas = task.sample_theta(torch.Generator().manual_seed(2),
+                               (CES_WITNESS_L, rows))
+    # what float32 rounding may move the bounds by: theta_0's cumulative
+    # log-likelihood's, twice, and the contrastive draws' weighted by
+    # their share of the logsumexp
+    S = torch.cumsum(task.log_likelihood(cpu_in[2][None], cpu_in[1][None],
+                                         thetas[:, :, None])[..., 0], -1)
+    slack = (2 * ces_loglik_rounding(task, *cpu_in[1:], cpu_in[0])
+             + (torch.softmax(S.double(), dim=0)
+                * ces_loglik_rounding(task, *cpu_in[1:], thetas)).sum(0))
+    for stepwise in (False, True):
+        want = compute_eig_from_history(task, *cpu_in, 0, 0,
+                                        stepwise=stepwise, thetas=thetas)
+        got = compute_eig_from_history(
+            task, *[t.cuda() for t in cpu_in], 0, 0, stepwise=stepwise,
+            thetas=thetas.cuda())
+        tol_s = slack if stepwise else slack[:, -1]
+        for name, g, w in zip(("pce", "nmc"), got, want):
+            err = (g.cpu() - w).abs()
+            rel = float((err / w.abs().clamp_min(1.0)).max())
+            share = float((err / (CES_BOUND_RTOL * w.abs().clamp_min(1.0)
+                                  + tol_s)).max())
+            key = f"{name}_{'stepwise' if stepwise else 'final'}"
+            rec[f"{key}_rel"] = rel
+            rec[f"{key}_share_of_tolerance"] = share
+            log("ces witness", f"{name} on {CES_WITNESS_L} CPU-drawn thetas "
+                f"({rows} rows, stepwise={stepwise}): card vs CPU max abs "
+                f"{float(err.max()):.3e}, relative to max(|CPU|, 1) "
+                f"{rel:.3e}; {share:.3f} of the tolerance ({CES_BOUND_RTOL}"
+                f" relative plus the log-likelihoods' rounding, up to "
+                f"{float(tol_s.max()):.3e})")
+            if share > 1:
+                raise AssertionError(f"ces witness: {name} off by {rel}")
+    Lc = chunk_size(CES_BED["L"], x.shape[0], x.shape[1], 32_768)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    compute_eig_from_history(task, theta0, x, y, Lc, 3, stepwise=True)
+    torch.cuda.synchronize()
+    chunk_peak = torch.cuda.max_memory_allocated() - base
+    rec.update(chunk_Lc=Lc, chunk_peak_bytes=chunk_peak)
+    log("ces witness", f"one chunk of the fold at B={x.shape[0]}, "
+        f"Th={x.shape[1]}: Lc={Lc}, a float32 [Lc, B, Th] block "
+        f"{4 * Lc * x.shape[0] * x.shape[1] / 2**20:.0f} MiB, peak "
+        f"{chunk_peak / 2**30:.3f} GiB above the traces")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pce, nmc = compute_eig_from_history(task, theta0, x, y, 100_000, 5,
+                                            stepwise=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (torch.isfinite(pce).all() and torch.isfinite(nmc).all()):
+        raise AssertionError("ces witness: non-finite bounds")
+    log("ces witness", "compute_eig_from_history at L=100000 on the card's "
+        "draws under set_sync_debug_mode('error'): no host synchronisation")
+    return rec
+
+
+def _psych_rows(curves, key):
+    """The final step of ``key`` over every seed's rows."""
+    return np.concatenate([
+        curves[f"{'' if s == PSYCH['seeds'][0] else f'seed{s}_'}{key}"][:, -1]
+        for s in PSYCH["seeds"]])
+
+
+def phase_psych(smi):
+    """11: ``eval_psychometric`` and ``eval_psi`` on psych_100k at the
+    scripts' protocol (B=100, n_query=300, T=30, seeds 0, 1, 2, three
+    masks), through their ``main``: each mask's (and strategy's) final mean
+    LL and RMSE over the 300 rows within SIGMAS combined standard errors
+    of the JAX package's curves; no kernel launched; wall times and peak
+    memory; one PSI rollout under set_sync_debug_mode("error")."""
+    from aline_tpu_torch import eval_psi, eval_psychometric
+    from aline_tpu_torch.config import load_config
+    from aline_tpu_torch.eval.psi import make_theta_grid, psi_rollout_curves
+    from aline_tpu_torch.tasks import build_task
+
+    run_dir = run_copy("psych_run", src=PSYCH_RUN)
+    seeds = ",".join(str(s) for s in PSYCH["seeds"])
+    common = ["--device", "cuda", "--batch-size", str(PSYCH["batch_size"]),
+              "--n-query", str(PSYCH["n_query"]), "--T", str(PSYCH["T"]),
+              "--seeds", seeds]
+    rec = {}
+    for name, fn, argv, ref_path, strategies in (
+            ("psychometric", eval_psychometric.main, [run_dir, *common],
+             JAX_PSYCH, ("",)),
+            ("psi", eval_psi.main,
+             [run_dir, *common, "--out", str(OUT_DIR / "psi_curves.npz")],
+             JAX_PSI, ("_psi", "_random"))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        curves = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+        if any(counts.values()):
+            raise AssertionError(f"{name}: kernel launches {counts}")
+        r = dict(wall_s=wall, peak_bytes=peak)
+        with np.load(ref_path) as ref:
+            for mask in PSYCH_MASKS:
+                for strat in strategies:
+                    for k in ("log_prob", "rmse"):
+                        key = f"{mask}{strat}_{k}"
+                        r[key] = within_sigmas(
+                            name, f"{key} final", _psych_rows(curves, key),
+                            _psych_rows(ref, key))
+        log(name, f"B={PSYCH['batch_size']} n_query={PSYCH['n_query']} "
+            f"T={PSYCH['T']} seeds {seeds}, 3 masks: {wall:.3f} s wall, "
+            f"peak memory {peak / 2**30:.3f} GiB, no kernel launched ({smi})")
+        rec[name] = r
+    task = build_task(load_config(run_dir).task)
+    grid = make_theta_grid(task, device="cuda")
+    batch = task.sample_batch(torch.Generator(device="cuda").manual_seed(0),
+                              PSYCH["batch_size"], n_query=PSYCH["n_query"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    for mask in ([True, True, False, False], [True] * 4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for strategy in ("psi", "random"):
+                psi_rollout_curves(task, batch, 2, gen, mask=mask,
+                                   strategy=strategy, grid=grid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    log("psi", "two-step PSI and random rollouts (a 2-parameter and the "
+        "full target) under set_sync_debug_mode('error'): no host "
+        "synchronisation")
+    return rec
+
+
+def phase_hpo(smi):
+    """12: ``eval_hpo`` on each of the six HPO-B runs at the script's
+    protocol (the benchmark's fixed test set, T=30, n_query=100,
+    n_target=100, seed 0), through its ``main``: the policy's final mean
+    LL and RMSE over the 30 rows within SIGMAS combined standard errors of
+    the run's JAX curves; how many of the 30 policy rows leave the
+    artifact's trajectory (the artifact holds no indices: a row leaves
+    where its log-prob gap exceeds the largest gap at step 0, which the
+    two bf16 forwards' rounding alone makes) and at what gap; no kernel
+    launched; wall time per run."""
+    from aline_tpu_torch import eval_hpo
+
+    rec = {}
+    for run, artifact in HPO_RUNS.items():
+        run_dir = run_copy(f"{run}_run", src=ROOT / "checkpoints" / run)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        curves = eval_hpo.main([run_dir, "--device", "cuda", "--T",
+                                str(HPO["T"]), "--n-query",
+                                str(HPO["n_query"]), "--n-target",
+                                str(HPO["n_target"]), "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(launches().values()):
+            raise AssertionError(f"hpo {run}: kernel launches {launches()}")
+        r = dict(wall_s=wall)
+        with np.load(ARTIFACTS / artifact) as ref:
+            for k in ("log_prob", "rmse"):
+                r[k] = within_sigmas(f"hpo {run}", f"aline final {k}",
+                                     curves[f"aline_{k}"][:, -1],
+                                     ref[f"aline_{k}"][:, -1])
+            ours = curves["aline_log_prob"]
+            gap = np.abs(ours - ref["aline_log_prob"][:, :ours.shape[1]])
+        # step 0 conditions both on the same fixed rows: its gap is the two
+        # bf16 forwards' rounding alone; a row whose gap later exceeds the
+        # largest of those has left the artifact's trajectory
+        floor = float(gap[:, 0].max())
+        leaves = (gap > floor).any(axis=1)
+        first = np.argmax(gap > floor, axis=1)
+        r.update(step0_max_gap=floor, rows_leaving=int(leaves.sum()),
+                 first_steps=first[leaves].tolist(),
+                 gap_at_first=[float(gap[i, first[i]])
+                               for i in np.flatnonzero(leaves)],
+                 max_gap=float(gap.max()),
+                 median_row_max_gap=float(np.median(gap.max(axis=1))))
+        log(f"hpo {run}", f"log-prob gap to the artifact at step 0 (same "
+            f"context, bf16 rounding alone) at most {floor:.4f}; "
+            f"{int(leaves.sum())} of 30 policy rows exceed it later (first "
+            f"steps {r['first_steps']}, gaps there "
+            f"{[round(g, 4) for g in r['gap_at_first']]}); median of the "
+            f"rows' largest gaps {r['median_row_max_gap']:.4f}, largest "
+            f"{r['max_gap']:.4f}; {wall:.3f} s wall; no kernel launched "
+            f"({smi})")
+        rec[run] = r
+    return rec
+
+
+def phase_train_tasks(smi):
+    """13: ``python -m aline_tpu_torch.train`` through its ``main`` on
+    each new task's recipe (TASK_TRAIN_ARGS, bf16, B=200): finite losses,
+    no kernel launched, warm epoch ms and peak memory; CES's EIG hook
+    once, finite, and its final bounds."""
+    from aline_tpu_torch.train import __main__ as entry
+    from aline_tpu_torch.train.loop import Trainer
+
+    rec = {}
+    for task, args in TASK_TRAIN_ARGS.items():
+        out_dir = OUT_DIR / f"{task}_train_smoke"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        calls = []
+        epoch_fn = Trainer.train_epoch
+
+        def timed_epoch(self, epoch, epoch_fn=epoch_fn, calls=calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = epoch_fn(self, epoch)
+            torch.cuda.synchronize()
+            calls.append(dict(kind="epoch", epoch=epoch, phase=self.phase,
+                              s=time.perf_counter() - t0,
+                              loss=float(m["loss"])))
+            return m
+
+        undo = patched([(Trainer, "train_epoch", timed_epoch),
+                        (entry, "eval_boed", timed_calls(
+                            calls, "eval_boed", entry.eval_boed))])
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            trainer = entry.main(args + TASK_TRAIN_COMMON
+                                 + ["device=cuda", f"output_dir={out_dir}"])
+            counts = launches()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            patched(undo)
+        if any(counts.values()):
+            raise AssertionError(f"train {task}: launches {counts}")
+        epochs = [c for c in calls if c["kind"] == "epoch"]
+        if not all(math.isfinite(e["loss"]) for e in epochs):
+            raise AssertionError(f"train {task}: losses {epochs}")
+        warm_ms = 1e3 * statistics.median(
+            [e["s"] for e in epochs if e["phase"] == "main"][1:])
+        r = dict(epochs=epochs, warm_ms=warm_ms, peak_bytes=peak)
+        cfg = trainer.cfg
+        msg = (f"B={cfg.batch_size} T={cfg.T} n_query_init="
+               f"{cfg.task.n_query_init} {cfg.dtype}: epochs " + ", ".join(
+                   f"{e['epoch']} ({e['phase']}) {1e3 * e['s']:.1f} ms"
+                   for e in epochs) + f"; warm epoch {warm_ms:.1f} ms")
+        if cfg.eval.EIG:
+            recs = [json.loads(line) for line in
+                    (out_dir / "metrics.jsonl").read_text().splitlines()]
+            bounds = [b for b in recs if "pce_mean" in b]
+            if len(bounds) != 1 or not all(
+                    math.isfinite(bounds[0][k])
+                    for k in ("pce_mean", "nmc_mean")):
+                raise AssertionError(f"train {task}: bounds {bounds}")
+            hook_s, final_s = (c["s"] for c in calls
+                               if c["kind"] == "eval_boed")
+            r.update(bounds=bounds[0], hook_s=hook_s, final_bounds_s=final_s)
+            msg += (f"; EIG hook (L={cfg.eval.L}, M={cfg.eval.M}) "
+                    f"{hook_s:.3f} s: sPCE {bounds[0]['pce_mean']:.4f}, "
+                    f"sNMC {bounds[0]['nmc_mean']:.4f}; final bounds "
+                    f"(M={cfg.eval.M_final}, L={cfg.eval.L_final}) "
+                    f"{final_s:.3f} s")
+        log(f"train {task}", msg + f"; peak memory {peak / 2**30:.3f} GiB; "
+            f"no kernel launched ({smi})")
+        rec[task] = r
+    return rec
+
+
+NEW_PHASES = ("ces", "psych", "hpo", "train_tasks")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the port on one NVIDIA GPU; with no "
+                    "arguments, every phase")
+    ap.add_argument("--only", nargs="+", choices=NEW_PHASES,
+                    help="run only these of phases 10-13 (after phase 1) "
+                         "and print no kernels line")
+    ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
+                    help="phase 10's rows (2000: the JAX run's protocol)")
+    return ap.parse_args(argv)
+
+
+def new_phases(smi, only, ces_M):
+    """Phases 10-13 (those named in ``only``): {name: record}."""
+    rec = {}
+    if "ces" in only:
+        rec["ces_bed"] = phase_ces_bed(smi, ces_M)
+        rec["ces_witness"] = phase_ces_witness()
+    if "psych" in only:
+        rec["psychometric"] = phase_psych(smi)
+    if "hpo" in only:
+        rec["hpo"] = phase_hpo(smi)
+    if "train_tasks" in only:
+        rec["train_tasks"] = phase_train_tasks(smi)
+    return rec
+
+
+def main(argv=None):
+    args = parse_args(argv)
     smi = phase_device()
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    OUT_DIR.mkdir(exist_ok=True)
+    if args.only:
+        t0 = time.perf_counter()
+        rec = new_phases(smi, args.only, args.ces_M)
+        rec["wall_s"] = time.perf_counter() - t0
+        (OUT_DIR / f"chip_smoke_{'_'.join(args.only)}.json").write_text(
+            json.dumps(dict(nvidia_smi=smi, torch=torch.__version__,
+                            device=device, **rec), indent=1, default=str))
+        print(smi)
+        print(json.dumps({"ok": True, "device": device}))
+        return
     build_s = phase_build()
     gmm_rows, gmm_err = phase_kernels()
     bwd_rows, bwd_err = phase_kernels_bwd()
@@ -2020,6 +2692,7 @@ def main():
     bed_rec = phase_bed(smi)
     bed_witness = phase_bed_witness()
     loc_train_rec = phase_train_loc(smi)
+    task_recs = new_phases(smi, NEW_PHASES, args.ces_M)
 
     paths = {"eval": slice_rec, "train": train_rec,
              "flash_eval": flash_slice_rec, "flash_train": flash_train_rec,
@@ -2064,9 +2737,6 @@ def main():
         record("flash_attn_bwd_bf16", "aline_tpu/ops/flash_attention.py:65",
                bf16_rows["train"]["bwd"], bf16_err["bwd"],
                source="flash_attn_bwd", dtype="bfloat16")]
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
-    OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         nvidia_smi=smi, torch=torch.__version__, build_s=build_s,
         gmm_head_fwd=gmm_rows, gmm_head_bwd=bwd_rows, flash=flash_rows,
@@ -2078,8 +2748,8 @@ def main():
         train_parity_max_abs=train_parity_err,
         flash_train_parity_max_abs=flash_parity_err,
         train_parity_bf16=bf16_parity, bed=bed_rec,
-        bed_witness=bed_witness, train_loc=loc_train_rec, kernels=kernels,
-        device=device),
+        bed_witness=bed_witness, train_loc=loc_train_rec, **task_recs,
+        kernels=kernels, device=device),
         indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -76,8 +76,11 @@ def test_parse_overrides_matches_jax():
                     "rollout_remat=false", "lr=3e-4", "gamma=0.9"]
     assert tcfg.to_dict(tcfg.parse_overrides(args)) == \
         jcfg.to_dict(jcfg.parse_overrides(args))
-    with pytest.raises(NotImplementedError, match="hpo"):
-        tcfg.parse_overrides(["task=hpo"])
+    for task in ("ces", "psychometric", "hpo"):
+        assert tcfg.to_dict(tcfg.parse_overrides([f"task={task}"])) == \
+            jcfg.to_dict(jcfg.parse_overrides([f"task={task}"]))
+    with pytest.raises(NotImplementedError, match="benchmark"):
+        tcfg.parse_overrides(["task=benchmark"])
     with pytest.raises(KeyError, match="nonexistent"):
         tcfg.parse_overrides(["task.nonexistent=3"])
 
