@@ -2,9 +2,8 @@
 
 A copy of the fields of ``aline_tpu/config.py`` (same names and defaults,
 so a run directory written by the JAX trainer loads unchanged), of its
-hydra-style ``key=value`` override parser and the presets of the ported
-tasks, and of the JSON reader and writer in
-``aline_tpu/utils/serialization.py``.
+hydra-style ``key=value`` override parser and the task presets, and of
+the JSON reader and writer in ``aline_tpu/utils/serialization.py``.
 """
 from __future__ import annotations
 
@@ -136,6 +135,14 @@ class PsychometricConfig(TaskConfig):
 
 
 @dataclass
+class BenchmarkTaskConfig(TaskConfig):
+    """Analytic benchmark functions, eval-only (``aline_tpu/config.py``
+    BenchmarkTaskConfig)."""
+    target: str = "benchmark"
+    benchmark_name: str = "forrester"
+
+
+@dataclass
 class HPOTaskConfig(TaskConfig):
     """HPO-B lookup task (``aline_tpu/config.py`` HPOTaskConfig)."""
     target: str = "hpo"
@@ -147,8 +154,8 @@ class HPOTaskConfig(TaskConfig):
 
 
 def _task_presets():
-    """The presets of ``aline_tpu/config.py`` whose tasks are ported (the
-    reference's config/task/*.yaml values)."""
+    """The task presets of ``aline_tpu/config.py`` (the reference's
+    config/task/*.yaml values)."""
     return {
         "al_data": GPTaskConfig(
             name="AL_data", dim_x=1, embedding_type="data",
@@ -189,11 +196,11 @@ def _task_presets():
             mask_type=["all"], n_context_init=5, n_query_init=100,
             n_target_data=100, n_target_theta=0,
             meta_dataset="ranger"),
+        "benchmark": BenchmarkTaskConfig(
+            name="Benchmark", dim_x=1, embedding_type="data",
+            mask_type=["all"], n_context_init=5, n_query_init=10,
+            n_target_data=5, design_scale=5.0, noise_scale=0.1),
     }
-
-
-# presets of aline_tpu/config.py whose tasks the port has not yet
-_UNPORTED_TASK_PRESETS = ("benchmark",)
 
 
 @dataclass
@@ -250,6 +257,7 @@ _TASK_CFG_BY_TARGET = {"gp": GPTaskConfig,
                        "location_finding": LocationFindingConfig,
                        "ces": CESTaskConfig,
                        "psychometric": PsychometricConfig,
+                       "benchmark": BenchmarkTaskConfig,
                        "hpo": HPOTaskConfig}
 _GROUPS = {"encoder": EncoderConfig, "embedder": EmbedderConfig,
            "head": HeadConfig, "eval": EvalConfig}
@@ -351,10 +359,6 @@ def parse_overrides(argv: Sequence[str],
         key = key.strip()
         if key == "task":
             presets = _task_presets()
-            if val in _UNPORTED_TASK_PRESETS:
-                raise NotImplementedError(
-                    f"task preset {val!r} is not ported yet (ported: "
-                    f"{sorted(presets)})")
             if val not in presets:
                 raise KeyError(f"unknown task preset {val!r}; available: "
                                f"{sorted(presets)}")

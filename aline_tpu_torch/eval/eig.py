@@ -131,7 +131,8 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
         L: number of contrastive samples, drawn from ``seed``.
         stepwise: return [B, Th] per-step bounds instead of [B].
         thetas: optional pre-drawn contrastive latents [L, B, ...]: the
-            bounds on exactly these draws (``L`` and ``seed`` unused).
+            bounds on exactly these draws (``L`` and ``seed`` unused), in
+            chunks of the same size.
         L_checkpoints: optional intermediate L values: the accumulator is
             read as the fold passes each (snapped up to a chunk multiple),
             so one pass gives the bounds at every one.
@@ -151,25 +152,28 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
         thetas = _as_f32("thetas", thetas)
         L = int(thetas.shape[0])
         Lc = chunk_size(L, B, Th, L_chunk)
-        for start in range(0, L, Lc):
-            state = _fold(state, task, x, y, thetas[start:start + Lc], Lc)
-        return _finalize_bounds(state, S0, L, stepwise)
 
-    Lc = chunk_size(L, B, Th, L_chunk)
+        def fold_chunks(state, i0, n):
+            for i in range(i0, i0 + n):
+                state = _fold(state, task, x, y,
+                              thetas[i * Lc:(i + 1) * Lc], Lc)
+            return state
+    else:
+        Lc = chunk_size(L, B, Th, L_chunk)
+
+        def fold_chunks(state, i0, n):
+            return accumulate_chunks(task, x, y, seed, L, Lc, i0, n, state)
+
     n_chunks = math.ceil(L / Lc)
-    if L_checkpoints:
-        marks = sorted({min(math.ceil(lc / Lc), n_chunks)
-                        for lc in L_checkpoints} | {n_chunks})
-        results, done = {}, 0
-        for mark in marks:
-            state = accumulate_chunks(task, x, y, seed, L, Lc, done,
-                                      mark - done, state)
-            done = mark
-            L_eff = min(mark * Lc, L)
-            results[L_eff] = _finalize_bounds(state, S0, L_eff, stepwise)
-        return results
-    state = accumulate_chunks(task, x, y, seed, L, Lc, 0, n_chunks, state)
-    return _finalize_bounds(state, S0, L, stepwise)
+    marks = sorted({min(math.ceil(lc / Lc), n_chunks)
+                    for lc in L_checkpoints or ()} | {n_chunks})
+    results, done = {}, 0
+    for mark in marks:
+        state = fold_chunks(state, done, mark - done)
+        done = mark
+        L_eff = min(mark * Lc, L)
+        results[L_eff] = _finalize_bounds(state, S0, L_eff, stepwise)
+    return results if L_checkpoints else results[L]
 
 
 def _finalize_bounds(state: LogSumExpState, S0, L: int, stepwise: bool):

@@ -10,7 +10,11 @@ from torch import nn
 from aline_tpu_torch.config import Config
 from aline_tpu_torch.models.embedder import Embedder
 from aline_tpu_torch.models.encoder import Encoder
-from aline_tpu_torch.models.heads import AlineOutput, OutputHead
+from aline_tpu_torch.models.heads import (
+    AlineOutput,
+    ContinuousOutputHead,
+    OutputHead,
+)
 from aline_tpu_torch.ops.attention import CompactKeys, context_indices
 from aline_tpu_torch.ops.roles import build_roles
 from aline_tpu_torch.tasks.base import Batch
@@ -18,7 +22,7 @@ from aline_tpu_torch.tasks.base import Batch
 
 class Aline(nn.Module):
     def __init__(self, embedder: Embedder, encoder: Encoder,
-                 head: OutputHead):
+                 head: nn.Module):
         super().__init__()
         self.embedder = embedder
         self.encoder = encoder
@@ -26,11 +30,13 @@ class Aline(nn.Module):
 
     def forward(self, batch: Batch, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
                 sel_targets: Optional[tuple] = None,
                 query_posterior: bool = True) -> AlineOutput:
-        """``training`` samples the design (Gumbel-max with ``gumbel``, or
-        noise drawn from ``generator``) instead of taking the argmax.
+        """``training`` samples the design from ``noise`` (Gumbel-max for
+        the discrete head, mean + std · noise for the continuous one), or
+        from noise drawn from ``generator``, instead of taking the greedy
+        design.
         ``sel_targets``: static tuple of the target indices where
         ``batch.target_mask`` is True; the compact path then drops the
         never-visible target key columns (exact).  ``query_posterior``:
@@ -57,7 +63,7 @@ class Aline(nn.Module):
                                   t_off)
         z = self.encoder(tokens, roles, batch.t, compact=compact)
         return self.head(batch, z, training=training, generator=generator,
-                         gumbel=gumbel, query_posterior=query_posterior,
+                         noise=noise, query_posterior=query_posterior,
                          time_offset=t_off)
 
 
@@ -76,13 +82,8 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 def build_model(cfg: Config, device) -> Aline:
     """The model of a run config on ``device``: float32 parameters,
-    computing in ``compute_dtype(cfg)`` (the embedder, the encoder and both
-    heads), as the JAX model does."""
-    if cfg.head.continuous or cfg.head.single_head or cfg.head.value_head:
-        raise NotImplementedError(
-            "continuous, single_head and value heads are not ported yet")
-    if cfg.embedder.continuous:
-        raise NotImplementedError("the continuous embedder is not ported yet")
+    computing in ``compute_dtype(cfg)`` (the embedder, the encoder and the
+    heads; the continuous policy in float32), as the JAX model does."""
     if cfg.task.dim_y != 1:
         raise NotImplementedError("the GMM head takes scalar targets")
     enc = cfg.encoder
@@ -93,9 +94,18 @@ def build_model(cfg: Config, device) -> Aline:
         n_target_theta=(cfg.task.n_target_theta
                         if cfg.task.embedding_type in ("theta", "mix")
                         else 0),
-        embedding_type=cfg.task.embedding_type, dtype=dtype, device=device)
-    head = OutputHead(enc.dim_embedding, enc.dim_feedforward,
-                      cfg.head.num_components, cfg.head.std_min,
-                      cfg.time_token, device, dtype=dtype,
-                      fused_gmm=cfg.head.fused_gmm)
+        embedding_type=cfg.task.embedding_type,
+        continuous=cfg.embedder.continuous, dtype=dtype, device=device)
+    h = cfg.head
+    common = dict(num_components=h.num_components, std_min=h.std_min,
+                  time_token=cfg.time_token, device=device, dtype=dtype,
+                  fused_gmm=h.fused_gmm, single_head=h.single_head)
+    if h.continuous:
+        head = ContinuousOutputHead(
+            cfg.task.dim_x, enc.dim_embedding, enc.dim_feedforward,
+            log_std_min=h.policy_log_std_min,
+            log_std_max=h.policy_log_std_max, **common)
+    else:
+        head = OutputHead(enc.dim_embedding, enc.dim_feedforward,
+                          value_head=h.value_head, **common)
     return Aline(embedder, Encoder(enc, device, dtype), head)

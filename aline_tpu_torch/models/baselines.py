@@ -1,14 +1,15 @@
-"""Baseline design policies: random and grid
-(``aline_tpu/models/baselines.py``).  DAD's design network is not ported
-yet."""
+"""Baseline design policies: random, grid and the DAD network
+(``aline_tpu/models/baselines.py``)."""
 from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from aline_tpu_torch.distributions.gmm import normal_log_prob
+from aline_tpu_torch.models.init import init_dense_
 
 
 def _linspace01(n: int) -> torch.Tensor:
@@ -87,3 +88,93 @@ class GridDesign:
     def __call__(self, t: int, batch_size: int) -> torch.Tensor:
         """The t-th grid design for every batch element."""
         return self.xi_designs[:, t].expand(batch_size, self.dim_x)
+
+
+class EncoderNetwork(nn.Module):
+    """DAD's history encoder: one (design, outcome) pair → an encoding."""
+
+    def __init__(self, dim_in: int, hidden_dim: int, encoding_dim: int,
+                 device=None):
+        super().__init__()
+        self.linear1 = nn.Linear(dim_in, hidden_dim, device=device)
+        self.output_layer = nn.Linear(hidden_dim, encoding_dim,
+                                      device=device)
+
+    def forward(self, xi, y):
+        h = torch.relu(self.linear1(torch.cat([xi, y], dim=-1)))
+        return self.output_layer(h)
+
+
+class EmitterNetwork(nn.Module):
+    """DAD's design emitter."""
+
+    def __init__(self, encoding_dim: int, design_dim: int, device=None):
+        super().__init__()
+        self.linear = nn.Linear(encoding_dim, design_dim, device=device)
+
+    def forward(self, r):
+        return self.linear(r)
+
+
+class SetEquivariantDesignNetwork(nn.Module):
+    """DAD (Foster et al. 2021): the history's encodings, summed over the
+    valid steps, emit the next design.  The history is passed whole with a
+    step-validity mask, so every step has the same shapes.
+    ``empty_value`` is part of the flax parameter tree (and unused)."""
+
+    def __init__(self, dim_x: int, dim_y: int, hidden_dim: int = 128,
+                 encoding_dim: int = 16, device=None):
+        super().__init__()
+        self.dim_x, self.dim_y = dim_x, dim_y
+        self.encoder = EncoderNetwork(dim_x + dim_y, hidden_dim,
+                                      encoding_dim, device)
+        self.emitter = EmitterNetwork(encoding_dim, dim_x, device)
+        self.empty_value = nn.Parameter(torch.zeros(dim_x, device=device))
+        init_dense_(self)
+
+    def forward(self, xi_hist: torch.Tensor, y_hist: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+        """xi_hist [M, T, D], y_hist [M, T, 1], valid [M, T] bool → the
+        next design [M, D] (normalised)."""
+        enc = self.encoder(xi_hist, y_hist)                  # [M, T, E]
+        pooled = torch.sum(enc * valid[..., None].to(enc.dtype), dim=1)
+        return self.emitter(pooled)
+
+
+def draw_trace(task, gen: torch.Generator, T: int, M: int):
+    """The draws of one DAD trace: (theta [M, ...], simulator noise [T, M,
+    dim_y], exploration noise [T, M, dim_x]), standard normal noises."""
+    theta = task.sample_theta(gen, (M,))
+    sim = torch.randn(T, M, task.dim_y, generator=gen, device=gen.device)
+    explore = torch.randn(T, M, task.dim_x, generator=gen,
+                          device=gen.device)
+    return theta, sim, explore
+
+
+def run_trace(model: SetEquivariantDesignNetwork, task, theta, sim_noise,
+              explore_noise: Optional[torch.Tensor] = None,
+              explore_std: float = 0.0):
+    """Roll out M parallel DAD experiments of T = ``sim_noise.shape[0]``
+    steps: propose a design, simulate it (``task.simulate_from_noise``),
+    append it to the history.  ``explore_std`` adds explore_std ·
+    ``explore_noise`` to each emitted design (reparameterised), which
+    pathwise sPCE training uses to leave the constant-trajectory start.
+
+    Returns (theta, designs in the real space [M, T, D], outcomes [M, T,
+    1]).  The histories are rebuilt out of place at each step, so the
+    gradient flows through every design into the later ones."""
+    T, M = sim_noise.shape[0], sim_noise.shape[1]
+    dev = sim_noise.device
+    xi_hist = torch.zeros(M, T, model.dim_x, device=dev)
+    y_hist = torch.zeros(M, T, model.dim_y, device=dev)
+    steps = torch.arange(T, device=dev)
+    for t in range(T):
+        here = (steps == t)[None, :, None]
+        xi = model(xi_hist, y_hist, (steps < t)[None].expand(M, T))
+        if explore_std:
+            xi = xi + explore_std * explore_noise[t]
+        y = task.simulate_from_noise(task.unnormalise_design(xi), theta,
+                                     sim_noise[t])
+        xi_hist = torch.where(here, xi[:, None], xi_hist)
+        y_hist = torch.where(here, y[:, None], y_hist)
+    return theta, task.to_design_space(xi_hist), y_hist

@@ -2,9 +2,10 @@
 
 Sequence layout ``[points (initial context + query pool) | target_data |
 theta]``: context tokens carry x+y embeddings, pool and target-data
-tokens x only, theta targets are learned per-dimension tokens.  With
-``dtype`` bfloat16 the points are cast to it and every segment comes out
-in it, as flax's ``dtype`` makes them.
+tokens x only, theta targets are learned per-dimension tokens.  The
+continuous variant replaces every pool slot by one learned design token,
+``query_token``.  With ``dtype`` bfloat16 the points are cast to it and
+every segment comes out in it, as flax's ``dtype`` makes them.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ class MLPEmbed(nn.Module):
 class Embedder(nn.Module):
     def __init__(self, dim_x: int, dim_y: int, dim_embedding: int,
                  dim_feedforward: int, n_target_theta: int = 0,
-                 embedding_type: str = "data", dtype=torch.float32,
-                 device=None):
+                 embedding_type: str = "data", continuous: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         if embedding_type not in ("data", "theta", "mix"):
             raise NotImplementedError(
@@ -47,6 +48,10 @@ class Embedder(nn.Module):
                                  "or mix embedding type")
             self.theta_tokens = nn.Parameter(torch.empty(
                 n_target_theta, dim_embedding, device=device).normal_())
+        self.continuous = continuous
+        if continuous:
+            self.query_token = nn.Parameter(torch.empty(
+                1, dim_embedding, device=device).normal_())
         self.x_embedder = MLPEmbed(dim_x, dim_feedforward, dim_embedding,
                                    dtype, device)
         self.y_embedder = MLPEmbed(dim_y, dim_feedforward, dim_embedding,
@@ -59,6 +64,9 @@ class Embedder(nn.Module):
         pts = self.x_embedder(batch.x.to(self.dtype))
         y_emb = self.y_embedder(batch.y.to(self.dtype))
         pts = pts + y_emb * batch.ctx_mask[..., None].to(pts.dtype)
+        if self.continuous:
+            pts = torch.where(batch.ctx_mask[..., None], pts,
+                              self.query_token[None].to(pts.dtype))
         segments = [pts]
         if self.embedding_type in ("data", "mix"):
             segments.append(self.x_embedder(batch.target_x))

@@ -1,7 +1,10 @@
 """Simulators: the GP active-learning task, location finding, CES, the
-psychometric function and the HPO-B lookup task."""
+psychometric function, the analytic benchmark functions and the HPO-B
+lookup task."""
 from aline_tpu_torch.tasks.base import (  # noqa: F401
     Batch, Task, batch_from_numpy, init_ctx_idx, select_design)
+from aline_tpu_torch.tasks.benchmarks import (  # noqa: F401
+    BENCHMARKS, BenchmarkTask)
 from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.gp import GPTask
 from aline_tpu_torch.tasks.hpo import HPOTask
@@ -10,7 +13,7 @@ from aline_tpu_torch.tasks.psychometric import PsychometricTask
 
 _TASK_REGISTRY = {"gp": GPTask, "location_finding": HiddenLocation,
                   "ces": CESTask, "psychometric": PsychometricTask,
-                  "hpo": HPOTask}
+                  "benchmark": BenchmarkTask, "hpo": HPOTask}
 
 
 def build_task(cfg) -> Task:

@@ -195,14 +195,16 @@ class Task:
         return m
 
     def _pack_batch(self, x, y, target_x, target_y, theta_tokens,
-                    theta) -> Batch:
-        """Assemble a Batch with the mode's ``target_all``."""
+                    theta, embedding_type: Optional[str] = None) -> Batch:
+        """Assemble a Batch with the mode's ``target_all``: the task's
+        embedding type, or ``embedding_type`` where given."""
         B, dev = x.shape[0], x.device
-        if self.embedding_type == "theta":
+        embedding_type = embedding_type or self.embedding_type
+        if embedding_type == "theta":
             target_all = theta_tokens
             target_x = torch.zeros(B, 0, self.dim_x, dtype=x.dtype,
                                    device=dev)
-        elif self.embedding_type == "data":
+        elif embedding_type == "data":
             target_all = target_y
         else:  # mix
             target_all = torch.cat([target_y, theta_tokens], dim=1)

@@ -15,6 +15,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from aline_tpu_torch.ops.sobol import (
+    permute_points,
+    random_permutations,
+    sample_sobol,
+)
 from aline_tpu_torch.tasks.base import Batch, Task
 
 _SQRT3 = math.sqrt(3.0)
@@ -75,12 +80,9 @@ class GPTask(Task):
                                if cfg.kernel_weights is not None
                                else [1.0 / 3.0, 0.0, 1.0 / 3.0, 1.0 / 3.0])
         self.noise_scale = cfg.noise_scale
-        data_gen = getattr(cfg, "data_gen", "uniform")
-        if data_gen in ("sobol", "lattice"):
-            raise NotImplementedError(
-                f"data_gen={data_gen!r} is not ported yet (only 'uniform')")
-        if data_gen != "uniform":
-            raise ValueError(f"unknown data_gen {data_gen!r}")
+        self.data_gen = getattr(cfg, "data_gen", "uniform")
+        if self.data_gen not in ("uniform", "sobol", "lattice"):
+            raise ValueError(f"unknown data_gen {self.data_gen!r}")
         if (self.embedding_type in ("mix", "theta")
                 and cfg.n_target_theta != self.dim_x + 1):
             raise ValueError("n_target_theta must equal dim_x + 1 for "
@@ -113,6 +115,48 @@ class GPTask(Task):
         """Uniform designs in [-design_scale, design_scale]^dim_x."""
         return self._uniform(gen, (batch_size, n_data, self.dim_x),
                              -self.design_scale, self.design_scale)
+
+    def _to_box(self, pts):
+        """Points of [0, 1)^D onto [-design_scale, design_scale]^D."""
+        return pts * 2.0 * self.design_scale - self.design_scale
+
+    def sample_data_sobol(self, gen: torch.Generator, batch_size: int,
+                          n_data: int) -> torch.Tensor:
+        """Scrambled Sobol designs (``ops/sobol.py``) in the box."""
+        return self._to_box(sample_sobol(gen, batch_size, n_data,
+                                         self.dim_x))
+
+    def lattice_alphas(self) -> torch.Tensor:
+        """The R_d Kronecker sequence's generator vector: powers of 1/g,
+        g^(D+1) = g + 1 (the generalised golden ratio), in float32."""
+        g = 1.0
+        for _ in range(64):
+            g = (1.0 + g) ** (1.0 / (self.dim_x + 1))
+        return torch.tensor([((1.0 / g) ** (d + 1)) % 1.0
+                             for d in range(self.dim_x)],
+                            dtype=torch.float32)
+
+    def lattice_points(self, n_data: int, shift: torch.Tensor,
+                       perms: torch.Tensor) -> torch.Tensor:
+        """Rank-1 lattice designs in the box: i·alpha mod 1, shifted by
+        ``shift`` [B, 1, D] mod 1, each dimension reordered by ``perms``
+        [B, D, n_data]."""
+        i = torch.arange(n_data, dtype=torch.float32,
+                         device=shift.device)[:, None]
+        base = torch.remainder(
+            i * self.lattice_alphas().to(shift.device)[None, :], 1.0)
+        pts = torch.remainder(base[None] + shift, 1.0)
+        return self._to_box(permute_points(pts, perms))
+
+    def sample_data_lattice(self, gen: torch.Generator, batch_size: int,
+                            n_data: int) -> torch.Tensor:
+        """Randomised rank-1 lattice designs: a uniform shift and the
+        permutations drawn from ``gen``."""
+        shift = torch.rand(batch_size, 1, self.dim_x, generator=gen,
+                           device=gen.device)
+        return self.lattice_points(
+            n_data, shift,
+            random_permutations(gen, batch_size, self.dim_x, n_data))
 
     # -- GP sampling -------------------------------------------------------
     def _covariance(self, x, theta, kernel_idx):
@@ -147,8 +191,10 @@ class GPTask(Task):
         n_query = self.n_query_init if n_query is None else n_query
         theta = self.sample_theta(gen, (batch_size,))
         n_points = self.n_context_init + n_query
-        x_all = self.sample_data(gen, batch_size,
-                                 n_points + self.n_target_data)
+        sample = {"uniform": self.sample_data,
+                  "sobol": self.sample_data_sobol,
+                  "lattice": self.sample_data_lattice}[self.data_gen]
+        x_all = sample(gen, batch_size, n_points + self.n_target_data)
         y_all = self.generate_gp_data(gen, x_all, theta)
         return self._pack_batch(x_all[:, :n_points], y_all[:, :n_points],
                                 x_all[:, n_points:], y_all[:, n_points:],

@@ -74,6 +74,13 @@ class HiddenLocation(Task):
                           dtype=signal.dtype)
         return signal + self.noise_scale * eps
 
+    def simulate_from_noise(self, xi: torch.Tensor, theta: torch.Tensor,
+                            eps: torch.Tensor) -> torch.Tensor:
+        """``simulate`` on given standard-normal draws ``eps`` of the
+        signal's shape: reparameterised, so a gradient flows from the
+        outcome into the design."""
+        return self.total_density(xi, theta) + self.noise_scale * eps
+
     def log_likelihood(self, y, xi, theta):
         """Gaussian log-likelihood; y [..., 1], xi [..., D] and theta
         [..., K, D] broadcast (e.g. y [1, B, Th, 1], xi [1, B, Th, D],

@@ -36,6 +36,7 @@ from aline_tpu_torch.config import parse_overrides, save_config, to_dict, \
     to_yaml
 from aline_tpu_torch.eval.eig import derive_seed, eval_boed
 from aline_tpu_torch.train.loop import Trainer
+from aline_tpu_torch.utils.device import split_device
 from aline_tpu_torch.utils.logging import create_logger
 from aline_tpu_torch.utils.serialization import save_params_npz
 from aline_tpu_torch.utils.tracking import RunTracker
@@ -82,13 +83,7 @@ def final_bounds(cfg, trainer, logger) -> str:
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    device = "cuda"
-    overrides = []
-    for arg in argv:
-        if arg.startswith("device="):
-            device = arg.partition("=")[2]
-        else:
-            overrides.append(arg)
+    device, overrides = split_device(argv)
     cfg = parse_overrides(overrides)
     os.makedirs(cfg.output_dir, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_dir, "logs"),

@@ -66,7 +66,7 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
         # ctx_idx is carried beside ctx_mask: the compact attention reads
         # it, and leaving it out would freeze the attended key set
         b = batch.replace(ctx_mask=ctx_mask, ctx_idx=ctx_idx, t=t)
-        out = model(b, training=training, gumbel=noise,
+        out = model(b, training=training, noise=noise,
                     sel_targets=sel_targets, query_posterior=False)
         b2, x_sel, y_sel = select_design(b, out.design_out.idx)
         po = out.posterior_out

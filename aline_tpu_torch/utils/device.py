@@ -24,3 +24,15 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     return dev
+
+
+def split_device(argv):
+    """(device, the other arguments) of a trainer's ``key=value``
+    arguments: ``device=...`` picks the device, the GPU by default."""
+    device, rest = "cuda", []
+    for arg in argv:
+        if arg.startswith("device="):
+            device = arg.partition("=")[2]
+        else:
+            rest.append(arg)
+    return device, rest

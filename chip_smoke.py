@@ -8,8 +8,10 @@ Phases, each printing its result lines; any failure exits non-zero:
 1. device  — requires CUDA; prints the card's name and power limit.
 2. build   — builds every CUDA kernel from ``aline_tpu_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the main paths' shapes, with timings.  Forward: rtol = atol
-             = 1e-4 (float32 accuracy on both sides: TF32 is off in
+             at the main paths' shapes (the GMM pair also at the
+             continuous path's B=200 and 5, T=2), with timings.
+             Forward: rtol = atol = 1e-4 (float32 accuracy on both
+             sides: TF32 is off in
              PyTorch, the kernels' D x F products are 3xTF32; the
              summation order differs).  Backward: also against
              ``torch.autograd.grad`` of the
@@ -194,8 +196,43 @@ these paths, and each phase checks that none was launched:
              bf16, B=200, 2 burning and 3 main epochs: finite losses, warm
              epoch ms, peak memory.
 
-``--only ces psych hpo train_tasks`` runs phase 1 and the named ones of
-10-13 alone (no kernels line); the driver's run takes no arguments.
+Phases 14-18 run the paper's baselines and the remaining design paths
+through their entry points; only 16 lies on a kernel:
+
+14. gp      — ``eval_al --with-gp-baselines`` on al1d_200k at
+             scripts/eval_al.py's protocol (n_query=500, T=30, 80 fit
+             steps, all six methods in one stacked fit), B cut to
+             GP_SMOKE_B (named in its log line; ``--only gp`` runs B=100):
+             finite curves, each deterministic method's final RMSE below
+             its step 0's, the wall and peak memory; the card against the
+             CPU on GP_WITNESS with fixed random scores (curves within
+             1e-3 while the choices agree, a row that leaves does so at a
+             relative score gap within GP_TIE_REL); two steps under
+             ``set_sync_debug_mode("error")``.
+15. bench   — ``eval_al --benchmark`` forrester, gramacy1d, higdon on
+             al1d_200k in bf16 (n_query=500): finite curves, aline's
+             RMSE falls; the card against the CPU over 8 rows along the
+             CPU's trajectory (``hold_trajectory``, phase 4c's limits,
+             candidates below BENCH_NEGLIGIBLE_P read apart).
+16. cont    — ``train_continuous``'s ``main`` at its DEFAULTS (location
+             finding, B=200, T=30, f32), 2 burning and 3 main epochs,
+             REINFORCE and pathwise (``alpha=0 alpha_pce=1 pce_L=255``):
+             exactly 60 GMM forwards and 30 backwards an epoch, T
+             forwards a greedy batch; final bounds at L=1e7, M=200, nmc >=
+             pce - 1e-5; one step card vs CPU held at PARITY_T steps and
+             at T=30, the card's REINFORCE reward the CPU's.
+17. dad     — ``train_dad``'s ``main`` at its DEFAULTS for DAD_EPOCHS
+             epochs: no kernel, epochs/s, peak memory, final bounds at
+             L=1e6, M=200; one step card vs CPU as in 16.
+18. trend   — ``eval_bed_trend``'s ``main`` on loc_100k (bf16, M=200,
+             batch 100, n_query=2000, L = 1e4, 1e5, 1e6): nmc >= pce -
+             1e-5 at every L, the L=1e6 row bit for bit
+             ``eval_eig_from_history``'s on the same traces and seed; no
+             kernel.
+
+``--only ces psych hpo train_tasks bench cont dad trend gp`` runs phase 1
+and the named ones of 10-18 alone (no kernels line); with no arguments
+it runs every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -354,8 +391,12 @@ def gmm_inputs(B, T, seed, D=32, F=128, C=10, grid=False):
 
 def phase_kernels():
     from aline_tpu_torch.ops import gmm_head_kernel as ghk
+    # the continuous-design path: the 2 theta tokens of location finding
+    # at B=200 (training, phase 16) and at its greedy eval's batch
+    # (eval.batch_size_final's default, 5)
     shapes = [(BATCH, N_QUERY + 1, "pool"), (BATCH, 102, "targets"),
-              (200, 102, "train targets"), (3, 37, "ragged")]
+              (200, 102, "train targets"), (3, 37, "ragged"),
+              (200, 2, "continuous train"), (5, 2, "continuous greedy")]
     rows, worst = {}, 0.0
     for seed, (B, T, what) in enumerate(shapes):
         args = gmm_inputs(B, T, seed)
@@ -436,7 +477,7 @@ def phase_kernels_bwd():
     from aline_tpu_torch.ops import gmm_head_kernel as ghk
     names = ("dz", "dw1", "db1", "dw2", "db2")
     shapes = [(200, 102, "train targets"), (200, 201, "train pool"),
-              (3, 37, "ragged")]
+              (3, 37, "ragged"), (200, 2, "continuous train")]
     rows, worst = {}, 0.0
     for seed, (B, T, what) in enumerate(shapes):
         z, w1, b1, w2, b2 = gmm_inputs(B, T, 10 + seed, grid=True)
@@ -1431,7 +1472,7 @@ def score_gap_ulps(scores, a, b):
 
 
 def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
-                    max_ulps=None, T=T_STEPS):
+                    max_ulps=None, T=T_STEPS, negligible_p=None):
     """Along the reference's aline trajectory ``ref_idx`` [rows, T] over
     the first ``rows`` rows of ``batch``: every model of ``others``
     ({name: (model, its own idx [rows, T])}) is run on the reference's
@@ -1439,7 +1480,11 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
     ``max_ulps`` of the reference's; and every row whose own choices leave
     the reference's must do so where the reference's bf16 design scores
     of the two candidates lie within BF16_TIE_ULPS.  With ``max_ulps``
-    None both are only read.  Returns the readings per model."""
+    None both are only read.  With ``negligible_p``, a design score whose
+    candidate has a probability below it on both devices (the pool's
+    softmax) is left out of ``max_ulps`` and read apart
+    (``negligible_max_ulps``); it still counts in the share within one
+    ulp.  Returns the readings per model."""
     from aline_tpu_torch.tasks.base import init_ctx_idx, select_design
     b = init_ctx_idx(batch, min(int(batch.ctx_mask[0].sum()) + T,
                                 batch.n_points))
@@ -1450,7 +1495,8 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
     for name, (_, idx) in others.items():
         differs, first = first_change(idx.cpu(), ref_idx)
         res[name] = dict(differs=differs, first=first, ulps=0.0, near=0,
-                         n=0, gap=torch.zeros(rows, dtype=torch.int32))
+                         n=0, gap=torch.zeros(rows, dtype=torch.int32),
+                         negl_ulps=0.0, negl_over=0)
     with torch.no_grad():
         for t in range(T + 1):
             out_r, s_r = design_forward(ref_model, b)
@@ -1458,12 +1504,30 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
                 dev = next(model.parameters()).device
                 out, s = design_forward(model, b.to(dev))
                 r = res[name]
-                for u in (bf16_ulps(s, s_r), bf16_ulps(
-                        out.posterior_out.mixture_means,
-                        out_r.posterior_out.mixture_means)):
-                    r["ulps"] = max(r["ulps"], u.max().item())
+                u_s = bf16_ulps(s, s_r)
+                u_m = bf16_ulps(out.posterior_out.mixture_means,
+                                out_r.posterior_out.mixture_means)
+                for u in (u_s, u_m):
                     r["near"] += int((u <= 1).sum())
                     r["n"] += u.numel()
+                if negligible_p is not None:
+                    pool = b.query_mask.cpu()
+                    negl = None
+                    for sc in (s_r, s):
+                        p = torch.softmax(torch.where(
+                            pool, sc.float().cpu(),
+                            torch.tensor(-math.inf)), dim=-1)
+                        small = p < negligible_p
+                        negl = small if negl is None else negl & small
+                    if negl.any():
+                        r["negl_ulps"] = max(r["negl_ulps"],
+                                             u_s[negl].max().item())
+                        if max_ulps is not None:
+                            r["negl_over"] += int((u_s[negl]
+                                                   > max_ulps).sum())
+                    u_s = u_s.masked_fill(negl, 0.0)
+                for u in (u_s, u_m):
+                    r["ulps"] = max(r["ulps"], u.max().item())
                 if t < T:
                     here = r["differs"] & (r["first"] == t)
                     gap = score_gap_ulps(s_r.cpu(), ref_idx[:, t],
@@ -1483,6 +1547,13 @@ def hold_trajectory(tag, batch, ref_idx, ref_model, others, rows,
             exact_ties=int((d & (r["gap"] == 0)).sum()),
             max_tie_gap_ulps=int(r["gap"][d].max()) if d.any() else 0)
         sm = summary[name]
+        if negligible_p is not None:
+            sm.update(negligible_max_ulps=r["negl_ulps"],
+                      negligible_over_limit=r["negl_over"])
+            log(tag, f"{name}: design scores of candidates below "
+                f"probability {negligible_p:g} on both devices: within "
+                f"{r['negl_ulps']:.1f} ulps, {r['negl_over']} elements past "
+                f"{max_ulps} (read apart, not held to it)")
         log(tag, f"{name} along the reference's aline trajectory ({rows} "
             f"rows): forwards within {sm['forward_max_ulps']:.1f} bf16 ulps "
             f"(limit {max_ulps}), {sm['forward_share_within_1ulp']:.4%} of "
@@ -2623,7 +2694,604 @@ def phase_train_tasks(smi):
     return rec
 
 
-NEW_PHASES = ("ces", "psych", "hpo", "train_tasks")
+# Phases 14-18 (the baselines and design paths of slice 9).  14: the
+# classical GP baselines at scripts/eval_al.py's protocol on al1d_200k
+# (bf16 policy; the baselines in float32): B, n_query, T, fit steps.  The
+# smoke runs GP_SMOKE_B problems; ``--only gp`` the protocol's B.
+GP = dict(batch_size=100, n_query=500, T=30, fit_steps=80)
+GP_SMOKE_B = 25
+# the card against the CPU on a small batch with fixed random scores; a
+# row that chooses otherwise must do so where the CPU's scores of the two
+# candidates lie within GP_TIE_REL of each other (relative)
+GP_WITNESS = dict(batch_size=8, n_query=100, T=10)
+GP_TIE_REL = 1e-3
+# 15: the 1-D benchmark functions at the flagship's eval shape
+BENCH_NAMES = ("forrester", "gramacy1d", "higdon")
+BENCH = dict(batch_size=100, n_query=500, T=T_STEPS)
+# Off the GP prior a single pool token's design score can move by many
+# ulps between the card and the CPU while the others stay within one (a
+# one-ulp change of two near-equal attention scores of a peaked softmax
+# moves that token's output): the first run read 2114.7 ulps on higdon
+# (PERF.md section 6), at a candidate of probability below e^-40
+# on both devices.  Such a candidate cannot change a choice, so phase 15
+# holds to BF16_CARD_ULPS the scores of candidates with a probability of
+# at least BENCH_NEGLIGIBLE_P on either device and every posterior mean,
+# and reads the rest apart.
+BENCH_NEGLIGIBLE_P = 1e-6
+# 16: scripts/train_continuous.py's DEFAULTS (location finding, B=200,
+# T=30, float32, fresh init), 2 burning and 3 main epochs, final bounds of
+# greedy rollouts at eval.L_final with M_final cut to 200
+CONT_ARGS = ["burning_epoch=2", "max_epoch=5", "verbose=1", "checkpoint=0",
+             "eval.EIG=true", "eval.M_final=200"]
+CONT_PATHWISE = ["alpha=0", "alpha_pce=1", "pce_L=255"]
+# 17: scripts/train_dad.py's DEFAULTS (B=256, T=30, eval.L=511), DAD_EPOCHS
+# epochs, final bounds at eval.L_final with M_final cut to 200
+DAD_EPOCHS = 300
+DAD_ARGS = [f"max_epoch={DAD_EPOCHS}", "verbose=100", "checkpoint=0",
+            "eval.M_final=200"]
+# The card-vs-CPU training steps of 16 and 17 are held as phase 7 holds
+# its step, on a small batch (PARITY_B), over PARITY_T steps and over the
+# recipe's T.  The REINFORCE reward (train/loss.py) clamps each step's
+# gain at 0 and divides it by the batch's spread of that step's gains: a
+# step whose gains all lie near 0 turns their rounding into a reward of
+# order 1, so the devices' rewards part where their inputs agree to an
+# ulp (the first run's T=30 step read 1.355e-03 of the largest gradient
+# element).  The reward is a constant to the gradient, so the card takes
+# the CPU pass's (``cpu_reward``), and what its own would have moved is
+# read beside the step.
+PARITY_B, PARITY_T = 8, 5
+# 18: the trend on loc_100k, bf16
+TREND = dict(M=200, batch_size=100, n_query=2000,
+             L_checkpoints=(10_000, 100_000, 1_000_000), seed=0)
+
+
+def gp_witness(task, n_ctx):
+    """14, the card against the CPU: the six methods on a small batch
+    (GP_WITNESS) drawn on the CPU, with fixed uniform scores for
+    ``random``; curves within 1e-3 wherever the two devices have chosen
+    alike so far, and a row that chooses otherwise does so at a near tie
+    of the CPU's scores.  Then two steps under
+    ``set_sync_debug_mode("error")``."""
+    from aline_tpu_torch.eval import gp_al_baselines as gpb
+    W = GP_WITNESS
+    g = torch.Generator().manual_seed(3)
+    batch = task.sample_batch(g, W["batch_size"], n_query=W["n_query"])
+    args = (batch.x, batch.y, batch.target_x,
+            batch.target_all[:, :batch.n_target_data])
+    uniform = torch.rand(W["T"], W["batch_size"], batch.n_points,
+                         generator=g)
+    t0 = time.perf_counter()
+    cpu = gpb.compare_acquisition_methods(
+        *args, n_ctx, W["T"], fit_steps=GP["fit_steps"], uniform=uniform,
+        return_scores=True)
+    cpu_s = time.perf_counter() - t0
+    card_args = [a.cuda() for a in args]
+    card_uniform = uniform.cuda()
+    card = gpb.compare_acquisition_methods(
+        *card_args, n_ctx, W["T"], fit_steps=GP["fit_steps"],
+        uniform=card_uniform)
+    rec, bad = {}, []
+    for name, c in cpu.items():
+        idx_c, idx_g = c["idx"], card[name]["idx"].cpu()
+        differs, first = first_change(idx_g, idx_c)
+        # steps 0..first of a row that leaves are still on the same state
+        upto = torch.where(differs, first, torch.full_like(first, W["T"]))
+        valid = torch.arange(W["T"] + 1)[None] <= upto[:, None]
+        worst = frac = 0.0
+        for k in ("rmse", "log_prob"):
+            got, ref = card[name][k].cpu(), c[k]
+            err = (got - ref).abs()
+            share = (err / (1e-3 + 1e-3 * ref.abs()))[valid].max().item()
+            if share > 1.0:
+                bad.append(f"{name} {k}: off by {err[valid].max():.3e}")
+            worst = max(worst, err[valid].max().item())
+            frac = max(frac, share)
+        gaps = []
+        for r in torch.nonzero(differs)[:, 0].tolist():
+            t = int(first[r])
+            s = c["scores"][r, t]
+            a, b = s[idx_c[r, t]], s[idx_g[r, t]]
+            gaps.append(((a - b).abs() / a.abs().clamp_min(1e-30)).item())
+        rec[name] = dict(max_abs_err=worst, tolerance_share=frac,
+                         rows_differing=len(gaps),
+                         max_tie_gap_rel=max(gaps, default=0.0))
+        log("gp", f"{name}: card vs CPU ({W['batch_size']} rows, n_query="
+            f"{W['n_query']}, T={W['T']}): curves within {frac:.3f} of "
+            f"their tolerance, 1e-3 plus 1e-3 of the CPU's value (largest "
+            f"|difference| {worst:.3e}) while the choices agree; "
+            f"{len(gaps)} rows choose otherwise, at a "
+            f"relative score gap of at most {max(gaps, default=0.0):.3e} "
+            f"(limit {GP_TIE_REL})")
+        if max(gaps, default=0.0) > GP_TIE_REL:
+            bad.append(f"{name}: a row leaves at a score gap {max(gaps)}")
+    if bad:
+        raise AssertionError("gp witness: " + "; ".join(bad))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        two = gpb.compare_acquisition_methods(
+            *card_args, n_ctx, 2, fit_steps=2, uniform=card_uniform[:2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not all(torch.isfinite(v["rmse"]).all() for v in two.values()):
+        raise AssertionError("gp: non-finite curves under sync debug")
+    log("gp", f"two steps of all six methods under "
+        f"set_sync_debug_mode('error'): no host synchronisation; CPU "
+        f"witness {cpu_s:.1f} s")
+    return dict(methods=rec, cpu_s=cpu_s)
+
+
+def phase_gp(smi, B):
+    """14: ``eval_al``'s ``main`` with ``--with-gp-baselines`` on
+    al1d_200k at scripts/eval_al.py's protocol with ``B`` problems (GP
+    names B=100): finite curves, each deterministic method's final mean
+    RMSE below its step 0's; the baselines' wall and peak memory; then
+    ``gp_witness``."""
+    from aline_tpu_torch import eval_al
+    from aline_tpu_torch.config import load_config
+    from aline_tpu_torch.eval.gp_al_baselines import ACQUISITION_FUNCTIONS
+    from aline_tpu_torch.tasks import build_task
+
+    run_dir = run_copy("gp_run")
+    cfg = load_config(run_dir)
+    calls = []
+    undo = patched([(eval_al, "compare_acquisition_methods", timed_calls(
+        calls, "gp", eval_al.compare_acquisition_methods))])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_al.main([
+            run_dir, "--device", "cuda", "--batch-size", str(B),
+            "--n-query", str(GP["n_query"]), "--T", str(GP["T"]),
+            "--gp-fit-steps", str(GP["fit_steps"]), "--with-gp-baselines"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patched(undo)
+    if counts != expected_launches(cfg):
+        raise AssertionError(f"gp: launches {counts}, expected none")
+    gp_s = calls[0]["s"]
+    cut = "" if B == GP["batch_size"] else (
+        f" (B cut from {GP['batch_size']} to {B}: ``--only gp`` runs "
+        f"the protocol's B)")
+    rec = dict(B=B, wall_s=wall, gp_s=gp_s, peak_bytes=peak,
+               launches=counts, methods={})
+    for name in ACQUISITION_FUNCTIONS:
+        rm, lp = res[f"gp_{name}_rmse"], res[f"gp_{name}_log_prob"]
+        if rm.shape != (B, GP["T"] + 1) or not (
+                np.isfinite(rm).all() and np.isfinite(lp).all()):
+            raise AssertionError(f"gp {name}: curves {rm.shape}, finite "
+                                 f"{np.isfinite(rm).all()}")
+        r0, rT = float(rm[:, 0].mean()), float(rm[:, -1].mean())
+        rec["methods"][name] = dict(rmse_step0=r0, rmse_final=rT,
+                                    ll_final=float(lp[:, -1].mean()))
+        log("gp", f"{name}: mean rmse step 0 {r0:.4f}, step {GP['T']} "
+            f"{rT:.4f}; final log_prob {lp[:, -1].mean():.4f}")
+        if name != "random" and not rT < r0:
+            raise AssertionError(f"gp {name}: the final rmse {rT:.4f} is "
+                                 f"not below step 0's {r0:.4f}")
+    n_m = len(ACQUISITION_FUNCTIONS)
+    log("gp", f"B={B} n_query={GP['n_query']} T={GP['T']} fit_steps="
+        f"{GP['fit_steps']}{cut}: the six baselines {gp_s:.3f} s in one "
+        f"batched fit ({n_m * B} problems; {gp_s / n_m:.3f} s a method), "
+        f"eval_al {wall:.3f} s; peak memory {peak / 2**30:.3f} GiB; no "
+        f"kernel launched ({smi})")
+    rec["witness"] = gp_witness(build_task(cfg.task),
+                                cfg.task.n_context_init)
+    return rec
+
+
+def phase_bench(smi):
+    """15: ``eval_al --benchmark`` for the 1-D functions on al1d_200k in
+    its bf16 (n_query=500): finite curves, aline's final RMSE below its
+    step 0's, no kernel; the card against the CPU over BF16_WITNESS_ROWS
+    rows along the CPU's trajectory on a benchmark batch
+    (``hold_trajectory``, as phase 4c)."""
+    from aline_tpu_torch import eval_al
+    from aline_tpu_torch.eval.al_curves import STRATEGIES, al_rollout_curves
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+
+    run_dir = run_copy("bench_run")
+    cfg, model = load_model(run_dir, AL1D_200K_PARAMS, "cuda")
+    _, model_cpu = load_model(run_dir, AL1D_200K_PARAMS, "cpu")
+    rec, total = {}, {name: 0 for name in launches()}
+    for name in BENCH_NAMES:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_al.main([
+            run_dir, "--device", "cuda", "--batch-size",
+            str(BENCH["batch_size"]), "--n-query", str(BENCH["n_query"]),
+            "--T", str(BENCH["T"]), "--benchmark", name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        if counts != expected_launches(cfg):
+            raise AssertionError(f"bench {name}: launches {counts}")
+        r = {}
+        for s in STRATEGIES:
+            rm = res[f"bench_{name}_{s}_rmse"]
+            if rm.shape != (BENCH["batch_size"], BENCH["T"] + 1) or \
+                    not np.isfinite(rm).all():
+                raise AssertionError(f"bench {name} {s}: {rm.shape}")
+            r[s] = (float(rm[:, 0].mean()), float(rm[:, -1].mean()))
+        log("bench", f"{name}: mean rmse step 0 -> {BENCH['T']}: " + ", ".join(
+            f"{s} {a:.4f} -> {b:.4f}" for s, (a, b) in r.items())
+            + f"; eval_al {wall:.3f} s")
+        if not r["aline"][1] < r["aline"][0]:
+            raise AssertionError(f"bench {name}: aline's rmse did not fall")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        bbatch = eval_al.benchmark_batch(cfg.task, name, BENCH["n_query"],
+                                         gen, BENCH["batch_size"])
+        card = al_rollout_curves(model, bbatch, BENCH["T"], strategy="aline")
+        rows = BF16_WITNESS_ROWS
+        witness = al_rollout_curves(model_cpu,
+                                    batch_rows(bbatch, rows, "cpu"),
+                                    BENCH["T"], strategy="aline")
+        held = hold_trajectory(
+            f"bench {name}", bbatch, witness["idx"], model_cpu,
+            {"card": (model, card["idx"][:rows])}, rows, BF16_CARD_ULPS,
+            T=BENCH["T"], negligible_p=BENCH_NEGLIGIBLE_P)
+        rec[name] = dict(rmse={s: list(v) for s, v in r.items()},
+                         wall_s=wall, against_cpu=held["card"])
+        for k in total:
+            total[k] += counts[k]
+    rec["launches"] = total
+    log("bench", f"B={BENCH['batch_size']} n_query={BENCH['n_query']} "
+        f"T={BENCH['T']} {cfg.dtype}: no kernel launched ({smi})")
+    return rec
+
+
+def grads_agree(label, g_c, g_g):
+    """(the largest |card - CPU| gradient element, that over the largest
+    CPU element); every element within 1e-4 of the CPU's plus 1e-4 of the
+    model's largest CPU gradient element."""
+    scale = max(g.abs().max() for g in g_c.values())
+    worst = 0.0
+    for n, g in g_c.items():
+        err = (g_g[n] - g).abs()
+        if not bool((err <= TOL * g.abs() + TOL * scale).all()):
+            raise AssertionError(f"{label}: grad of {n} differs between "
+                                 f"CPU and card by {err.max():.3e}")
+        worst = max(worst, err.max().item())
+    return worst, worst / scale.item()
+
+
+def card_step(label, loss_fn, model_cpu, draws, T):
+    """One step's loss and gradients of ``model_cpu`` on the CPU and of a
+    copy on the card, on the same ``draws`` (moved to each device), the
+    CPU first: losses within 1e-4 and gradients as ``grads_agree``;
+    returns the readings and the card's launches."""
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    out = {}
+    for dev, model in (("cpu", model_cpu), ("cuda", model_gpu)):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = loss_fn(model, [d.to(dev) if d is not None else None
+                               for d in draws])
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None}, launches())
+    (l_c, g_c, _), (l_g, g_g, counts) = out["cpu"], out["cuda"]
+    if abs(l_g - l_c) > TOL + TOL * abs(l_c):
+        raise AssertionError(f"{label}: loss CPU {l_c:.6f}, card {l_g:.6f}")
+    worst, rel = grads_agree(label, g_c, g_g)
+    log(label.split()[0], f"{label}: one step, B={PARITY_B} T={T}: loss "
+        f"CPU {l_c:.6f}, card {l_g:.6f}; grads within {worst:.3e} ("
+        f"{rel:.3e} of the largest); card launches {counts}")
+    return dict(T=T, loss_cpu=l_c, loss_card=l_g,
+                grad_max_abs_err=worst, grad_err_over_largest=rel,
+                launches=counts)
+
+
+def cpu_reward(seen):
+    """``total_loss`` whose REINFORCE reward comes from the CPU pass: the
+    CPU's call keeps its ``nll_query`` in ``seen``, the card's takes it in
+    place of its own (the reward is detached, so the gradient sees a
+    constant either way) and reads into ``seen`` what its own would have
+    changed: the gains whose clamp at 0 it sets otherwise (``flips``) and
+    the design loss (``design_loss_move``)."""
+    from aline_tpu_torch.train.loss import reinforce_losses, total_loss
+
+    def loss(ro, gamma, alpha_design):
+        own = ro.nll_query.detach()
+        if own.device.type == "cpu":
+            seen["cpu"] = own
+            return total_loss(ro, gamma, alpha_design)
+        ref, mine = seen["cpu"], own.cpu()
+        ro_ref = ro._replace(nll_query=ref.to(own.device))
+        seen.update(
+            flips=int(((ref[:-1] - ref[1:] > 0)
+                       != (mine[:-1] - mine[1:] > 0)).sum()),
+            nll_query_max_abs_err=(mine - ref).abs().max().item(),
+            design_loss_move=abs(reinforce_losses(ro, gamma)[0].item()
+                                 - reinforce_losses(ro_ref, gamma)[0].item()))
+        return total_loss(ro_ref, gamma, alpha_design)
+    return loss
+
+
+def cont_step_parity(label, extra):
+    """16: one continuous training step (main phase) on the CPU (plain
+    versions) and on the card (kernels) from the same fresh model and the
+    same CPU-drawn batch and noises, the reward the CPU's (``cpu_reward``):
+    held (``card_step``) at PARITY_T steps and at the recipe's T."""
+    from aline_tpu_torch import train_continuous as tcm
+    from aline_tpu_torch.config import parse_overrides
+    rec = {}
+    for T in (PARITY_T, None):
+        cfg = parse_overrides(tcm.DEFAULTS + extra + [
+            f"batch_size={PARITY_B}"] + ([f"T={T}", f"min_T={T}"] if T
+                                          else []))
+        tr = tcm.ContinuousTrainer(cfg, device="cpu")
+        seen = {}
+
+        def loss_fn(model, draws, tr=tr, cfg=cfg, seen=seen):
+            undo = patched([(tcm, "total_loss", cpu_reward(seen))])
+            try:
+                return tcm.continuous_loss(model, tr.task, cfg, *draws,
+                                           alpha=cfg.alpha,
+                                           design_on=1.0)[0]
+            finally:
+                patched(undo)
+
+        r = card_step(f"cont {label}", loss_fn, tr.model, tr.draw(PARITY_B),
+                      cfg.T)
+        r.update(reward_flips=seen["flips"],
+                 nll_query_max_abs_err=seen["nll_query_max_abs_err"],
+                 design_loss_move=seen["design_loss_move"])
+        log("cont", f"cont {label}, T={cfg.T}: the card's own nll_query "
+            f"within {seen['nll_query_max_abs_err']:.3e} of the CPU's; as "
+            f"its reward it would have flipped {seen['flips']} of the "
+            f"{(cfg.T - 1) * PARITY_B} clamps and moved the REINFORCE "
+            f"design loss by {seen['design_loss_move']:.3e}")
+        rec[f"T{cfg.T}"] = r
+    return rec
+
+
+def final_bounds_rows(calls):
+    """(least nmc - pce over the rows of the EIG calls in ``calls``)."""
+    eigs = [c for c in calls if c["kind"] == "eig"]
+    return min(float((c["nmc"] - c["pce"]).min()) for c in eigs)
+
+
+def check_final_bounds(label, bounds):
+    pce, nmc = float(bounds["pce_mean"]), float(bounds["nmc_mean"])
+    if not (math.isfinite(pce) and math.isfinite(nmc)) or \
+            nmc < pce - BED_NMC_SLACK:
+        raise AssertionError(f"{label}: final bounds {bounds}")
+    return pce, nmc
+
+
+def phase_cont(smi):
+    """16: ``train_continuous``'s ``main`` at its DEFAULTS, REINFORCE and
+    pathwise: per epoch exactly 2T GMM forwards and T backwards (the
+    target tokens per step, once more in the recompute), T forwards per
+    greedy eval batch; finite losses; final bounds finite with nmc >= pce
+    - 1e-5; warm epoch ms, peak memory, the final bounds' wall; then one
+    step on the card against one on the CPU for each objective."""
+    from aline_tpu_torch import train_continuous as tcm
+    from aline_tpu_torch.eval import eig
+
+    rec = {}
+    for label, extra in (("reinforce", []), ("pathwise", CONT_PATHWISE)):
+        out_dir = OUT_DIR / f"cont_{label}_smoke"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        calls = []
+        epoch_fn = tcm.ContinuousTrainer.train_epoch
+        greedy_fn = tcm.ContinuousTrainer.greedy_traces
+
+        def timed_epoch(self, epoch, epoch_fn=epoch_fn, calls=calls):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            m = epoch_fn(self, epoch)
+            torch.cuda.synchronize()
+            calls.append(dict(kind="epoch", epoch=epoch, phase=self.phase,
+                              s=time.perf_counter() - t0,
+                              loss=float(m["loss"]), launches=launches()))
+            return m
+
+        def timed_greedy(self, *a, greedy_fn=greedy_fn, calls=calls):
+            reset_launches()
+            out = greedy_fn(self, *a)
+            calls.append(dict(kind="greedy", launches=launches()))
+            return out
+
+        undo = patched([
+            (tcm.ContinuousTrainer, "train_epoch", timed_epoch),
+            (tcm.ContinuousTrainer, "greedy_traces", timed_greedy),
+            (tcm, "eval_final_bounds", timed_calls(calls, "bounds",
+                                                   tcm.eval_final_bounds)),
+            (eig, "compute_eig_from_history", timed_calls(
+                calls, "eig", eig.compute_eig_from_history))])
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = tcm.main(CONT_ARGS + extra + ["device=cuda",
+                                                f"output_dir={out_dir}"])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            patched(undo)
+        cfg = run["trainer"].cfg
+        T = cfg.T
+        epochs = [c for c in calls if c["kind"] == "epoch"]
+        per_epoch = expected_launches(cfg, gmm_head_fwd=2 * T,
+                                      gmm_head_bwd=T)
+        for e in epochs:
+            if e["launches"] != per_epoch or not math.isfinite(e["loss"]):
+                raise AssertionError(f"cont {label} epoch {e['epoch']}: "
+                                     f"launches {e['launches']}, expected "
+                                     f"{per_epoch}; loss {e['loss']}")
+        greedy = [c for c in calls if c["kind"] == "greedy"][0]["launches"]
+        n_greedy = -(-cfg.eval.M_final // cfg.eval.batch_size_final)
+        if greedy != expected_launches(
+                cfg, gmm_head_fwd=n_greedy * cfg.eval.T_final):
+            raise AssertionError(f"cont {label}: greedy launches {greedy}")
+        pce, nmc = check_final_bounds(f"cont {label}", run["bounds"])
+        least = final_bounds_rows(calls)
+        bounds_s = [c["s"] for c in calls if c["kind"] == "bounds"][0]
+        warm_ms = 1e3 * statistics.median(
+            [e["s"] for e in epochs if e["phase"] == "main"][1:])
+        totals = {k: sum(e["launches"][k] for e in epochs) + greedy[k]
+                  for k in greedy}
+        rec[label] = dict(epochs=epochs, warm_ms=warm_ms, wall_s=wall,
+                          peak_bytes=peak, final_pce=pce, final_nmc=nmc,
+                          least_row_nmc_minus_pce=least,
+                          final_bounds_s=bounds_s, launches=totals,
+                          greedy_launches=greedy)
+        log("cont", f"{label}: B={cfg.batch_size} T={T} {cfg.dtype}: epochs "
+            + ", ".join(f"{e['epoch']} ({e['phase']}) {1e3 * e['s']:.1f} ms"
+                        for e in epochs)
+            + f"; {2 * T} GMM forwards and {T} backwards every epoch, "
+            f"{greedy['gmm_head_fwd']} forwards in {n_greedy} greedy "
+            f"batches; warm epoch {warm_ms:.1f} ms; final bounds (L="
+            f"{cfg.eval.L_final:g}, M={cfg.eval.M_final}, batch "
+            f"{cfg.eval.batch_size_final}, T={cfg.eval.T_final}) "
+            f"{bounds_s:.3f} s: sPCE {pce:.4f}, sNMC {nmc:.4f} (least row "
+            f"nmc - pce {least:.3e}); peak memory {peak / 2**30:.3f} GiB "
+            f"({smi})")
+        rec[f"{label}_parity"] = cont_step_parity(f"{label} step parity",
+                                                  extra)
+    return rec
+
+
+def phase_dad(smi):
+    """17: ``train_dad``'s ``main`` at its DEFAULTS for DAD_EPOCHS epochs:
+    no kernel launched, finite final bounds with nmc >= pce - 1e-5,
+    epochs/s and peak memory; one step on the card against one on the
+    CPU (B=PARITY_B)."""
+    from aline_tpu_torch import train_dad
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.eval import eig
+
+    out_dir = OUT_DIR / "dad_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    calls = []
+    undo = patched([
+        (train_dad, "eval_final_bounds", timed_calls(
+            calls, "bounds", train_dad.eval_final_bounds)),
+        (eig, "compute_eig_from_history", timed_calls(
+            calls, "eig", eig.compute_eig_from_history))])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run = train_dad.main(DAD_ARGS + ["device=cuda",
+                                         f"output_dir={out_dir}"])
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patched(undo)
+    cfg = run["trainer"].cfg
+    if any(counts.values()):
+        raise AssertionError(f"dad: launches {counts}")
+    pce, nmc = check_final_bounds("dad", run["bounds"])
+    train_s = sum(run["epoch_s"])
+    rate = len(run["epoch_s"]) / train_s
+    bounds_s = [c["s"] for c in calls if c["kind"] == "bounds"][0]
+    rec = dict(epochs=len(run["epoch_s"]), train_s=train_s,
+               epochs_per_s=rate, peak_bytes=peak, final_pce=pce,
+               final_nmc=nmc, least_row_nmc_minus_pce=final_bounds_rows(
+                   calls), final_bounds_s=bounds_s, launches=counts)
+    log("dad", f"B={cfg.batch_size} T={cfg.T} L={cfg.eval.L}: "
+        f"{len(run['epoch_s'])} epochs in {train_s:.3f} s ({rate:.1f} "
+        f"epochs/s); final bounds (L={cfg.eval.L_final:g}, M="
+        f"{cfg.eval.M_final}) {bounds_s:.3f} s: sPCE {pce:.4f}, sNMC "
+        f"{nmc:.4f}; peak memory {peak / 2**30:.3f} GiB; no kernel "
+        f"launched ({smi})")
+    rec["parity"] = {}
+    for T in (PARITY_T, cfg.T):
+        cfg_p = parse_overrides(train_dad.DEFAULTS + [
+            f"batch_size={PARITY_B}", f"T={T}"])
+        tr = train_dad.DADTrainer(cfg_p, device="cpu")
+
+        def loss_fn(model, draws, tr=tr):
+            return train_dad.dad_loss(model, tr.task, *draws, 0.1)
+
+        rec["parity"][f"T{T}"] = card_step(
+            "dad step (explore_std 0.1)", loss_fn, tr.model,
+            tr.draw(PARITY_B), T)
+    return rec
+
+
+def phase_trend(smi):
+    """18: ``eval_bed_trend``'s ``main`` on loc_100k (bf16): nmc >= pce -
+    1e-5 at every L; the row at the largest L equal bit for bit to
+    ``eval_eig_from_history`` at that L on the same traces and seed; no
+    kernel launched; wall time."""
+    from aline_tpu_torch import eval_bed_trend as ebt
+    from aline_tpu_torch.config import load_config
+    from aline_tpu_torch.eval.eig import (
+        aggregate_bounds, derive_seed, eval_eig_from_history)
+    from aline_tpu_torch.tasks import build_task
+
+    run_dir = run_copy("trend_run", src=LOC_RUN)
+    cfg = load_config(run_dir)
+    traces = []
+
+    def recorded(*a, **kw):
+        out = ebt_get_traces(*a, **kw)
+        traces.append(out)
+        return out
+
+    ebt_get_traces = ebt.get_traces
+    undo = patched([(ebt, "get_traces", recorded)])
+    Ls = TREND["L_checkpoints"]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = ebt.main([
+            run_dir, "--device", "cuda", "--L-checkpoints",
+            ",".join(str(L) for L in Ls), "--M", str(TREND["M"]),
+            "--batch-size", str(TREND["batch_size"]), "--n-query",
+            str(TREND["n_query"]), "--seed", str(TREND["seed"])])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        patched(undo)
+    if counts != expected_launches(cfg):
+        raise AssertionError(f"trend: launches {counts}, expected none")
+    rows = {}
+    for key in res:
+        if key.endswith("_pce"):
+            L_eff = int(key[1:-4])
+            pce, nmc = res[key], res[f"L{L_eff}_nmc"]
+            rows[L_eff] = dict(pce=float(pce.mean()), nmc=float(nmc.mean()),
+                               least_row_nmc_minus_pce=float(
+                                   (nmc - pce).min()))
+            if nmc.mean() < pce.mean() - BED_NMC_SLACK:
+                raise AssertionError(f"trend L={L_eff}: nmc < pce")
+    L = max(Ls)
+    theta, x, y = (torch.cat(t) for t in zip(*traces))
+    t0 = time.perf_counter()
+    direct = eval_eig_from_history(
+        build_task(cfg.task), theta, x, y, L, derive_seed(TREND["seed"], 1),
+        batch_size=TREND["batch_size"])
+    direct_s = time.perf_counter() - t0
+    trend = aggregate_bounds([res[f"L{L}_pce"]], [res[f"L{L}_nmc"]], "se")
+    if any(float(trend[k]) != float(direct[k]) for k in trend):
+        raise AssertionError(f"trend: the L={L} row {trend} is not "
+                             f"eval_eig_from_history's {direct}")
+    log("trend", "L, mean sPCE, mean sNMC: " + "; ".join(
+        f"{k} {v['pce']:.4f} {v['nmc']:.4f}" for k, v in sorted(
+            rows.items())) + f"; the L={L} row equal bit for bit to "
+        f"eval_eig_from_history ({direct_s:.3f} s); M={TREND['M']} batch "
+        f"{TREND['batch_size']} n_query={TREND['n_query']} {cfg.dtype}: "
+        f"{wall:.3f} s; no kernel launched ({smi})")
+    return dict(rows=rows, wall_s=wall, direct_s=direct_s, launches=counts)
+
+
+NEW_PHASES = ("ces", "psych", "hpo", "train_tasks", "gp", "bench", "cont",
+              "dad", "trend")
 
 
 def parse_args(argv=None):
@@ -2631,15 +3299,16 @@ def parse_args(argv=None):
         description="Smoke run of the port on one NVIDIA GPU; with no "
                     "arguments, every phase")
     ap.add_argument("--only", nargs="+", choices=NEW_PHASES,
-                    help="run only these of phases 10-13 (after phase 1) "
+                    help="run only these of phases 10-18 (after phase 1) "
                          "and print no kernels line")
     ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
                     help="phase 10's rows (2000: the JAX run's protocol)")
     return ap.parse_args(argv)
 
 
-def new_phases(smi, only, ces_M):
-    """Phases 10-13 (those named in ``only``): {name: record}."""
+def new_phases(smi, only, ces_M, gp_B):
+    """Phases 10-18 (those named in ``only``), phase 14 with ``gp_B``
+    problems: {name: record}."""
     rec = {}
     if "ces" in only:
         rec["ces_bed"] = phase_ces_bed(smi, ces_M)
@@ -2650,6 +3319,16 @@ def new_phases(smi, only, ces_M):
         rec["hpo"] = phase_hpo(smi)
     if "train_tasks" in only:
         rec["train_tasks"] = phase_train_tasks(smi)
+    if "bench" in only:
+        rec["bench"] = phase_bench(smi)
+    if "cont" in only:
+        rec["cont"] = phase_cont(smi)
+    if "dad" in only:
+        rec["dad"] = phase_dad(smi)
+    if "trend" in only:
+        rec["trend"] = phase_trend(smi)
+    if "gp" in only:
+        rec["gp"] = phase_gp(smi, gp_B)
     return rec
 
 
@@ -2661,7 +3340,7 @@ def main(argv=None):
     OUT_DIR.mkdir(exist_ok=True)
     if args.only:
         t0 = time.perf_counter()
-        rec = new_phases(smi, args.only, args.ces_M)
+        rec = new_phases(smi, args.only, args.ces_M, GP["batch_size"])
         rec["wall_s"] = time.perf_counter() - t0
         (OUT_DIR / f"chip_smoke_{'_'.join(args.only)}.json").write_text(
             json.dumps(dict(nvidia_smi=smi, torch=torch.__version__,
@@ -2692,14 +3371,18 @@ def main(argv=None):
     bed_rec = phase_bed(smi)
     bed_witness = phase_bed_witness()
     loc_train_rec = phase_train_loc(smi)
-    task_recs = new_phases(smi, NEW_PHASES, args.ces_M)
+    task_recs = new_phases(smi, NEW_PHASES, args.ces_M, GP_SMOKE_B)
 
     paths = {"eval": slice_rec, "train": train_rec,
              "flash_eval": flash_slice_rec, "flash_train": flash_train_rec,
              "eval_bf16": bf16_slice_rec, "train_bf16": bf16_train_rec,
              "flash_eval_bf16": bf16_flash_slice_rec,
              "flash_train_bf16": bf16_flash_train_rec, "bed": bed_rec,
-             "train_loc": loc_train_rec}
+             "train_loc": loc_train_rec, "gp": task_recs["gp"],
+             "bench": task_recs["bench"],
+             "train_continuous": task_recs["cont"]["reinforce"],
+             "train_continuous_pathwise": task_recs["cont"]["pathwise"],
+             "dad": task_recs["dad"], "trend": task_recs["trend"]}
 
     def record(name, replaces, row, err, source=None, dtype="float32",
                **extra):

@@ -157,6 +157,12 @@ def test_sample_batch_shapes_and_ranges(dim_x):
 
 
 def test_unported_design_generators_raise():
+    """Sobol and lattice designs are ported (``tests/test_torch_sobol.py``
+    holds them to JAX's); an unknown generator still raises."""
     for gen in ("sobol", "lattice"):
-        with pytest.raises(NotImplementedError):
-            GPTask(_cfgs(data_gen=gen)[1])
+        task = GPTask(_cfgs(data_gen=gen)[1])
+        b = task.sample_batch(torch.Generator().manual_seed(0), 3, 20)
+        scale = task.design_scale
+        assert (b.x.abs() <= scale).all() and torch.isfinite(b.y).all()
+    with pytest.raises(ValueError, match="data_gen"):
+        GPTask(_cfgs(data_gen="halton")[1])

@@ -143,8 +143,8 @@ def test_refusals():
     _, tc = _task_cfgs("task.theta_dist=gamma")
     with pytest.raises(ValueError, match="gamma"):
         HiddenLocation(tc)
-    with pytest.raises(NotImplementedError, match="benchmark"):
-        build_task(tcfg.TaskConfig(target="benchmark"))
+    with pytest.raises(NotImplementedError, match="bogus"):
+        build_task(tcfg.TaskConfig(target="bogus"))
     assert isinstance(build_task(tcfg.parse_overrides(
         ["task=location_finding"]).task), HiddenLocation)
 

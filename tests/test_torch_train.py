@@ -79,8 +79,8 @@ def test_parse_overrides_matches_jax():
     for task in ("ces", "psychometric", "hpo"):
         assert tcfg.to_dict(tcfg.parse_overrides([f"task={task}"])) == \
             jcfg.to_dict(jcfg.parse_overrides([f"task={task}"]))
-    with pytest.raises(NotImplementedError, match="benchmark"):
-        tcfg.parse_overrides(["task=benchmark"])
+    assert tcfg.to_dict(tcfg.parse_overrides(["task=benchmark"])) == \
+        jcfg.to_dict(jcfg.parse_overrides(["task=benchmark"]))
     with pytest.raises(KeyError, match="nonexistent"):
         tcfg.parse_overrides(["task.nonexistent=3"])
 
