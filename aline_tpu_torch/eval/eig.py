@@ -1,5 +1,5 @@
-"""Streaming sPCE / sNMC expected-information-gain bounds
-(``aline_tpu/eval/eig.py``, its single-device path).
+"""Streaming, mesh-sharded sPCE / sNMC expected-information-gain bounds
+(``aline_tpu/eval/eig.py``).
 
 Bound definitions:
     sPCE = log(L+1) - [logsumexp_{l=0..L} S_l - S_0]
@@ -11,16 +11,26 @@ logsumexp (``parallel/collectives.py``), so the memory taken is that of
 one chunk whatever L is; theta_0 is folded in exactly at the end by
 ``logaddexp``.
 
-Chunk i draws its thetas from a generator seeded by ``derive_seed(seed,
-i)`` alone, so at a fixed chunk size the bounds do not depend on how the
-chunks are grouped into calls (``L_checkpoints``), bit for bit.  The
-draws cannot match JAX's; ``thetas=`` computes the bounds on given draws.
-The chunk loop never waits for the host: the padding of the last chunk
-and every guard of the fold are tensor operations, and the chunk count
-is known before the loop.
+Chunk i draws its thetas [Lc, B] from a generator seeded by
+``derive_seed(seed, i)`` alone, so at a fixed chunk size the bounds do not
+depend on how the chunks are grouped into calls (``L_checkpoints``), bit
+for bit.  The draws cannot match JAX's; ``thetas=`` computes the bounds on
+given draws.  The chunk loop never waits for the host: the padding of the
+last chunk and every guard of the fold are tensor operations, and the
+chunk count is known before the loop.
 
-Not ported: the ``mesh`` and ``seq_mesh`` arguments, which shard the
-chunks and the query pool across devices.
+``mesh`` shards the work over ranks (``parallel/mesh.py``): the chunk ids
+over the ``contrastive`` axis in contiguous blocks (a rank past the last
+chunk folds nothing), the batch rows over the ``data`` axis.  One draw
+rule holds for every mesh: chunk i still draws [Lc, B] for the GLOBAL
+batch from ``derive_seed(seed, i)``, a contrastive rank folds only its
+chunks and a data rank keeps only its rows of each draw.  So the
+single-process, the 1-D and the 2-D bounds use the same draws and differ
+only in the order of the fold, a stronger rule than JAX's, whose 2-D
+draws are keyed per (chunk, global row) and differ from its 1-D ones.
+The chunk size is computed from the global batch: from the local one the
+chunk boundaries, and so the draws, would move.  ``seq_mesh`` shards the
+greedy rollout's candidate pool (``eval/traces.py``).
 """
 from __future__ import annotations
 
@@ -33,10 +43,13 @@ import torch
 from aline_tpu_torch.eval.traces import get_traces
 from aline_tpu_torch.parallel.collectives import (
     LogSumExpState,
+    all_reduce,
+    all_reduce_lse,
     lse_init,
     lse_update,
     lse_value,
 )
+from aline_tpu_torch.parallel.mesh import Mesh, replicate
 
 _MASK64 = (1 << 64) - 1
 
@@ -98,16 +111,19 @@ def _fold(state: LogSumExpState, task, x, y, thetas,
 
 
 def accumulate_chunks(task, x, y, seed: int, L: int, Lc: int, i0: int,
-                      n_chunks: int, state: LogSumExpState
+                      n_chunks: int, state: LogSumExpState,
+                      rows: slice = slice(None), B: Optional[int] = None
                       ) -> LogSumExpState:
     """Fold chunks ``i0 .. i0 + n_chunks - 1`` of Lc draws into ``state``;
-    chunk i's thetas come from ``derive_seed(seed, i)`` alone."""
+    chunk i's thetas [Lc, B] come from ``derive_seed(seed, i)`` alone, of
+    which ``rows`` (the rows of ``x`` within the batch of ``B``, default
+    all of it) are folded."""
     gen = torch.Generator(device=x.device)
-    B = x.shape[0]
+    B = x.shape[0] if B is None else B
     for i in range(i0, i0 + n_chunks):
         gen.manual_seed(derive_seed(seed, i))
-        state = _fold(state, task, x, y, task.sample_theta(gen, (Lc, B)),
-                      L - i * Lc)
+        state = _fold(state, task, x, y,
+                      task.sample_theta(gen, (Lc, B))[:, rows], L - i * Lc)
     return state
 
 
@@ -121,7 +137,9 @@ def _as_f32(name, t) -> torch.Tensor:
 def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
                              L_chunk: int = 32_768, stepwise: bool = False,
                              thetas: Optional[torch.Tensor] = None,
-                             L_checkpoints: Optional[list] = None):
+                             L_checkpoints: Optional[list] = None,
+                             mesh: Optional[Mesh] = None,
+                             axis_name: str = "contrastive"):
     """sPCE/sNMC bounds for a batch of histories.
 
     Args:
@@ -135,7 +153,11 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
             chunks of the same size.
         L_checkpoints: optional intermediate L values: the accumulator is
             read as the fold passes each (snapped up to a chunk multiple),
-            so one pass gives the bounds at every one.
+            so one pass gives the bounds at every one.  Without a mesh.
+        mesh: optional mesh whose ``axis_name`` axis shards the chunks and
+            whose ``data`` axis (if any) shards the rows (module
+            docstring).  Every rank of the mesh calls with the same
+            arguments and gets the bounds of the whole batch.
 
     Returns:
         (pce, nmc), [B, Th] if stepwise else [B]; with ``L_checkpoints``
@@ -144,27 +166,25 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
     x, y, theta_0 = (_as_f32(n, t) for n, t in
                      (("x", x), ("y", y), ("theta_0", theta_0)))
     B, Th = x.shape[0], x.shape[1]
+    if thetas is not None:
+        thetas = _as_f32("thetas", thetas)
+        L = int(thetas.shape[0])
+    # the chunk size of the GLOBAL batch: the draws depend on it
+    Lc = chunk_size(L, B, Th, L_chunk)
+    n_chunks = math.ceil(L / Lc)
+    if mesh is not None:
+        if L_checkpoints:
+            raise ValueError("L_checkpoints is computed without a mesh")
+        return _sharded_bounds(task, theta_0, x, y, L, seed, Lc, n_chunks,
+                               stepwise, thetas, mesh, axis_name)
     ll0 = task.log_likelihood(y, x, theta_0.unsqueeze(1))
     S0 = torch.cumsum(ll0[..., 0], dim=-1)                   # [B, Th]
     state = lse_init((B, Th), device=x.device)
 
-    if thetas is not None:
-        thetas = _as_f32("thetas", thetas)
-        L = int(thetas.shape[0])
-        Lc = chunk_size(L, B, Th, L_chunk)
+    def fold_chunks(state, i0, n):
+        return _fold_ids(state, task, x, y, range(i0, i0 + n), L, Lc, seed,
+                         thetas, slice(None), B)
 
-        def fold_chunks(state, i0, n):
-            for i in range(i0, i0 + n):
-                state = _fold(state, task, x, y,
-                              thetas[i * Lc:(i + 1) * Lc], Lc)
-            return state
-    else:
-        Lc = chunk_size(L, B, Th, L_chunk)
-
-        def fold_chunks(state, i0, n):
-            return accumulate_chunks(task, x, y, seed, L, Lc, i0, n, state)
-
-    n_chunks = math.ceil(L / Lc)
     marks = sorted({min(math.ceil(lc / Lc), n_chunks)
                     for lc in L_checkpoints or ()} | {n_chunks})
     results, done = {}, 0
@@ -174,6 +194,55 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
         L_eff = min(mark * Lc, L)
         results[L_eff] = _finalize_bounds(state, S0, L_eff, stepwise)
     return results if L_checkpoints else results[L]
+
+
+def _fold_ids(state, task, x, y, ids: range, L: int, Lc: int, seed: int,
+              thetas: Optional[torch.Tensor], rows: slice, B: int):
+    """Fold the chunks ``ids`` (a contiguous range), keeping ``rows`` of
+    each chunk's [Lc, B] draws; from ``thetas`` where given."""
+    if thetas is None:
+        return accumulate_chunks(task, x, y, seed, L, Lc, ids.start,
+                                 len(ids), state, rows, B)
+    for i in ids:
+        state = _fold(state, task, x, y, thetas[i * Lc:(i + 1) * Lc, rows],
+                      Lc)
+    return state
+
+
+def _sharded_bounds(task, theta_0, x, y, L: int, seed: int, Lc: int,
+                    n_chunks: int, stepwise: bool, thetas, mesh: Mesh,
+                    axis_name: str):
+    """The bounds on ``mesh``: this rank folds its block of the chunk ids
+    on its rows, the contrastive axis combines the accumulators, and the
+    data axis puts the rows' bounds together."""
+    B = x.shape[0]
+    n_data = mesh.axis_size("data")
+    if B % n_data:
+        raise ValueError(f"batch {B} must divide mesh data axis {n_data}")
+    B_loc = B // n_data
+    d = mesh.index("data")
+    rows = slice(d * B_loc, (d + 1) * B_loc)
+    per = math.ceil(n_chunks / mesh.axis_size(axis_name))
+    c = mesh.index(axis_name)
+    ids = range(min(c * per, n_chunks), min((c + 1) * per, n_chunks))
+    x_l, y_l = x[rows], y[rows]
+    ll0 = task.log_likelihood(y_l, x_l, theta_0[rows].unsqueeze(1))
+    S0 = torch.cumsum(ll0[..., 0], dim=-1)                   # [B_loc, Th]
+    state = _fold_ids(lse_init((B_loc, x.shape[1]), device=x.device), task,
+                      x_l, y_l, ids, L, Lc, seed, thetas, rows, B)
+    state = all_reduce_lse(state, mesh.group(axis_name))
+    bounds = _finalize_bounds(state, S0, L, stepwise)
+    if n_data == 1:
+        return bounds
+    # each row's bounds from its data rank: a sum over the data axis of
+    # the rows placed in zeros, exact (x + 0 = x)
+    out = []
+    for t in bounds:
+        full = torch.zeros((B,) + t.shape[1:], dtype=t.dtype,
+                           device=t.device)
+        full[rows] = t
+        out.append(all_reduce(full, group=mesh.group("data")))
+    return tuple(out)
 
 
 def _finalize_bounds(state: LogSumExpState, S0, L: int, stepwise: bool):
@@ -212,17 +281,21 @@ def aggregate_bounds(pce_list, nmc_list,
 def eval_eig_from_history(task, theta_0, x, y, L: int, seed: int,
                           M: Optional[int] = None, batch_size: int = 40,
                           stepwise: bool = False, err_type: str = "se",
-                          L_chunk: int = 32_768) -> Dict[str, np.ndarray]:
+                          L_chunk: int = 32_768,
+                          mesh: Optional[Mesh] = None
+                          ) -> Dict[str, np.ndarray]:
     """Bounds of PRE-COMPUTED histories (baseline policies' traces),
     mini-batched over the outer M axis; batch j's draws come from
-    ``derive_seed(seed, j)``."""
+    ``derive_seed(seed, j)``.  ``mesh`` as for
+    ``compute_eig_from_history``."""
     M = x.shape[0] if M is None else min(M, x.shape[0])
     pce_list, nmc_list = [], []
     for j, start in enumerate(range(0, M, batch_size)):
         end = min(start + batch_size, M)
         pce, nmc = compute_eig_from_history(
             task, theta_0[start:end], x[start:end], y[start:end], L,
-            derive_seed(seed, j), L_chunk=L_chunk, stepwise=stepwise)
+            derive_seed(seed, j), L_chunk=L_chunk, stepwise=stepwise,
+            mesh=mesh)
         pce_list.append(pce.cpu().numpy())
         nmc_list.append(nmc.cpu().numpy())
     return aggregate_bounds(pce_list, nmc_list, err_type)
@@ -232,22 +305,32 @@ def eval_boed(model, task, T: int, L: int, M: int, batch_size: int,
               seed: int, time_token: bool = False, stepwise: bool = False,
               err_type: str = "se", L_chunk: int = 32_768,
               n_query: Optional[int] = None,
+              mesh: Optional[Mesh] = None, seq_mesh: Optional[Mesh] = None,
               logger=None) -> Dict[str, np.ndarray]:
     """The BED evaluation: ceil(M / batch_size) batches, each drawn on
     the model's device, rolled out greedily for T steps
     (``get_traces``), then bounded (``compute_eig_from_history``); mean
     and error over all rows.  Batch s draws from ``derive_seed(seed, 0,
-    s)`` and its contrastive thetas from ``derive_seed(seed, 1, s)``."""
+    s)`` and its contrastive thetas from ``derive_seed(seed, 1, s)``.
+
+    ``mesh`` shards the bounds (``compute_eig_from_history``); each rank
+    rolls the whole batch out and takes the traces of the mesh's first
+    rank.  ``seq_mesh`` shards the rollout's candidate pool over its
+    ``seq`` axis (``get_traces``).  Every rank of the meshes calls with the
+    same arguments and gets the same result."""
     device = next(model.parameters()).device
     pce_list, nmc_list = [], []
     for step in range((M + batch_size - 1) // batch_size):
         gen = torch.Generator(device=device).manual_seed(
             derive_seed(seed, 0, step))
         batch = task.sample_batch(gen, batch_size, n_query=n_query)
-        theta_0, x, y = get_traces(model, task, batch, T, time_token)
+        theta_0, x, y = get_traces(model, task, batch, T, time_token,
+                                   seq_mesh=seq_mesh)
+        if mesh is not None:
+            theta_0, x, y = replicate((theta_0, x, y), mesh)
         pce, nmc = compute_eig_from_history(
             task, theta_0, x, y, L, derive_seed(seed, 1, step),
-            L_chunk=L_chunk, stepwise=stepwise)
+            L_chunk=L_chunk, stepwise=stepwise, mesh=mesh)
         pce_list.append(pce.cpu().numpy())
         nmc_list.append(nmc.cpu().numpy())
         if logger is not None:

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from aline_tpu_torch.ops import _build
+from aline_tpu_torch.utils.debug import check_kernel_outputs
 
 # Kernel launches since the last reset, by kernel; chip runs read them to
 # show that a path went through the kernels.
@@ -315,6 +316,7 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     _launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
             padded_len(N) - N, dh, 1.0 / math.sqrt(dh),
             entry=_entry("flash_attn_fwd", q))
+    check_kernel_outputs(_entry("flash_attn_fwd", q), o, lse)
     return o, lse
 
 
@@ -339,6 +341,7 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
     _launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk, dv,
                                delta), B, H, N, dh, 1.0 / math.sqrt(dh),
             entry=_entry("flash_attn_bwd", q))
+    check_kernel_outputs(_entry("flash_attn_bwd", q), dq, dk, dv)
     return dq, dk, dv
 
 

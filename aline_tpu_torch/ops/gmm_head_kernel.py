@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from aline_tpu_torch.ops import _build
+from aline_tpu_torch.utils.debug import check_kernel_outputs
 
 # Kernel launches since the last reset, by kernel; chip runs read them to
 # show that a path went through the kernels.
@@ -121,6 +122,7 @@ def gmm_head_fwd(z, w1, b1, w2, b2):
         raise RuntimeError(f"gmm_head_fwd kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES["gmm_head_fwd"] += 1
+    check_kernel_outputs("gmm_head_fwd", out)
     return out
 
 
@@ -167,6 +169,7 @@ def gmm_head_bwd(z, w1, b1, w2, g):
             raise RuntimeError(f"gmm_head_bwd kernel launch failed: "
                                f"cudaError {err}")
         LAUNCHES["gmm_head_bwd"] += 1
+        check_kernel_outputs("gmm_head_bwd", dz, grads)
     dw1, db1, dw2, db2 = grads.split(sizes)
     return (dz, dw1.view(C, D, F), db1.view(C, F), dw2.view(C, F, 3),
             db2.view(C, 3))

@@ -1,1 +1,2 @@
-"""Reductions for the contrastive axis of the EIG bounds."""
+"""Process meshes over torch.distributed and the reductions across them
+(data, contrastive and query-pool axes)."""

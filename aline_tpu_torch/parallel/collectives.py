@@ -1,16 +1,19 @@
-"""Streaming logsumexp (``aline_tpu/parallel/collectives.py``, its
-single-device part).
+"""Streaming and sharded logsumexp (``aline_tpu/parallel/collectives.py``).
 
 The sPCE/sNMC bounds need ``logsumexp`` over up to L = 1e7 contrastive
 samples.  L is processed in chunks, folded into a running (max,
-sum of shifted exponentials) pair; two pairs combine associatively.
-Every guard is a tensor operation, so a fold never waits for the host.
+sum of shifted exponentials) pair; two pairs combine associatively, on
+one device or across the ranks of a process group (an all-reduce MAX of
+the maxima, then an all-reduce SUM of the rescaled sums).  Every guard is
+a tensor operation, so neither a fold nor a combine waits for the host.
+A ``group`` of None (one rank) skips the collectives.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class LogSumExpState(NamedTuple):
@@ -59,3 +62,32 @@ def streaming_logsumexp_combine(state_a: LogSumExpState,
     safe = _safe(new_max)
     return LogSumExpState(new_max, _rescale(state_a, safe)
                           + _rescale(state_b, safe))
+
+
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
+               group=None) -> torch.Tensor:
+    """``t`` reduced with ``op`` over ``group`` (a new tensor; ``t`` is
+    left as it was); ``t`` itself when ``group`` is None."""
+    if group is None:
+        return t
+    out = t.clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def all_reduce_lse(state: LogSumExpState, group=None) -> LogSumExpState:
+    """The combine of every rank's accumulator over ``group``: the global
+    max, then the sum of each rank's sum rescaled to it.  A rank that
+    folded nothing (max = -inf) adds 0."""
+    if group is None:
+        return state
+    gmax = all_reduce(state.max, dist.ReduceOp.MAX, group)
+    total = all_reduce(_rescale(state, _safe(gmax)), dist.ReduceOp.SUM, group)
+    return LogSumExpState(gmax, total)
+
+
+def sharded_logsumexp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """logsumexp over the local leading axis AND the ranks of ``group``:
+    each rank folds its block, then ``all_reduce_lse`` combines them."""
+    state = lse_init(x.shape[1:], x.dtype, x.device)
+    return lse_value(all_reduce_lse(lse_update(state, x), group))

@@ -14,7 +14,17 @@ and the same for ``task=ces`` (with ``eval.EIG=true``),
 ``task=psychometric`` (predefined target masks) and ``task=hpo
 task.meta_dataset=rpart`` (batches from the host numpy generator).
 
-Runs on the GPU unless ``device=cpu`` is given.  Writes ``config.json``,
+Runs on the GPU unless ``device=cpu`` is given.  On several cards, one
+rank a card (NCCL; with ``device=cpu``, gloo on the CPU):
+
+    torchrun --nproc_per_node=N -m aline_tpu_torch.train ... mesh_data=N
+
+Rank 0 writes the run directory; the others train their rows of each
+batch.  ``remat_policy=dots`` keeps the weight products through the
+per-step recompute, ``profile_dir=DIR`` writes a ``torch.profiler`` trace
+of epochs 2 .. 2 + ``profile_epochs`` there, and ``debug_nans=true`` runs
+under the NaN guard (``utils/debug.py``), as ``train.py`` runs
+``jax_debug_nans``.  Writes ``config.json``,
 ``logs/``, ``metrics.jsonl``, the checkpoint (``<checkpoint_name>.pt``)
 and the final parameters as ``model/<file_name stem>.npz`` (the flax
 layout), which ``python -m aline_tpu_torch.eval_al RUN_DIR --params
@@ -31,11 +41,14 @@ import os
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from aline_tpu_torch.config import parse_overrides, save_config, to_dict, \
     to_yaml
 from aline_tpu_torch.eval.eig import derive_seed, eval_boed
+from aline_tpu_torch.parallel.mesh import get_rank, init_distributed
 from aline_tpu_torch.train.loop import Trainer
+from aline_tpu_torch.utils.debug import nan_guard
 from aline_tpu_torch.utils.device import split_device
 from aline_tpu_torch.utils.logging import create_logger
 from aline_tpu_torch.utils.serialization import save_params_npz
@@ -85,16 +98,33 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     device, overrides = split_device(argv)
     cfg = parse_overrides(overrides)
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    logger = create_logger(os.path.join(cfg.output_dir, "logs"),
-                           name=cfg.task.name or "aline")
-    logger.info("Running with config:\n%s", to_yaml(cfg))
+    device = init_distributed(device)
+    writer = get_rank() == 0
+    try:
+        with nan_guard(cfg.debug_nans):
+            return _run(cfg, device, writer)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(cfg, device, writer: bool):
+    if writer:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+    logger = create_logger(os.path.join(cfg.output_dir, "logs")
+                           if writer else None, name=cfg.task.name or "aline")
+    if writer:
+        logger.info("Running with config:\n%s", to_yaml(cfg))
     trainer = Trainer(cfg, logger=logger, device=device)
-    logger.info("Device: %s", trainer.device)
-    save_config(cfg, cfg.output_dir)
-    tracker = RunTracker(cfg.output_dir, config=to_dict(cfg))
+    logger.info("Device: %s (rank %d)", trainer.device, trainer.rank)
+    tracker = None
+    if writer:
+        save_config(cfg, cfg.output_dir)
+        tracker = RunTracker(cfg.output_dir, config=to_dict(cfg))
     trainer.train(eval_hook=make_eval_hook(cfg) if cfg.eval.EIG else None,
                   tracker=tracker)
+    if not writer:
+        return trainer
     tracker.finish()
     path = save_params_npz(trainer.model_path(), trainer.model)
     logger.info("Model has been saved at %s", path)

@@ -7,6 +7,13 @@ JAX runs the steps as one ``lax.scan``; here they are a Python loop, and
 with ``use_remat`` each step runs under ``torch.utils.checkpoint``, so the
 backward pass keeps one step's activations at a time.
 
+``remat_policy="dots"`` is JAX's ``dots_with_no_batch_dims_saveable``:
+a selective checkpoint that keeps the outputs of the dense products
+without a batch dimension (``aten.mm``, ``aten.addmm``: the layers'
+weight products) and recomputes everything else, the batched attention
+products included.  The values are those of ``full``; only memory and
+time change.  The kernels' autograd functions are recomputed under it.
+
 Stochastic designs come from Gumbel noise drawn before the rollout and
 passed into each step.  ``torch.utils.checkpoint`` restores the global RNG
 when it recomputes a step, but not an explicit ``torch.Generator``: a
@@ -15,13 +22,39 @@ its ``log_prob`` would silently belong to another point.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from aline_tpu_torch.distributions.gmm import gmm_log_prob
 from aline_tpu_torch.tasks.base import Batch, select_design
+
+
+REMAT_POLICIES = ("full", "dots")
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without a batch dimension, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_kwargs(remat_policy: str) -> dict:
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r}; one of "
+                         f"{REMAT_POLICIES}")
+    if remat_policy == "dots":
+        return dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    return {}
 
 
 class RolloutOutputs(NamedTuple):
@@ -52,13 +85,13 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             False: down, (T - t)/T (the eval direction of ``aline_tpu``,
             ``eval/traces.py``).
         use_remat: recompute each step's activations in the backward pass.
+        remat_policy: what ``use_remat`` keeps (``full``: nothing;
+            ``dots``: the weight products, module docstring).
         sel_targets: static tuple of the attendable target indices (the
             True set of ``batch.target_mask``) for the compact attention;
             None keeps every target column.  Exact either way.
     """
-    if remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported yet (only 'full')")
+    ckpt_kw = _checkpoint_kwargs(remat_policy)
     target_vals = batch.target_all[..., 0]                   # [B, n_target]
     training = gumbel is not None
 
@@ -89,7 +122,7 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             tt = torch.zeros((), device=batch.t.device)
         if use_remat:
             res = checkpoint(step, ctx_mask, ctx_idx, noise, tt,
-                             use_reentrant=False)
+                             use_reentrant=False, **ckpt_kw)
         else:
             res = step(ctx_mask, ctx_idx, noise, tt)
         *ys, ctx_mask, ctx_idx = res

@@ -230,9 +230,45 @@ through their entry points; only 16 lies on a kernel:
              ``eval_eig_from_history``'s on the same traces and seed; no
              kernel.
 
-``--only ces psych hpo train_tasks bench cont dad trend gp`` runs phase 1
-and the named ones of 10-18 alone (no kernels line); with no arguments
-it runs every phase.
+Phases 19-21 run the multi-process paths: their ranks are processes of
+one spawn (DIST_WORLD gloo ranks that share cuda:0: NCCL cannot put two
+ranks on one card), each line naming the backend and device of each
+rank; any rank's failure fails the phase.
+
+19. dp      — ``Trainer`` with ``mesh_data`` at bench.py's recipe
+             (TRAIN_ARGS: B=200, n_query_init=200, T=30): (a) one f32 step
+             through the all-reduces under NCCL at world size 1 within
+             1e-6 of the largest gradient of the step without them; (b) on
+             2 gloo ranks (the third takes no part) one f32 step on 100
+             rows each, its grads within phase 7's tolerance of the
+             one-process step and equal on both ranks, the parameters
+             bitwise equal after 3 epochs, then 2 burning and 2 main bf16
+             epochs with the GMM pair (fused_gmm=on) and the bf16 flash
+             pair: launches per rank (60 GMM forwards, 30 backwards, 60
+             plans, 180 and 90 flash calls a main epoch), warm epoch ms
+             and peak memory per rank; (c) where two cards are visible,
+             (b)'s step and epochs again under NCCL, one card a rank.
+             Then the trainer's settings: one f32 step with
+             ``remat_policy=dots`` against ``full`` (fused_gmm=on, and with
+             flash) within phase 7's tolerance, their peak memory and
+             time (the second of two runs each); a
+             3-epoch run with ``profile_dir`` in a temporary directory (the
+             trace of epoch 2, its size, that it names gmm_head_fwd); one
+             epoch with ``debug_nans=true`` raising nothing.
+20. mesh    — one batch of loc_100k at the full protocol (B=200,
+             n_query=2000, T=34, L=1e6, bf16 traces): the per-step bounds
+             on the 1-D contrastive mesh of 2 ranks and on the (2,1) and
+             (1,2) eval meshes within 1e-5 of the single process's on the
+             same traces and seed; the fold's time per rank.
+21. seq     — loc_100k's greedy traces (B=200, the full 2001-token pool
+             over 3 ranks, T=34, bf16) against the unsharded rollout on
+             the card: a row may leave its choices only where the
+             unsharded bf16 design scores of the two candidates lie within
+             BF16_TIE_ULPS; the rollout's wall time.
+
+``--only ces psych hpo train_tasks bench cont dad trend gp dp mesh seq``
+runs phase 1 and the named ones of 10-21 alone (no kernels line); with no
+arguments it runs every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -396,7 +432,9 @@ def phase_kernels():
     # (eval.batch_size_final's default, 5)
     shapes = [(BATCH, N_QUERY + 1, "pool"), (BATCH, 102, "targets"),
               (200, 102, "train targets"), (3, 37, "ragged"),
-              (200, 2, "continuous train"), (5, 2, "continuous greedy")]
+              (200, 2, "continuous train"), (5, 2, "continuous greedy"),
+              # a data-parallel training step's targets on each of 2 ranks
+              (100, 102, "dp train targets")]
     rows, worst = {}, 0.0
     for seed, (B, T, what) in enumerate(shapes):
         args = gmm_inputs(B, T, seed)
@@ -477,7 +515,8 @@ def phase_kernels_bwd():
     from aline_tpu_torch.ops import gmm_head_kernel as ghk
     names = ("dz", "dw1", "db1", "dw2", "db2")
     shapes = [(200, 102, "train targets"), (200, 201, "train pool"),
-              (3, 37, "ragged"), (200, 2, "continuous train")]
+              (3, 37, "ragged"), (200, 2, "continuous train"),
+              (100, 102, "dp train targets")]
     rows, worst = {}, 0.0
     for seed, (B, T, what) in enumerate(shapes):
         z, w1, b1, w2, b2 = gmm_inputs(B, T, 10 + seed, grid=True)
@@ -588,6 +627,9 @@ FLASH_CASES = {
     "dh64": (4, 8, 2000, 47, 64, True, False, None),
     # step 30 of the eval: 31 context points scattered over the pool
     "eval_late": (BATCH, 4, N_QUERY + 1, 102, 8, False, False, T_STEPS + 1),
+    # phase 19's data-parallel steps: each of 2 ranks holds 100 rows
+    "dp_train": (100, 4, 201, 102, 8, False, False, None),
+    "dp_burning": (100, 4, 31, 102, 8, False, False, None),
 }
 CHECK_ROWS = 8            # batch rows compared at the eval shapes
 WITNESS_ROWS = 25         # phase 4b's compact rollout on the CPU
@@ -1255,7 +1297,8 @@ BF16_ULP = 2.0 ** -7     # bfloat16's spacing relative to a value, at most
 # (as the TPU kernel sums them into bf16 per block of block_q rows): up to
 # 2^-8 of a partial sum per block.
 BF16_FLASH_CASES = {"eval": ("fwd",), "train": ("fwd", "bwd"),
-                    "burning": ("fwd", "bwd")}
+                    "burning": ("fwd", "bwd"), "dp_train": ("fwd", "bwd"),
+                    "dp_burning": ("fwd", "bwd")}
 # Phases 4c and 4d, the card against the port on the CPU in bf16 (one
 # code): the float32 sums inside each bf16 layer run in other orders on the
 # two devices, which now and then moves a bf16 rounding, and the compact
@@ -1700,9 +1743,12 @@ def shift_invariant(model):
     return out
 
 
-def bf16_step_parity(label, cfg, model, m_c, m_g, g_c, g_g):
+def bf16_step_parity(label, cfg, model, m_c, m_g, g_c, g_g,
+                     what="B=4 n_query=16 T=5", sides=("CPU", "card")):
     """The bf16 checks of ``train_step_parity``: losses and per-parameter
-    gradients of the card step against the CPU step."""
+    gradients of the ``sides[1]`` step (``m_g``, ``g_g``) against the
+    ``sides[0]`` step (``m_c``, ``g_c``), one step at ``what``."""
+    ref_side, got_side = sides
     worst = 0.0
     # the design loss is a small difference of normalised rewards: each
     # term is held to BF16_LOSS_RTOL of the loss's scale
@@ -1710,7 +1756,8 @@ def bf16_step_parity(label, cfg, model, m_c, m_g, g_c, g_g):
     for k in ("loss", "design_loss", "predict_loss"):
         a, r = float(m_g[k]), float(m_c[k])
         if abs(a - r) > BF16_LOSS_RTOL * scale:
-            raise AssertionError(f"{label} {k}: CPU {r:.6f}, card {a:.6f}")
+            raise AssertionError(f"{label} {k}: {ref_side} {r:.6f}, "
+                                 f"{got_side} {a:.6f}")
     invariant = shift_invariant(model)
     worst_name = None
     for n, g in g_c.items():
@@ -1718,15 +1765,16 @@ def bf16_step_parity(label, cfg, model, m_c, m_g, g_c, g_g):
         ref, got = g[keep], g_g[n][keep]
         rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
         if rel > BF16_GRAD_RTOL:
-            raise AssertionError(f"{label}: grad of {n} differs between CPU "
-                                 f"and card by {rel:.3e} (relative L2)")
+            raise AssertionError(f"{label}: grad of {n} differs between "
+                                 f"{ref_side} and {got_side} by {rel:.3e} "
+                                 f"(relative L2)")
         if rel > worst:
             worst, worst_name = rel, n
-    log(label, f"one bf16 step, B=4 n_query=16 T=5, attention_impl="
+    log(label, f"one bf16 step, {what}, attention_impl="
         f"{cfg.encoder.attention_impl}, fused_gmm={cfg.head.fused_gmm}: "
-        f"loss CPU {float(m_c['loss']):.6f}, card {float(m_g['loss']):.6f}, "
-        f"same designs; per-parameter gradients within {worst:.3e} "
-        f"(relative L2, {worst_name}; limit {BF16_GRAD_RTOL})")
+        f"loss {ref_side} {float(m_c['loss']):.6f}, {got_side} "
+        f"{float(m_g['loss']):.6f}; per-parameter gradients within "
+        f"{worst:.3e} (relative L2, {worst_name}; limit {BF16_GRAD_RTOL})")
     return worst
 
 
@@ -3290,16 +3338,590 @@ def phase_trend(smi):
     return dict(rows=rows, wall_s=wall, direct_s=direct_s, launches=counts)
 
 
+# -- multi-process phases (19 dp, 20 mesh, 21 seq; the trainer's settings) --
+
+# Phases 19-21 run their ranks as processes of one spawn (``run_ranks``):
+# gloo ranks that share cuda:0, since NCCL cannot put two ranks on one card
+DIST_WORLD = 3
+DIST_TIMEOUT_S = 600
+DP_T = 30                      # the recipe's T: one f32 step held at it
+# 19b: bench.py's recipe in bf16 with every kernel on the path: the GMM
+# pair (fused_gmm=on: the 102 targets take it in bf16 too) and the bf16
+# flash pair
+DP_BF16_STEP = ["dtype=bfloat16", "head.fused_gmm=on",
+                "encoder.attention_impl=flash"]
+DP_BF16_ARGS = DP_BF16_STEP + ["max_epoch=4", "mesh_data=2"]
+SEQ_RANKS = 3                  # 2001 = 3 x 667 pool tokens
+
+
+def _rank_phases(rank, world, phases, inputs):
+    """One rank's part of ``phases``: {phase: record}."""
+    res = {}
+    if "dp" in phases:
+        res["dp"] = _rank_dp(rank, inputs["dp"])
+    if "mesh" in phases:
+        res["mesh"] = _rank_mesh(rank, inputs["mesh"])
+    if "seq" in phases:
+        res["seq"] = _rank_seq(rank, inputs["seq"])
+    return res
+
+
+def run_ranks(phases, inputs, world=DIST_WORLD, backend="gloo"):
+    """Every rank's result of ``phases`` ({rank: {phase: record}}, arrays
+    as tensors): gloo ranks on cuda:0, or NCCL ranks one card each.  Any
+    rank's failure, or silence past DIST_TIMEOUT_S, fails the call."""
+    from aline_tpu_torch.parallel.mesh import map_leaves
+    from aline_tpu_torch.parallel.spawn import run_ranks as spawn_ranks
+    t0 = time.perf_counter()
+    results = spawn_ranks(_rank_phases, world, phases, inputs,
+                          device="cuda:0" if backend == "gloo" else "cuda",
+                          backend=backend, timeout=DIST_TIMEOUT_S)
+    log("ranks", f"{world} {backend} ranks ({', '.join(phases)}): "
+        f"{time.perf_counter() - t0:.1f} s, process start included")
+    return dict(enumerate(map_leaves(torch.as_tensor, results)))
+
+
+def _np_batch(batch):
+    """A batch's tensors as numpy (picklable for the ranks)."""
+    import dataclasses
+    return {f.name: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for f in dataclasses.fields(batch)
+            for v in [getattr(batch, f.name)]}
+
+
+def _from_np(d, device="cuda"):
+    from aline_tpu_torch.tasks.base import Batch
+    return Batch(**{k: (torch.from_numpy(v).to(device)
+                        if isinstance(v, np.ndarray) else v)
+                    for k, v in d.items()})
+
+
+def _dp_model(cfg):
+    """A fresh model from the run's seed, as ``Trainer`` builds it."""
+    from aline_tpu_torch.models.aline import build_model
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(cfg.seed)
+        return build_model(cfg, "cpu")
+
+
+def _dp_step_inputs():
+    """19: one f32 step's inputs at the recipe (B=200, n_query_init=200,
+    T=30; the data mask, Gumbel noise), drawn on the card."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.models.heads import gumbel_noise
+    from aline_tpu_torch.ops.target_mask import target_weight_vectors
+    from aline_tpu_torch.tasks import build_task, init_ctx_idx
+    cfg = parse_overrides(TRAIN_ARGS)
+    task = build_task(cfg.task)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batch = task.sample_batch(gen, cfg.batch_size,
+                              n_query=cfg.task.n_query_init)
+    mask = torch.arange(batch.n_target, device="cuda") < batch.n_target_data
+    batch = init_ctx_idx(batch.replace(target_mask=mask),
+                         task.n_context_init + DP_T)
+    w_q, w_p = target_weight_vectors(mask.cpu().numpy(), "mix", "split",
+                                     task.n_target_data, task.n_target_theta)
+    noise = gumbel_noise((DP_T, batch.batch_size, batch.n_points), gen)
+    return dict(batch=_np_batch(batch), w_q=w_q, w_p=w_p,
+                noise=noise.cpu().numpy(),
+                sel=tuple(range(task.n_target_data)))
+
+
+def _dp_step(inp, group=None, n_ranks=1, rows=slice(None), extra=()):
+    """One main-phase ``train_step`` on the card from the seed's model,
+    in float32 unless ``extra`` says otherwise: (metrics, grads, params)
+    on the CPU."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.train.loop import ROW_FIELDS, train_step
+    from aline_tpu_torch.train.optimizer import build_optimizer
+    cfg = parse_overrides(TRAIN_ARGS + list(extra))
+    model = _dp_model(cfg).to("cuda").train()
+    batch = _from_np(inp["batch"])
+    batch = batch.replace(**{f: getattr(batch, f)[rows] for f in ROW_FIELDS})
+    noise = torch.from_numpy(inp["noise"][:, rows].copy()).cuda()
+    opt, sched = build_optimizer(cfg, model, "main")
+    m = train_step(model, opt, sched, batch, DP_T,
+                   torch.from_numpy(inp["w_q"]).cuda(),
+                   torch.from_numpy(inp["w_p"]).cuda(), cfg.alpha, noise,
+                   gamma=cfg.gamma, sel_targets=inp["sel"],
+                   remat_policy=cfg.remat_policy, group=group,
+                   n_ranks=n_ranks)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _grads_within(label, got, ref, rel, own=0.0):
+    """Max |got - ref| over every gradient, as a share of ref's largest
+    element; raises where an element is off by more than ``rel`` of that
+    largest plus ``own`` of itself (phase 7's rule: both TOL)."""
+    scale = max(g.abs().max().item() for g in ref.values())
+    worst = 0.0
+    for n, g in ref.items():
+        err = (got[n] - g).abs()
+        worst = max(worst, err.max().item() / scale)
+        if not bool((err <= own * g.abs() + rel * scale).all()):
+            raise AssertionError(f"{label}: grad of {n} off by "
+                                 f"{err.max():.3e} (largest grad "
+                                 f"{scale:.3e})")
+    return worst
+
+
+def _rank_dp(rank, inp):
+    """19b on this rank: the 2-rank f32 step and bf16 step (every kernel),
+    3 f32 epochs of the trainer (its parameters), then 2 burning and 2
+    main bf16 epochs with every kernel (ms, launches, peak memory).  Rank
+    2 takes no part."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.parallel.mesh import get_mesh
+    from aline_tpu_torch.train.loop import Trainer
+    import torch.distributed as dist
+    mesh = get_mesh(2)
+    device = f"cuda:{torch.cuda.current_device()}"
+    rec = {"device": device, "backend": dist.get_backend()}
+    if mesh.member:
+        m = inp["batch"]["x"].shape[0] // 2
+        rows = slice(rank * m, (rank + 1) * m)
+        metrics, grads, _ = _dp_step(inp, mesh.group("data"), 2, rows)
+        rec["step"] = dict(metrics=metrics, grads=grads)
+        metrics, grads, _ = _dp_step(inp, mesh.group("data"), 2, rows,
+                                     extra=DP_BF16_STEP)
+        rec["bf16_step"] = dict(metrics=metrics, grads=grads)
+    for tag, extra in (("f32", ["max_epoch=3", "mesh_data=2"]),
+                       ("bf16", DP_BF16_ARGS)):
+        out = Path(inp["out_dir"]) / f"dp_{tag}"
+        cfg = parse_overrides(TRAIN_ARGS + extra + [f"output_dir={out}"])
+        tr = Trainer(cfg, device=device)
+        if not tr.active:
+            rec[tag] = "took no part"
+            continue
+        tr._ensure_phase("burning")
+        epochs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for epoch in range(cfg.max_epoch):
+            reset_launches()
+            t0 = time.perf_counter()
+            mm = {k: float(v) for k, v in tr.train_epoch(epoch).items()}
+            epochs.append(dict(epoch=epoch, phase=tr.phase, ms=1e3 * (
+                time.perf_counter() - t0), launches=launches(), **mm))
+        rec[tag] = dict(epochs=epochs,
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        params={n: p.detach().cpu() for n, p in
+                                tr.model.named_parameters()},
+                        n_data=tr.n_data)
+    return rec
+
+
+def phase_dp(smi):
+    """19: data-parallel training at bench.py's recipe through ``Trainer``
+    with ``mesh_data``: (a) one rank under NCCL; (b) two gloo ranks that
+    share cuda:0; (c) NCCL, one card a rank, where there are two cards.
+    Returns the record and the inputs the ranks need."""
+    import tempfile
+    import torch.distributed as dist
+    inp = _dp_step_inputs()
+    inp["out_dir"] = str(OUT_DIR / "dp_smoke")
+    ref_m, ref_g, _ = _dp_step(inp)
+    ref_bf16 = _dp_step(inp, extra=DP_BF16_STEP)[:2]
+    # (a) world size 1 under NCCL: the collectives on the step's path
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    try:
+        m1, g1, _ = _dp_step(inp, dist.group.WORLD, 1)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst_a = _grads_within("dp (a)", g1, ref_g, 1e-6)
+    log("dp", f"(a) world size 1, backend nccl, rank 0 on cuda:0: one f32 "
+        f"step (B=200, T={DP_T}) through the all-reduces, loss "
+        f"{m1['loss']:.6f} vs {ref_m['loss']:.6f} undistributed, grads "
+        f"within {worst_a:.3e} of the largest (limit 1e-6)")
+    rec = dict(a=dict(loss=m1["loss"], ref_loss=ref_m["loss"],
+                      grads_rel=worst_a))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        # (c): (b) again under NCCL, one card a rank
+        ranks = run_ranks(["dp"], {"dp": inp}, world=2, backend="nccl")
+        rec["c"] = _check_dp_ranks("(c) nccl", ranks, ref_g, ref_bf16)
+    else:
+        rec["c"] = f"not run: {n_cards} CUDA device visible"
+        log("dp", f"(c) NCCL, one card a rank: not run, {n_cards} CUDA "
+            f"device visible (NCCL cannot put two ranks on one card)")
+    return rec, inp, (ref_g, ref_bf16)
+
+
+def _check_dp_ranks(label, ranks, ref_g, ref_bf16):
+    """Ranks 0 and 1: the f32 step's grads against the one-process step
+    (phase 7's rule) and equal on both, the bf16 step's losses and grads
+    against the one-process bf16 step (phase 7c's limits), the parameters
+    bitwise equal after 3 f32 epochs: (the worst f32 gradient gap, the
+    worst bf16 relative L2 gap)."""
+    from aline_tpu_torch.config import parse_overrides
+    r0, r1 = ranks[0]["dp"], ranks[1]["dp"]
+    worst = max(_grads_within(f"dp {label} rank {r}", ranks[r]["dp"]
+                              ["step"]["grads"], ref_g, TOL, TOL)
+                for r in (0, 1))
+    for n, g in r0["step"]["grads"].items():
+        if not torch.equal(g, r1["step"]["grads"][n]):
+            raise AssertionError(f"dp {label}: ranks hold other grads of "
+                                 f"{n}")
+    cfg = parse_overrides(TRAIN_ARGS + DP_BF16_STEP)
+    model = _dp_model(cfg)
+    ref_m, ref_bg = ref_bf16
+    worst_bf16 = max(
+        bf16_step_parity(f"dp {label} rank {r}", cfg, model, ref_m,
+                         step["metrics"], ref_bg, step["grads"],
+                         what=f"B=200 T={DP_T} over 2 ranks",
+                         sides=("one process", f"rank {r}"))
+        for r in (0, 1) for step in [ranks[r]["dp"]["bf16_step"]])
+    for n, p in r0["f32"]["params"].items():
+        if not torch.equal(p, r1["f32"]["params"][n]):
+            raise AssertionError(f"dp {label}: {n} differs between the "
+                                 f"ranks after 3 epochs")
+    log("dp", f"{label}: ranks 0 ({r0['backend']}, {r0['device']}) and 1 "
+        f"({r1['backend']}, {r1['device']}): one f32 step on 100 rows each,"
+        f" all-reduced grads within {worst:.3e} of the largest of the "
+        f"one-process step (limit {TOL} + {TOL} of each element), equal on"
+        f" both ranks; one bf16 step (flash, fused_gmm=on) within "
+        f"{worst_bf16:.3e} relative L2 of the one-process step's grads "
+        f"(limit {BF16_GRAD_RTOL}); parameters bitwise equal on both after "
+        f"3 epochs (2 burning, 1 main; f32)")
+    return worst, worst_bf16
+
+
+def check_dp(smi, rec, ranks, refs):
+    """19b: the ranks' steps against the one-process steps (phase 7's
+    tolerance in f32, 7c's in bf16), their parameters bitwise equal after
+    3 epochs, the bf16
+    epochs' launches (60 GMM forwards, 30 backwards, 60 plans, 180 and 90
+    bf16 flash calls a main epoch, each rank) and times."""
+    from aline_tpu_torch.config import parse_overrides
+    r0, r1 = ranks[0]["dp"], ranks[1]["dp"]
+    worst, worst_bf16 = _check_dp_ranks("(b) gloo", ranks, *refs)
+    if ranks[2]["dp"]["f32"] != "took no part":
+        raise AssertionError("dp: rank 2 trained beyond mesh_data=2")
+    log("dp", f"(b) rank 2 ({ranks[2]['dp']['backend']}, "
+        f"{ranks[2]['dp']['device']}) took no part (mesh_data=2 of 3 ranks)")
+    cfg = parse_overrides(TRAIN_ARGS + DP_BF16_ARGS)
+    out = {}
+    for r, rr in ((0, r0), (1, r1)):
+        b = rr["bf16"]
+        for e in b["epochs"]:
+            fwd = e["T"] * 2
+            want = expected_launches(
+                cfg, gmm_head_fwd=fwd, gmm_head_bwd=e["T"], flash_plan=fwd,
+                flash_attn_fwd=cfg.encoder.num_layers * fwd,
+                flash_attn_bwd=cfg.encoder.num_layers * e["T"])
+            if e["launches"] != want:
+                raise AssertionError(f"dp rank {r} epoch {e['epoch']}: "
+                                     f"launches {e['launches']}, expected "
+                                     f"{want}")
+            if not math.isfinite(e["loss"]):
+                raise AssertionError(f"dp rank {r}: loss {e['loss']}")
+        warm = [e["ms"] for e in b["epochs"] if e["phase"] == "main"][1:]
+        out[r] = dict(warm_ms=statistics.median(warm),
+                      peak_bytes=b["peak_bytes"], epochs=[
+                          {k: v for k, v in e.items()} for e in b["epochs"]])
+        log("dp", f"(b) rank {r}, backend {rr['backend']}, {rr['device']}, "
+            f"bf16 + flash + "
+            f"fused_gmm=on, B=200 over 2 ranks: warm main epoch "
+            f"{out[r]['warm_ms']:.1f} ms, peak memory "
+            f"{b['peak_bytes'] / 2**30:.3f} GiB, launches a main epoch "
+            f"{b['epochs'][-1]['launches']} ({smi})")
+    for n, p in r0["bf16"]["params"].items():
+        if not torch.equal(p, r1["bf16"]["params"][n]):
+            raise AssertionError(f"dp (b): bf16 {n} differs between ranks")
+    totals = {k: sum(e["launches"][k] for rr in (r0, r1)
+                     for e in rr["bf16"]["epochs"]) for k in launches()}
+    rec["b"] = dict(step_grads_rel=worst, bf16_step_grads_rel_l2=worst_bf16,
+                    ranks=out)
+    rec["launches"] = totals
+    return rec
+
+
+def _mesh_inputs():
+    """20: one batch of loc_100k at the full protocol (B=200,
+    n_query=2000, T=34, bf16 traces) and its single-process bounds."""
+    from aline_tpu_torch.eval.eig import compute_eig_from_history
+    from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    task = build_task(cfg.task)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    batch = task.sample_batch(gen, BED["batch_size"], n_query=BED["n_query"])
+    theta0, x, y = get_traces(model, task, batch, BED["T"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pce, nmc = compute_eig_from_history(task, theta0, x, y, BED["L"], 20,
+                                        stepwise=True)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    return dict(theta0=theta0.cpu().numpy(), x=x.cpu().numpy(),
+                y=y.cpu().numpy(), pce=pce.cpu(), nmc=nmc.cpu(),
+                single_s=single_s)
+
+
+MESHES = (("1d", 2), ("2d", (2, 1)), ("2d", (1, 2)))
+
+
+def _rank_mesh(rank, inp):
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.eval.eig import compute_eig_from_history
+    from aline_tpu_torch.parallel.mesh import get_eval_mesh, get_mesh
+    from aline_tpu_torch.tasks import build_task
+    task = build_task(parse_overrides(["task=location_finding"]).task)
+    args = [torch.from_numpy(inp[k]).cuda() for k in ("theta0", "x", "y")]
+    res = {}
+    for kind, shape in MESHES:
+        mesh = (get_mesh(shape, "contrastive") if kind == "1d"
+                else get_eval_mesh(*shape))
+        if not mesh.member:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pce, nmc = compute_eig_from_history(task, *args, BED["L"], 20,
+                                            stepwise=True, mesh=mesh)
+        torch.cuda.synchronize()
+        res[(kind, shape)] = dict(s=time.perf_counter() - t0,
+                                  pce=pce.cpu(), nmc=nmc.cpu())
+    return res
+
+
+def check_mesh(smi, inp, ranks):
+    rec = dict(single_s=inp["single_s"], meshes={})
+    for kind, shape in MESHES:
+        per = {}
+        for r in range(2):
+            got = ranks[r]["mesh"][(kind, shape)]
+            for name in ("pce", "nmc"):
+                err = (got[name] - inp[name]).abs().max().item()
+                if err > 1e-5:
+                    raise AssertionError(f"mesh {kind} {shape} rank {r}: "
+                                         f"{name} off by {err:.3e}")
+                per.setdefault("max_abs", 0.0)
+                per["max_abs"] = max(per["max_abs"], err)
+            per[f"rank{r}_s"] = got["s"]
+        rec["meshes"][f"{kind} {shape}"] = per
+        log("mesh", f"{kind} mesh {shape}, backend gloo, ranks 0, 1 on "
+            f"cuda:0: loc_100k B={BED['batch_size']} Th={BED['T'] + 1} "
+            f"L={BED['L']:.0e} per-step bounds within {per['max_abs']:.3e} "
+            f"of the single process (limit 1e-5); the fold "
+            f"{per['rank0_s']:.3f} s on rank 0, {per['rank1_s']:.3f} s on "
+            f"rank 1, {inp['single_s']:.3f} s alone ({smi})")
+    for r in (2,):
+        if ranks[r]["mesh"]:
+            raise AssertionError("mesh: rank 2 folded outside the meshes")
+    rec["launches"] = {k: 0 for k in launches()}
+    return rec
+
+
+def _seq_inputs():
+    """21: a loc_100k batch with the full 2001-token pool and the
+    unsharded greedy rollout's choices on the card (bf16)."""
+    from aline_tpu_torch.tasks import build_task, init_ctx_idx
+    from aline_tpu_torch.train.rollout import rollout
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    task = build_task(cfg.task)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batch = task.sample_batch(gen, BED["batch_size"], n_query=BED["n_query"])
+    b = init_ctx_idx(batch, task.n_context_init + BED["T"])
+    zero = torch.zeros(b.n_target, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ro = rollout(model, b, BED["T"], zero, zero, None,
+                     time_token=cfg.time_token, time_forward=False,
+                     use_remat=False)
+    torch.cuda.synchronize()
+    return dict(batch=_np_batch(b), idx=ro.idx.cpu(),
+                unsharded_s=time.perf_counter() - t0)
+
+
+def _rank_seq(rank, inp):
+    from aline_tpu_torch.eval.traces import sharded_greedy_rollout
+    from aline_tpu_torch.parallel.mesh import get_mesh
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    mesh = get_mesh(SEQ_RANKS, "seq")
+    batch = _from_np(inp["batch"])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        idx = sharded_greedy_rollout(model, batch, BED["T"], cfg.time_token,
+                                     mesh)[0]
+    torch.cuda.synchronize()
+    return dict(idx=idx.cpu(), s=time.perf_counter() - t0,
+                launches=launches())
+
+
+def check_seq(smi, inp, ranks):
+    """21: every rank's choices equal the unsharded ones, or a row leaves
+    them where the unsharded bf16 design scores of the two candidates lie
+    within BF16_TIE_ULPS (phase 4c's rule)."""
+    from aline_tpu_torch.tasks.base import select_design
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    _, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    ref = inp["idx"]                                     # [T, B]
+    for r in range(1, SEQ_RANKS):
+        if not torch.equal(ranks[r]["seq"]["idx"], ranks[0]["seq"]["idx"]):
+            raise AssertionError(f"seq: rank {r} chose otherwise than 0")
+    got = ranks[0]["seq"]["idx"]
+    differs, first = first_change(got.T, ref.T)
+    gap = torch.zeros(ref.shape[1], dtype=torch.int32)
+    if differs.any():
+        b = _from_np(inp["batch"])
+        with torch.no_grad():
+            for t in range(int(first[differs].max()) + 1):
+                _, s = design_forward(model, b)
+                here = differs & (first == t)
+                g = score_gap_ulps(s.cpu(), ref[t], got[t])
+                gap = torch.where(here, g, gap)
+                b, _, _ = select_design(b, ref[t].cuda())
+    worst = int(gap[differs].max()) if differs.any() else 0
+    if worst > BF16_TIE_ULPS:
+        raise AssertionError(f"seq: a row leaves the unsharded choices at "
+                             f"a score gap of {worst} bf16 ulps")
+    if any(any(ranks[r]["seq"]["launches"].values())
+           for r in range(SEQ_RANKS)):
+        raise AssertionError("seq: a kernel was launched (compact path)")
+    times = [ranks[r]["seq"]["s"] for r in range(SEQ_RANKS)]
+    log("seq", f"loc_100k greedy traces, B={BED['batch_size']}, pool 2001 "
+        f"over {SEQ_RANKS} ranks (backend gloo, all on cuda:0), T="
+        f"{BED['T']}, bf16: {int(differs.sum())} of {ref.shape[1]} rows "
+        f"leave the unsharded choices, at gaps up to {worst} ulps (limit "
+        f"{BF16_TIE_ULPS}); rollout wall {max(times):.2f} s sharded (ranks "
+        f"{', '.join(f'{t:.2f}' for t in times)}), {inp['unsharded_s']:.2f}"
+        f" s unsharded ({smi})")
+    return dict(rows_differing=int(differs.sum()), max_tie_gap_ulps=worst,
+                sharded_s=times, unsharded_s=inp["unsharded_s"],
+                launches={k: 0 for k in launches()})
+
+
+def _settings_step(label, extra):
+    """One f32 step of the recipe with ``full`` and with ``dots`` from the
+    same model and inputs, each run twice (the second timed): (worst
+    gradient gap relative to the largest, {policy: (peak bytes above
+    the start, seconds)}, the dots step's launches)."""
+    inp = _dp_step_inputs()
+    out = {}
+    for policy in ("full", "dots"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            _, g, _ = _dp_step(inp, extra=list(extra)
+                               + [f"remat_policy={policy}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out[policy] = (g, torch.cuda.max_memory_allocated() - base,
+                           seconds, launches())
+    worst = _grads_within(f"{label} dots", out["dots"][0], out["full"][0],
+                          TOL, TOL)
+    return (worst, {p: out[p][1:3] for p in out}, out["dots"][3])
+
+
+def phase_settings(smi):
+    """The trainer's settings on the card: ``remat_policy=dots`` against
+    ``full`` (fused_gmm=on, and flash); a 3-epoch run with
+    ``profile_dir`` in a temporary directory; one epoch with
+    ``debug_nans=true``."""
+    import tempfile
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.train.loop import Trainer
+    rec, paths = {}, {}
+    for label, extra in (("fused_gmm=on", ["head.fused_gmm=on"]),
+                         ("flash", ["head.fused_gmm=on",
+                                    "encoder.attention_impl=flash"])):
+        worst, by, counts = _settings_step(label, extra)
+        rec[label] = dict(grads_rel=worst, full_peak=by["full"][0],
+                          dots_peak=by["dots"][0], full_s=by["full"][1],
+                          dots_s=by["dots"][1])
+        paths[f"dots_{label.split('=')[0]}"] = counts
+        log("settings", f"remat_policy=dots vs full, {label}, one f32 step "
+            f"B=200 n_query_init=200 T={DP_T}: grads within {worst:.3e} of "
+            f"the largest (limit {TOL}); step peak memory above the start "
+            f"{by['dots'][0] / 2**30:.3f} GiB dots, "
+            f"{by['full'][0] / 2**30:.3f} GiB full; the step (model built "
+            f"from the seed included) {by['dots'][1] * 1e3:.1f} ms dots, "
+            f"{by['full'][1] * 1e3:.1f} ms full; dots launches {counts} "
+            f"({smi})")
+    prof = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        cfg = parse_overrides(TRAIN_ARGS + [
+            "max_epoch=3", f"profile_dir={prof}",
+            f"output_dir={OUT_DIR / 'profile_smoke'}"])
+        Trainer(cfg, device="cuda").train()
+        trace = Path(prof) / "trace_rank0.json"
+        text = trace.read_text()
+        rec["profile"] = dict(bytes=trace.stat().st_size,
+                              names_gmm_head_fwd="gmm_head_fwd" in text,
+                              epochs=sorted(set(
+                                  w for w in ("epoch_1", "epoch_2")
+                                  if f'"{w}"' in text)))
+    finally:
+        shutil.rmtree(prof, ignore_errors=True)
+    if not rec["profile"]["names_gmm_head_fwd"] \
+            or rec["profile"]["epochs"] != ["epoch_2"]:
+        raise AssertionError(f"profile_dir: {rec['profile']}")
+    log("settings", f"profile_dir, 3 epochs: trace of epoch 2, "
+        f"{rec['profile']['bytes'] / 2**20:.1f} MiB, names gmm_head_fwd")
+    cfg = parse_overrides(TRAIN_ARGS + [
+        "max_epoch=1", "debug_nans=true",
+        f"output_dir={OUT_DIR / 'nan_smoke'}"])
+    t0 = time.perf_counter()
+    Trainer(cfg, device="cuda").train()
+    rec["debug_nans_s"] = time.perf_counter() - t0
+    log("settings", f"debug_nans=true: one epoch (B=200, T=30) raised "
+        f"nothing, {rec['debug_nans_s']:.1f} s")
+    return rec, paths
+
+
+def dist_phases(smi, only):
+    """Phases 19-21 (those in ``only``) and, with dp, the settings:
+    {name: record}."""
+    rec, inputs, refs = {}, {}, {}
+    if "dp" in only:
+        rec["dp"], inputs["dp"], refs["dp"] = phase_dp(smi)
+    if "mesh" in only:
+        inputs["mesh"] = _mesh_inputs()
+    if "seq" in only:
+        inputs["seq"] = _seq_inputs()
+    phases = [p for p in ("dp", "mesh", "seq") if p in only]
+    ranks = run_ranks(phases, {k: {kk: vv for kk, vv in v.items()
+                                   if kk not in ("pce", "nmc", "idx")}
+                               for k, v in inputs.items()})
+    if "dp" in only:
+        rec["dp"] = check_dp(smi, rec["dp"], ranks, refs["dp"])
+        rec["settings"], rec["settings_paths"] = phase_settings(smi)
+    if "mesh" in only:
+        rec["mesh"] = check_mesh(smi, inputs["mesh"], ranks)
+    if "seq" in only:
+        rec["seq"] = check_seq(smi, inputs["seq"], ranks)
+    return rec
+
+
 NEW_PHASES = ("ces", "psych", "hpo", "train_tasks", "gp", "bench", "cont",
               "dad", "trend")
+DIST_PHASES = ("dp", "mesh", "seq")
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Smoke run of the port on one NVIDIA GPU; with no "
                     "arguments, every phase")
-    ap.add_argument("--only", nargs="+", choices=NEW_PHASES,
-                    help="run only these of phases 10-18 (after phase 1) "
+    ap.add_argument("--only", nargs="+", choices=NEW_PHASES + DIST_PHASES,
+                    help="run only these of phases 10-21 (after phase 1) "
                          "and print no kernels line")
     ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
                     help="phase 10's rows (2000: the JAX run's protocol)")
@@ -3341,6 +3963,8 @@ def main(argv=None):
     if args.only:
         t0 = time.perf_counter()
         rec = new_phases(smi, args.only, args.ces_M, GP["batch_size"])
+        if set(args.only) & set(DIST_PHASES):
+            rec.update(dist_phases(smi, args.only))
         rec["wall_s"] = time.perf_counter() - t0
         (OUT_DIR / f"chip_smoke_{'_'.join(args.only)}.json").write_text(
             json.dumps(dict(nvidia_smi=smi, torch=torch.__version__,
@@ -3372,6 +3996,7 @@ def main(argv=None):
     bed_witness = phase_bed_witness()
     loc_train_rec = phase_train_loc(smi)
     task_recs = new_phases(smi, NEW_PHASES, args.ces_M, GP_SMOKE_B)
+    dist_recs = dist_phases(smi, DIST_PHASES)
 
     paths = {"eval": slice_rec, "train": train_rec,
              "flash_eval": flash_slice_rec, "flash_train": flash_train_rec,
@@ -3382,7 +4007,11 @@ def main(argv=None):
              "bench": task_recs["bench"],
              "train_continuous": task_recs["cont"]["reinforce"],
              "train_continuous_pathwise": task_recs["cont"]["pathwise"],
-             "dad": task_recs["dad"], "trend": task_recs["trend"]}
+             "dad": task_recs["dad"], "trend": task_recs["trend"],
+             "dp": dist_recs["dp"], "mesh": dist_recs["mesh"],
+             "seq": dist_recs["seq"],
+             **{k: {"launches": v}
+                for k, v in dist_recs["settings_paths"].items()}}
 
     def record(name, replaces, row, err, source=None, dtype="float32",
                **extra):
@@ -3432,7 +4061,7 @@ def main(argv=None):
         flash_train_parity_max_abs=flash_parity_err,
         train_parity_bf16=bf16_parity, bed=bed_rec,
         bed_witness=bed_witness, train_loc=loc_train_rec, **task_recs,
-        kernels=kernels, device=device),
+        **dist_recs, kernels=kernels, device=device),
         indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
