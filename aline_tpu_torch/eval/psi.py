@@ -10,9 +10,11 @@ marginalised: I = H_b(p(y)) - E_{theta_S}[H_b(p(y | theta_S))].  The
 candidates are the batch's own pre-simulated pool, consumed points
 masked, so the designs compare with ALINE's on the same randomness.
 
-The subjects are one batch dimension ([B, G, N] likelihoods: 4.3 GB in
-float32 at B=100 on the 35,343-cell grid and a 301-point pool), the
-trials a Python loop that never waits for the host.  The metrics are
+The subjects go through in chunks of ``b_chunk`` (4 by default, as in
+the JAX package), so that only a [b_chunk, G, N] likelihood block is
+alive (170 MB in float32 at b_chunk=4 on the 35,343-cell grid and a
+301-point pool); within a chunk the subjects are one batch dimension and
+the trials a Python loop that never waits for the host.  The metrics are
 those of ``eval/al_curves.py``: the mask-weighted log density of the
 true parameters under the grid marginals (piecewise constant) and the
 mask-weighted RMSE of the posterior mean.
@@ -146,21 +148,26 @@ def info_gain(post: torch.Tensor, P: torch.Tensor,
 @torch.no_grad()
 def psi_rollout_curves(task, batch: Batch, T: int,
                        gen: Optional[torch.Generator], mask,
-                       strategy: str = "psi", grid=None
+                       strategy: str = "psi", grid=None, b_chunk: int = 4
                        ) -> Dict[str, torch.Tensor]:
     """Grid-Bayes rollout of every subject of ``batch`` on its own
-    pre-simulated pool.
+    pre-simulated pool, ``b_chunk`` subjects at a time.
 
     mask: [4] bool target mask; PSI maximises the information about
     exactly these parameters, and the metrics weight them as the ALINE
     eval does.  strategy: ``"psi"`` or ``"random"`` (uniform among the
-    unconsumed points, from ``gen``).
+    unconsumed points).  The random strategy draws its [T, B, N]
+    uniforms from ``gen`` once, before the chunks, and each chunk reads
+    its own subjects' rows, so its curves do not depend on ``b_chunk``
+    (the JAX package splits one key per subject instead).
 
     Returns ``log_prob`` and ``rmse`` [B, T+1] (step 0: the initial
     context alone) and ``idx`` [B, T], on the batch's device.
     """
     if strategy not in ("psi", "random"):
         raise ValueError(f"unknown strategy {strategy!r}")
+    if b_chunk < 1:
+        raise ValueError(f"b_chunk must be >= 1, got {b_chunk}")
     dev = batch.x.device
     if grid is None:
         grid = make_theta_grid(task, device=dev)
@@ -175,9 +182,24 @@ def psi_rollout_curves(task, batch: Batch, T: int,
     mask_w = sel.float() * (1.0 / max(len(subset), 1))
     theta_true = batch.target_all[..., 0]                       # [B, 4]
     B = batch.batch_size
+    u = (torch.rand((T,) + tuple(batch.ctx_mask.shape), generator=gen,
+                    device=dev) if strategy == "random" else None)
+    outs = [_rollout_chunk(task, grid, subset, mask_w, strategy, T,
+                           batch.x[s:s + b_chunk], batch.y[s:s + b_chunk],
+                           batch.ctx_mask[s:s + b_chunk],
+                           theta_true[s:s + b_chunk],
+                           None if u is None else u[:, s:s + b_chunk])
+            for s in range(0, B, b_chunk)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
+
+def _rollout_chunk(task, grid, subset, mask_w, strategy, T, x, y, ctx,
+                   theta_true, u) -> Dict[str, torch.Tensor]:
+    """The T trials of a chunk of subjects (``psi_rollout_curves``); ``u``
+    [T, b, N] are the random strategy's uniforms."""
+    b = x.shape[0]
     P = task.psychometric_function(
-        batch.x[:, None], grid["theta"][None, :, None, :])[..., 0]
+        x[:, None], grid["theta"][None, :, None, :])[..., 0]    # [b, G, N]
     G = P.shape[1]
     HbP = P_sub = None
     if strategy == "psi":
@@ -185,8 +207,8 @@ def psi_rollout_curves(task, batch: Batch, T: int,
             HbP = _binary_entropy(P)
         else:
             P_sub = subset_view(P, grid, subset)
-    y_bin = batch.y[..., 0]                                     # [B, N]
-    consumed = batch.ctx_mask.clone()
+    y_bin = y[..., 0]                                           # [b, N]
+    consumed = ctx.clone()
     ctxf = consumed.float()
     # condition on the initially revealed context points
     log_post = (torch.einsum("bgn,bn->bg", torch.log(P + _EPS),
@@ -195,17 +217,16 @@ def psi_rollout_curves(task, batch: Batch, T: int,
                                (1.0 - y_bin) * ctxf))
 
     lls, rmses, idxs = [], [], []
-    for _ in range(T):
+    for t in range(T):
         ll_now, rmse_now = _metrics(log_post, grid, theta_true, mask_w)
         if strategy == "psi":
             gain = info_gain(torch.softmax(log_post, dim=-1), P, HbP, grid,
                              subset, P_sub=P_sub)
             idx = torch.argmax(gain.masked_fill(consumed, NEG_INF), dim=-1)
         else:
-            u = torch.rand(consumed.shape, generator=gen, device=dev)
-            idx = torch.argmax(u.masked_fill(consumed, -1.0), dim=-1)
-        p_col = P.gather(2, idx[:, None, None].expand(B, G, 1))[..., 0]
-        y_sel = y_bin.gather(1, idx[:, None])                   # [B, 1]
+            idx = torch.argmax(u[t].masked_fill(consumed, -1.0), dim=-1)
+        p_col = P.gather(2, idx[:, None, None].expand(b, G, 1))[..., 0]
+        y_sel = y_bin.gather(1, idx[:, None])                   # [b, 1]
         log_post = log_post + torch.where(
             y_sel > 0.5, torch.log(p_col + _EPS), torch.log1p(-p_col + _EPS))
         consumed = consumed.scatter(1, idx[:, None], True)
@@ -216,4 +237,4 @@ def psi_rollout_curves(task, batch: Batch, T: int,
     return {"log_prob": torch.stack(lls + [ll_f], dim=1),
             "rmse": torch.stack(rmses + [rmse_f], dim=1),
             "idx": (torch.stack(idxs, dim=1) if idxs else
-                    torch.zeros(B, 0, dtype=torch.int64, device=dev))}
+                    torch.zeros(b, 0, dtype=torch.int64, device=x.device))}

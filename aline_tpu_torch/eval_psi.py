@@ -13,7 +13,10 @@ the run's config, not its weights.
 Usage:
     python -m aline_tpu_torch.eval_psi [RUN_DIR] [--device cuda]
         [--T 30] [--batch-size 100] [--n-query 300] [--seeds 0,1,2]
-        [--grid 33,17,9,7] [--policy-npz NPZ] [--out NPZ]
+        [--grid 33,17,9,7] [--b-chunk 4] [--policy-npz NPZ] [--out NPZ]
+
+``--b-chunk``: subjects rolled out at a time (peak memory grows with
+it, not with ``--batch-size``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ def parse_args(argv=None):
     ap.add_argument("--grid", default="33,17,9,7",
                     help="grid points per theta axis "
                          "(alpha,beta,gamma,lambda)")
+    ap.add_argument("--b-chunk", type=int, default=4,
+                    help="subjects per chunk of the grid Bayes")
     ap.add_argument("--policy-npz", default=None,
                     help="eval_psychometric artifact to pair against")
     ap.add_argument("--out", default=None,
@@ -92,7 +97,8 @@ def main(argv=None):
                 gen = torch.Generator(device=device).manual_seed(
                     derive_seed(seed, 1))
                 out = psi_rollout_curves(task, batch, args.T, gen, mask=mask,
-                                         strategy=strat, grid=grid)
+                                         strategy=strat, grid=grid,
+                                         b_chunk=args.b_chunk)
                 lp = out["log_prob"].cpu().numpy()
                 rm = out["rmse"].cpu().numpy()
                 results[f"{pre}{mask_name}_{strat}_log_prob"] = lp

@@ -12,6 +12,13 @@ reused.  Libraries go to
 ``aline_tpu_torch/build/`` (git-ignored); ``nvcc``'s output, including
 the registers and shared memory that ``-Xptxas -v`` reports, is kept
 beside each library as ``<name>-<hash>.log``.
+
+Host code goes the same way (``build_host``): a CPython extension in
+``csrc/<name>.cpp`` is compiled by the host's ``g++`` against the running
+Python's headers (``sysconfig``)::
+
+    g++ -O3 -shared -fPIC -std=c++17 -I<python include> \
+        -o build/<name>-<hash><EXT_SUFFIX> csrc/<name>.cpp
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -29,6 +37,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 # kernel library name → its C entry point's argtypes and restype
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -116,3 +125,36 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``build_host`` puts the extension of ``csrc/<name>.cpp``."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cpp").read_bytes()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / (f"{name}-{digest[:12]}"
+                        f"{sysconfig.get_config_var('EXT_SUFFIX')}")
+
+
+def build_host(name: str) -> Path:
+    """Compile the CPython extension ``csrc/<name>.cpp`` with the host's
+    ``g++`` unless it is built; raise with the compiler's output on
+    failure."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp is built with the "
+                           f"host's C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [cxx, *HOST_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+           str(CSRC_DIR / f"{name}.cpp"), "-o", str(tmp)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    path.with_name(f"{path.name}.log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stdout}")
+    os.replace(tmp, path)
+    return path

@@ -6,8 +6,8 @@ random context/query/target splits of the real data.  This is the one
 task whose batches are drawn on the host: the split indices come from a
 numpy ``Generator``, as in ``aline_tpu``, so a seed gives the JAX
 package's batches bit for bit; the gathered batch then goes to the
-device once.  The files are read with ``json`` (each surrogate file in
-``data/HPOB`` is under 1 MB).
+device once.  The files are read by ``tasks/hpob_native.py`` (a C++
+extension built at first use; its arrays are the ``json`` path's).
 """
 from __future__ import annotations
 
@@ -20,20 +20,12 @@ import numpy as np
 import torch
 
 from aline_tpu_torch.tasks.base import Batch, Task
+from aline_tpu_torch.tasks.hpob_native import load_hpob_arrays
 
 DATASET_IDS = {"ranger": "7609", "glmnet": "5860", "svm": "5891",
                "rpart": "5859", "xgboost": "5971"}
 # data/ at the root of the checkout
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
-
-
-def load_hpob_arrays(path: str) -> Dict[str, tuple]:
-    """{dataset_id: (X [n, d] float32, y [n, 1] float32)} of one file."""
-    with open(path) as f:
-        data = json.load(f)
-    return {did: (np.asarray(v["X"], np.float32),
-                  np.asarray(v["y"], np.float32).reshape(-1, 1))
-            for did, v in data.items()}
 
 
 class HPOBHandler:
@@ -123,7 +115,8 @@ class HPOBHandler:
 
 
 class HPOB:
-    """One meta-dataset (``aline_tpu/tasks/hpo.py`` HPOB)."""
+    """One meta-dataset (``aline_tpu/tasks/hpo.py`` HPOB), read by the
+    native loader."""
 
     def __init__(self, meta_dataset: str = "glmnet",
                  data_path: Optional[str] = None):

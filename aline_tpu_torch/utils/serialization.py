@@ -30,10 +30,10 @@ ASSETS = Path(__file__).resolve().parents[1] / "assets"
 # flax parameters, written by scripts/export_params_npz.py).
 BANKED_RUNS = {name: (ASSETS / f"{name}_config.json",
                       ASSETS / f"{name}_params.npz")
-               for name in ("al1d_200k", "loc_100k", "ces_200k",
-                            "psych_100k", "hpo_glmnet_15k", "hpo_ranger_15k",
-                            "hpo_rpart_15k", "hpo_rpart_45k", "hpo_svm_15k",
-                            "hpo_xgboost_15k")}
+               for name in ("al1d_200k", "al1d_5k_demo", "loc_100k",
+                            "ces_200k", "psych_100k", "hpo_glmnet_15k",
+                            "hpo_ranger_15k", "hpo_rpart_15k", "hpo_rpart_45k",
+                            "hpo_svm_15k", "hpo_xgboost_15k")}
 # The flagship GP-AL-1D run's parameters (checkpoints/al1d_200k).
 AL1D_200K_PARAMS = BANKED_RUNS["al1d_200k"][1]
 # The location-finding BED run's config copy and parameters.

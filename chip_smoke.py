@@ -183,8 +183,10 @@ these paths, and each phase checks that none was launched:
              2, three masks): each final mean LL and RMSE over the 300
              rows within SIGMAS combined standard errors of the JAX
              package's (benchmarks/artifacts/psych_r4_100k_curves.npz,
-             psych_psi_curves.npz; read with numpy); two-step PSI and
-             random rollouts under set_sync_debug_mode("error").
+             psych_psi_curves.npz; read with numpy); eval_psi's peak
+             memory at its default ``--b-chunk 4`` under PSI_PEAK_LIMIT;
+             two-step PSI and random rollouts under
+             set_sync_debug_mode("error").
 12. hpo     — ``eval_hpo`` (``main``) on the six checkpoints/hpo_* runs
              (the fixed test set, T=30, n_query=100, n_target=100): the
              policy's final mean LL and RMSE within SIGMAS combined
@@ -266,9 +268,28 @@ rank; any rank's failure fails the phase.
              unsharded bf16 design scores of the two candidates lie within
              BF16_TIE_ULPS; the rollout's wall time.
 
-``--only ces psych hpo train_tasks bench cont dad trend gp dp mesh seq``
-runs phase 1 and the named ones of 10-21 alone (no kernels line); with no
-arguments it runs every phase.
+Phases 22-24 run the demo run and its recipe, and the host
+loader of HPO-B; no kernel lies on their paths:
+
+22. demo    — ``eval_al``'s ``main`` on checkpoints/al1d_5k_demo (its
+             weights through ``BANKED_RUNS``, bf16) at the seed study's
+             protocol (data mask, B=200, T=30, n_query=500, seed 0):
+             aline's final LL within SIGMAS combined standard errors of
+             the study's seed-8 row (al1d_r3_final_eval_seed_variance.npz);
+             the card held to the CPU over DEMO_WITNESS_ROWS rows as in 4c.
+23. demo_train — ``train``'s ``main`` on the demo recipe
+             (``seed_study.DEMO_RECIPE``) cut to DEMO_SHORT: straight to 60
+             epochs, and stopped at 40 and resumed to 60; the resumed
+             parameters' distance from the straight run's, finite losses
+             on both sides of the burning switch, epoch ms of both phases,
+             peak memory, ``scripts/plateau_report.py`` on the run.
+24. hpob    — ``csrc/hpob_loader.cpp`` built by g++ here; on the six
+             meta-train files the native arrays bit for bit the json
+             path's; both timed.
+
+``--only ces psych hpo train_tasks bench cont dad trend gp demo demo_train
+hpob dp mesh seq`` runs phase 1 and the named ones of 10-24 alone (no
+kernels line); with no arguments it runs every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -281,6 +302,7 @@ import math
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -2194,6 +2216,9 @@ PSYCH = dict(batch_size=100, n_query=300, T=30, seeds=(0, 1, 2))
 PSYCH_MASKS = ("threshold_slope", "guess_lapse", "all")
 JAX_PSYCH = ARTIFACTS / "psych_r4_100k_curves.npz"
 JAX_PSI = ARTIFACTS / "psych_psi_curves.npz"
+# eval_psi folds its subjects 4 at a time (--b-chunk's default): its peak
+# memory stays under this at any B (one [4, G, N] block is 170 MB)
+PSI_PEAK_LIMIT = 4 * 2**30
 # the six HPO-B runs and the JAX package's test curves of each on a TPU
 # (checkpoints/MANIFEST.md names the run each came from)
 HPO_RUNS = {"hpo_glmnet_15k": "hpo_r3_glmnet_test_curves.npz",
@@ -2578,6 +2603,10 @@ def phase_psych(smi):
         peak = torch.cuda.max_memory_allocated()
         if any(counts.values()):
             raise AssertionError(f"{name}: kernel launches {counts}")
+        if name == "psi" and peak > PSI_PEAK_LIMIT:
+            raise AssertionError(f"psi: peak memory {peak / 2**30:.3f} GiB "
+                                 f"at --b-chunk 4, limit "
+                                 f"{PSI_PEAK_LIMIT / 2**30:.0f} GiB")
         r = dict(wall_s=wall, peak_bytes=peak)
         with np.load(ref_path) as ref:
             for mask in PSYCH_MASKS:
@@ -3338,6 +3367,237 @@ def phase_trend(smi):
     return dict(rows=rows, wall_s=wall, direct_s=direct_s, launches=counts)
 
 
+# -- phases 22-24: the demo run (checkpoints/al1d_5k_demo) and its recipe,
+# the native HPO-B loader --
+
+DEMO_RUN_DIR = ROOT / "checkpoints" / "al1d_5k_demo"
+# the seed study's eval protocol (scripts/seed_variance_report.py)
+DEMO_EVAL = dict(batch_size=200, T=30, n_query=500, seed=0)
+DEMO_WITNESS_ROWS = 4
+JAX_DEMO = ARTIFACTS / "al1d_r3_final_eval_seed_variance.npz"
+# the recipe cut short: burning to 30, checkpoint at 40, resumed to 60
+DEMO_BURNING, DEMO_STOP = 30, 40
+DEMO_SHORT = ["max_epoch=60", f"burning_epoch={DEMO_BURNING}",
+              f"checkpoint={DEMO_STOP}", "verbose=10"]
+HPOB_METAS = ("glmnet", "ranger", "ranger_shift", "rpart", "svm", "xgboost")
+
+
+def phase_demo_eval(smi):
+    """22: ``eval_al``'s ``main`` on checkpoints/al1d_5k_demo, its weights
+    found through ``BANKED_RUNS``, at the seed study's protocol (data mask,
+    B=200, T=30, n_query=500, seed 0), in its bf16: aline's final LL
+    within SIGMAS combined standard errors of the study's seed-8 row (the
+    JAX run of the same checkpoint on a TPU, other batches); no kernel
+    launched (501 tokens: ``fused_gmm=auto`` takes the einsums); the card
+    held to the CPU over DEMO_WITNESS_ROWS rows as 4c."""
+    from aline_tpu_torch import eval_al
+    from aline_tpu_torch.eval.al_curves import al_rollout_curves
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import (
+        BANKED_RUNS, load_model, weights_path)
+
+    run_dir = run_copy("demo_run", src=DEMO_RUN_DIR)
+    npz = BANKED_RUNS["al1d_5k_demo"][1]
+    if weights_path(run_dir, "aline") != str(npz):
+        raise AssertionError("the demo's copy does not find its banked npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    curves = eval_al.main([
+        run_dir, "--device", "cuda", "--mask", "data", "--batch-size",
+        str(DEMO_EVAL["batch_size"]), "--T", str(DEMO_EVAL["T"]),
+        "--n-query", str(DEMO_EVAL["n_query"]), "--seed",
+        str(DEMO_EVAL["seed"])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"demo eval: kernel launches {counts}")
+    rec = dict(wall_s=wall, peak_bytes=peak, launches=counts)
+    with np.load(JAX_DEMO) as ref:
+        rec["aline_final_ll"] = within_sigmas(
+            "demo eval", "aline final LL (data mask)",
+            curves["aline_log_prob"][:, -1],
+            ref["seed8_aline_log_prob"][:, -1])
+    finals = {k: float(curves[f"{k}"][:, -1].mean()) for k in
+              ("aline_log_prob", "aline_rmse", "random_log_prob",
+               "random_rmse", "uncertainty_log_prob", "uncertainty_rmse")}
+    rec["finals"] = finals
+    log("demo eval", f"B={DEMO_EVAL['batch_size']} n_query="
+        f"{DEMO_EVAL['n_query']} T={DEMO_EVAL['T']} data mask: final "
+        + ", ".join(f"{k} {v:.4f}" for k, v in finals.items())
+        + f"; {wall:.3f} s wall, peak {peak / 2**30:.3f} GiB, no kernel "
+        f"launched ({smi})")
+
+    cfg, model = load_model(run_dir, npz, "cuda")
+    _, model_cpu = load_model(run_dir, npz, "cpu")
+    gen = torch.Generator(device="cuda").manual_seed(DEMO_EVAL["seed"])
+    batch = build_task(cfg.task).sample_batch(
+        gen, DEMO_EVAL["batch_size"], n_query=DEMO_EVAL["n_query"])
+    sel = torch.arange(batch.n_target, device="cuda") < batch.n_target_data
+    batch = batch.replace(target_mask=sel)
+    card = al_rollout_curves(model, batch, DEMO_EVAL["T"], strategy="aline")
+    # the batch drawn again: read how far this rollout is from eval_al's
+    rec["redrawn_max_abs_log_prob"] = float(np.abs(
+        card["log_prob"].cpu().numpy() - curves["aline_log_prob"]).max())
+    rows = DEMO_WITNESS_ROWS
+    witness = al_rollout_curves(model_cpu, batch_rows(batch, rows, "cpu"),
+                                DEMO_EVAL["T"], strategy="aline")
+    rec["against_cpu"] = hold_trajectory(
+        "demo eval", batch, witness["idx"], model_cpu,
+        {"card": (model, card["idx"][:rows])}, rows, BF16_CARD_ULPS,
+        T=DEMO_EVAL["T"])
+    gap = (witness["log_prob"] - card["log_prob"][:rows].cpu()).abs()
+    rec["witness_max_abs_log_prob"] = gap.max().item()
+    log("demo eval", f"card vs CPU over {rows} rows: max |log-prob "
+        f"difference| {rec['witness_max_abs_log_prob']:.3e}; the batch "
+        f"drawn again, aline's curves within "
+        f"{rec['redrawn_max_abs_log_prob']:.3e} of eval_al's")
+    return rec
+
+
+class _Stopped(Exception):
+    """A training run stopped on purpose (``_stopping``)."""
+
+
+def _stopping(epoch):
+    """A ``Trainer.train_epoch`` that raises at ``epoch``: a run that stops
+    there, after the checkpoint written at its start."""
+    from aline_tpu_torch.train.loop import Trainer
+    real = Trainer.train_epoch
+
+    def stopping(self, e):
+        if e == epoch:
+            raise _Stopped(epoch)
+        return real(self, e)
+    return stopping
+
+
+def phase_demo_train(smi):
+    """23: ``train``'s ``main`` on the demo recipe (``seed_study``
+    DEMO_RECIPE: seed 8, B=200, T=30, bf16), cut to DEMO_SHORT: straight
+    to 60 epochs, and stopped at DEMO_STOP then resumed to 60 from its
+    checkpoint; the resumed run's parameters against the straight run's
+    (read; the CPU test holds resume bit for bit), finite losses on both
+    sides of the burning switch, epoch ms of both phases from
+    metrics.jsonl, the straight run's peak memory and launches, and
+    ``scripts/plateau_report.py`` reading the run."""
+    from aline_tpu_torch.seed_study import (
+        DEMO_RECIPE, epoch_seconds, likelihood_by_step, metric_records)
+    from aline_tpu_torch.train.__main__ import main as train_main
+
+    def argv(name):
+        out = OUT_DIR / name
+        shutil.rmtree(out, ignore_errors=True)
+        return list(DEMO_RECIPE) + DEMO_SHORT + [
+            f"output_dir={out}", "load_checkpoint=true"], out
+
+    args, straight_dir = argv("demo_train_straight")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    straight = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"demo train: kernel launches {counts}")
+    args_r, resumed_dir = argv("demo_train_resumed")
+    from aline_tpu_torch.train.loop import Trainer
+    undo = patched([(Trainer, "train_epoch", _stopping(DEMO_STOP))])
+    try:
+        train_main(args_r)
+    except _Stopped:
+        pass
+    else:
+        raise AssertionError(f"demo train: no stop at {DEMO_STOP}")
+    finally:
+        patched(undo)
+    resumed = train_main(args_r)
+    if resumed.start_epoch != DEMO_STOP:
+        raise AssertionError(f"demo train: resumed at {resumed.start_epoch}")
+    diffs = {n: (p - q).abs().max().item() for (n, p), q in zip(
+        straight.model.named_parameters(), resumed.model.parameters())}
+    worst = max(diffs, key=diffs.get)
+    recs = metric_records(str(straight_dir / "metrics.jsonl"))
+    burning = DEMO_BURNING
+    losses = {r["step"]: r["loss"] for r in recs}
+    sides = ([s for s in losses if s < burning],
+             [s for s in losses if s >= burning])
+    if not all(sides) or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"demo train: losses {losses}")
+    ll = likelihood_by_step(recs)
+    per = epoch_seconds(recs, burning)
+    ms = {p: 1e3 * statistics.median(v) for p, v in per.items()}
+    report = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "plateau_report.py"),
+         str(straight_dir)], capture_output=True, text=True, timeout=120)
+    row = [ln for ln in report.stdout.splitlines()
+           if str(straight_dir) in ln]
+    if report.returncode != 0 or len(row) != 1 or \
+            row[0].split()[1] != str(max(ll)):
+        raise AssertionError(f"demo train: plateau_report read "
+                             f"{report.stdout!r} {report.stderr!r}")
+    rec = dict(wall_s=wall, peak_bytes=peak, launches=counts,
+               epoch_ms=ms, likelihood=ll, resume_max_abs=diffs[worst],
+               resume_worst=worst, resume_bitwise=not any(diffs.values()),
+               plateau_report=row[0])
+    log("demo train", f"{' '.join(DEMO_SHORT)}: {wall:.3f} s straight, "
+        f"epoch {ms['burning']:.1f} ms burning, {ms['main']:.1f} ms main "
+        f"(medians of {len(per['burning'])} and {len(per['main'])} "
+        f"intervals), peak {peak / 2**30:.3f} GiB, no "
+        f"kernel launched; losses finite on both sides of the switch; "
+        f"stopped at {DEMO_STOP} and resumed: parameters within "
+        f"{diffs[worst]:.3e} of the straight run (worst {worst}; bitwise "
+        f"{rec['resume_bitwise']}); plateau_report: {row[0].split()[1:4]} "
+        f"({smi})")
+    return rec
+
+
+def phase_hpob(smi):
+    """24: ``csrc/hpob_loader.cpp`` built by the host's g++ on this
+    machine; on the six meta-train files HPOB opens, the native arrays
+    bit for bit the ``json`` path's (dtypes, shapes, dataset order); both
+    paths timed (median of 3 reads)."""
+    from aline_tpu_torch.ops import _build
+    from aline_tpu_torch.tasks import hpob_native
+
+    t0 = time.perf_counter()
+    path = _build.build_host(hpob_native.EXTENSION)
+    build_s = time.perf_counter() - t0
+    rec = dict(build_s=build_s, library=path.name, files={})
+    for meta in HPOB_METAS:
+        src = str(ROOT / "data" / "HPOB" / f"{meta}.json")
+        times = {}
+        for native in (True, False):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                arrays = hpob_native.load_hpob_arrays(src, native=native)
+                runs.append(time.perf_counter() - t0)
+            times[native] = (statistics.median(runs), arrays)
+        got, want = times[True][1], times[False][1]
+        equal = list(got) == list(want) and all(
+            g.dtype == w.dtype and g.shape == w.shape
+            and np.array_equal(g, w)
+            for did in want for g, w in zip(got[did], want[did]))
+        if not equal:
+            raise AssertionError(f"hpob {meta}: native arrays differ from "
+                                 f"the json path's")
+        rec["files"][meta] = dict(datasets=len(got),
+                                  native_ms=1e3 * times[True][0],
+                                  json_ms=1e3 * times[False][0])
+    log("hpob", f"built {path.name} in {build_s:.2f} s; native == json "
+        f"bit for bit on {len(HPOB_METAS)} files; ms native/json: "
+        + ", ".join(f"{m} {r['native_ms']:.2f}/{r['json_ms']:.2f}"
+                    for m, r in rec["files"].items()) + f" ({smi})")
+    return rec
+
+
 # -- multi-process phases (19 dp, 20 mesh, 21 seq; the trainer's settings) --
 
 # Phases 19-21 run their ranks as processes of one spawn (``run_ranks``):
@@ -3912,7 +4172,7 @@ def dist_phases(smi, only):
 
 
 NEW_PHASES = ("ces", "psych", "hpo", "train_tasks", "gp", "bench", "cont",
-              "dad", "trend")
+              "dad", "trend", "demo", "demo_train", "hpob")
 DIST_PHASES = ("dp", "mesh", "seq")
 
 
@@ -3921,7 +4181,7 @@ def parse_args(argv=None):
         description="Smoke run of the port on one NVIDIA GPU; with no "
                     "arguments, every phase")
     ap.add_argument("--only", nargs="+", choices=NEW_PHASES + DIST_PHASES,
-                    help="run only these of phases 10-21 (after phase 1) "
+                    help="run only these of phases 10-24 (after phase 1) "
                          "and print no kernels line")
     ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
                     help="phase 10's rows (2000: the JAX run's protocol)")
@@ -3929,8 +4189,8 @@ def parse_args(argv=None):
 
 
 def new_phases(smi, only, ces_M, gp_B):
-    """Phases 10-18 (those named in ``only``), phase 14 with ``gp_B``
-    problems: {name: record}."""
+    """Phases 10-18 and 22-24 (those named in ``only``), phase 14 with
+    ``gp_B`` problems: {name: record}."""
     rec = {}
     if "ces" in only:
         rec["ces_bed"] = phase_ces_bed(smi, ces_M)
@@ -3951,6 +4211,12 @@ def new_phases(smi, only, ces_M, gp_B):
         rec["trend"] = phase_trend(smi)
     if "gp" in only:
         rec["gp"] = phase_gp(smi, gp_B)
+    if "demo" in only:
+        rec["demo_eval"] = phase_demo_eval(smi)
+    if "demo_train" in only:
+        rec["demo_train"] = phase_demo_train(smi)
+    if "hpob" in only:
+        rec["hpob"] = phase_hpob(smi)
     return rec
 
 
@@ -4008,6 +4274,8 @@ def main(argv=None):
              "train_continuous": task_recs["cont"]["reinforce"],
              "train_continuous_pathwise": task_recs["cont"]["pathwise"],
              "dad": task_recs["dad"], "trend": task_recs["trend"],
+             "demo_eval": task_recs["demo_eval"],
+             "demo_train": task_recs["demo_train"],
              "dp": dist_recs["dp"], "mesh": dist_recs["mesh"],
              "seq": dist_recs["seq"],
              **{k: {"launches": v}

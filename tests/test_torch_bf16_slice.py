@@ -1,5 +1,6 @@
 """The slice end to end in bfloat16: the flagship (checkpoints/al1d_200k,
-whose config says ``"dtype": "bfloat16"``) through the port's
+whose config says ``"dtype": "bfloat16"``), and the 5k-epoch demo run of
+the same recipe (checkpoints/al1d_5k_demo), through the port's
 ``al_rollout_curves`` against the JAX package's, on JAX-drawn GP batches
 (B=4, n_query=40, T=5), strategies ``aline`` and ``uncertainty``, with the
 default and the ``theta`` target masks.
@@ -28,6 +29,7 @@ JAX model computes neither the declared bfloat16 nor float32.
   model would.
 """
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,28 +47,30 @@ from aline_tpu.tasks.gp import GPTask as JaxGPTask
 from aline_tpu.utils.serialization import load_config as jax_load_config
 from aline_tpu_torch.eval.al_curves import al_rollout_curves
 from aline_tpu_torch.tasks.base import batch_from_numpy
-from aline_tpu_torch.utils.serialization import AL1D_200K_PARAMS, load_model
-from test_torch_al_curves import RUN_DIR, _masked
+from aline_tpu_torch.utils.serialization import BANKED_RUNS, load_model
+from test_torch_al_curves import ROOT, _masked
 
 torch.set_num_threads(1)
 TOL = 2e-2
 T = 5
 
 
-@pytest.fixture(scope="module")
-def flagship():
-    cfg = jax_load_config(RUN_DIR)
+@pytest.fixture(scope="module", params=["al1d_200k", "al1d_5k_demo"])
+def flagship(request):
+    run_dir = os.path.join(ROOT, "checkpoints", request.param)
+    npz = BANKED_RUNS[request.param][1]
+    cfg = jax_load_config(run_dir)
     assert cfg.dtype == "bfloat16"
     cfg32 = copy.deepcopy(cfg)        # build_model sets cfg.encoder.dtype
     cfg32.dtype = "float32"
     jmodel, jmodel32 = jax_build_model(cfg), jax_build_model(cfg32)
     assert jmodel32.encoder.cfg.dtype == "float32"
-    with np.load(AL1D_200K_PARAMS) as f:
+    with np.load(npz) as f:
         params = unflatten_dict({k: jnp.asarray(f[k]) for k in f.files},
                                 sep="/")
     jbatch = JaxGPTask(cfg.task).sample_batch(jax.random.key(5), 4,
                                               n_query=40)
-    _, model = load_model(RUN_DIR, AL1D_200K_PARAMS, "cpu")
+    _, model = load_model(run_dir, npz, "cpu")
     return jmodel, jmodel32, params, model, jbatch
 
 

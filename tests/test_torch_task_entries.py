@@ -41,7 +41,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_RUNS = ("ces_200k", "psych_100k", "hpo_glmnet_15k", "hpo_ranger_15k",
             "hpo_rpart_15k", "hpo_rpart_45k", "hpo_svm_15k",
-            "hpo_xgboost_15k")
+            "hpo_xgboost_15k", "al1d_5k_demo")
 
 
 def _run_copy(tmp_path, run, **changes):
