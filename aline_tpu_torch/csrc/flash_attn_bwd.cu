@@ -50,21 +50,50 @@
 // masked_score (flash_attn_common.cuh), so they recompute the forward's
 // scores bit for bit.
 
-// bfloat16 (flash_attn_bwd_bf16): q, k, v, O, dO, dQ, dK and dV in
-// bfloat16, lse and D in float32.  Elements are widened to float32 as they
-// are read, every product and sum is float32, and dQ, dK and dV are
-// rounded once each where they are stored.  D_i, the float32 sum of the
-// widened products dO_id O_id, is rounded to bfloat16, as the TPU kernel's
-// bfloat16 sum(do * o) is (XLA sums it in float32 and rounds once).  The TPU kernel sums dK and dV into bfloat16 outputs,
-// one rounding per block of bq rows (3 at N = 303, 17 at N = 2103); here
-// each column's sums run in float32 over all its rows, so the kernel is
-// the more accurate of the two and differs from the TPU's and the plain
-// version's per-block sums by those roundings.
+// bfloat16 (flash_attn_bwd_bf16) has kernels of their own on the bf16
+// tensor cores, flash_attn_bwd_{dq,dkdv}_bf16_kernel (building blocks in
+// flash_attn_mma.cuh), in the same two passes over the same walks.  They
+// compute what the TPU kernel computes with bfloat16 operands: scores and
+// dP = dO·vᵀ are float32 sums of exact bfloat16 products, P, dS and every
+// product with them are float32, dQ, dK and dV are rounded once each where
+// they are stored.  D_i, the float32 sum of the products dO_id O_id, is
+// summed in the order of the float32 kernel's pass 1 and rounded to
+// bfloat16, as the TPU kernel's bfloat16 sum(do * o) is (XLA sums it in
+// float32 and rounds once).  The TPU kernel sums dK and dV into bfloat16
+// outputs, one rounding per block of bq rows (3 at N = 303, 17 at N =
+// 2103); here each column's sums run in float32 over all its rows, so the
+// kernel is the more accurate of the two and differs from the TPU's and
+// the plain version's per-block sums by those roundings.
+//
+// What bounds them.  At the training shape the 1.9e7 allowed pairs take
+// two exps each (P in each pass): 0.009 ms at 4.18e12 exp/s, beside
+// 0.010 ms for the 33 MB moved and 0.003 ms of tensor-core products
+// (S and dP in bfloat16, the three P- and dS-products as three bfloat16
+// products each).  The float32 form spends some 60 instructions a pair on
+// the CUDA cores.  Design, per pass as in the forward (a warp owns 16
+// rows or 16 key columns, 64-wide stages gathered by cp.async, chunks of
+// 16 outside the codes every row of the warp sees masked by walk_score):
+//  * pass 1: S = Q Kᵀ and dP = dO Vᵀ by mma.sync, P = exp2(S - lse·log2 e),
+//    dS = P (dP - D), dQ += dS K as three bfloat16 pieces of dS on
+//    m16n8k16 (K read transposed by ldmatrix);
+//  * pass 2: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, dV += Pᵀ dO and dK += dSᵀ Q, each
+//    as three pieces.
+// Pass 1 computes S with the forward's instructions on the same operands,
+// so its scores are the forward's bit for bit; pass 2 takes the same
+// products over the same k positions in the transposed orientation, and
+// its P may differ from pass 1's in the last bits of the tensor cores'
+// sums.  By count, a pair costs a thread about 12 instructions in pass 1
+// and 19 in pass 2.  At the training shape the keys that pass 2 walks
+// (codes 1 and 2) fill two of a head's five CTAs, so few CTAs carry that
+// pass.  No atomics: bitwise repeatable.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include <type_traits>
+
 #include "flash_attn_common.cuh"
+#include "flash_attn_mma.cuh"
 
 namespace {
 
@@ -225,22 +254,282 @@ flash_attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dims<DPT>(dv + col, dvr, 1.f);
 }
 
+// Pass 1 in bfloat16 on the tensor cores: dQ and D, a warp per 16 rows.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const Plan plan,
+                              const bf16* __restrict__ o,
+                              const float* __restrict__ lse,
+                              const bf16* __restrict__ dout,
+                              bf16* __restrict__ dq,
+                              float* __restrict__ delta, int H, int N,
+                              float scale, int n_blocks) {
+  using namespace mma;
+  using S = Shape<DH>;
+  __shared__ __align__(16) bf16 ks[2][kTile * S::SROW];
+  __shared__ __align__(16) bf16 vs[2][kTile * S::SROW];
+  __shared__ float d_rows[kWarps][16];
+
+  const int bh = blockIdx.x / n_blocks;
+  const PlanRow pr = plan_row(plan, bh / H, N);
+  const int r0 = (blockIdx.x % n_blocks) * kRows;    // positions in row_perm
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+  const int w0 = r0 + 16 * warp;
+  const int rpos[2] = {w0 + lane / 4, w0 + lane / 4 + 8};
+  int row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) row[h] = rpos[h] < N ? pr.row_perm[rpos[h]] : -1;
+  const size_t head = (size_t)bh * N * DH;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  // the first stage is in flight before the plan's counts arrive
+  gather_tiles<DH>(ks[0], vs[0], kh, vh, pr.key_perm, 0,
+                   min(kTile, ceil16(N)), N);
+  cp_async_commit();
+
+  // D of the warp's 16 rows, summed as flash_attn_bwd_dq_kernel sums it: a
+  // group of G lanes a row, DPT dims a lane in order, then the group's
+  // xor-shuffle tree; rounded to bfloat16
+  {
+    constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
+#pragma unroll
+    for (int r = 0; r < 16; r += 32 / G) {
+      const int rr = (r + lane / G) % 16, part = lane % G;
+      const bool live = w0 + rr < N;
+      const int i = live ? pr.row_perm[w0 + rr] : 0;
+      const size_t at = head + (size_t)i * DH + part * DPT;
+      float dor[DPT], orr[DPT];
+      load_dims<DPT>(dor, dout + at, live);
+      load_dims<DPT>(orr, o + at, live);
+      float d_i = 0.f;
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) d_i = fmaf(dor[d], orr[d], d_i);
+      d_i = rounded<bf16>(group_sum<G>(d_i));
+      if (part == 0 && r + lane / G < 16) {
+        d_rows[warp][rr] = d_i;
+        if (live) delta[(size_t)bh * N + i] = d_i;
+      }
+    }
+    __syncwarp();
+  }
+  float d_row[2], lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    d_row[h] = d_rows[warp][lane / 4 + 8 * h];
+    lse2[h] = row[h] < 0 ? 0.f
+                         : __fmul_rn(lse[(size_t)bh * N + row[h]], kLog2e);
+  }
+  uint32_t qf[S::KS][4], df[S::KS][4];
+  load_a<DH>(qf, q + head, row, tq);
+  load_a<DH>(df, dout + head, row, tq);
+  float acc[S::NT][4];
+  zero<DH>(acc);
+  const float c2 = scale * kLog2e;
+  const bool all_query = w0 + 16 <= pr.n_query;
+
+  const int n_keys = ceil16(pr.keys_for(r0));
+  const int warp_keys = ceil16(pr.keys_for(w0));
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = t * kTile;
+    if (t + 1 < n_tiles)
+      gather_tiles<DH>(ks[(t + 1) & 1], vs[(t + 1) & 1], kh, vh,
+                       pr.key_perm, j0 + kTile,
+                       min(kTile, n_keys - j0 - kTile), N);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int n = warp_keys - j0;               // uniform in the warp
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (16 * c >= n) continue;
+      float p[2][4], ds[2][4];
+      mma_nt<DH>(p, qf, ks[t & 1], 16 * c, lane);
+      mma_nt<DH>(ds, df, vs[t & 1], 16 * c, lane);
+      const int p0 = j0 + 16 * c;
+      if (p0 + 16 <= pr.n_ctx || (all_query && p0 + 16 <= pr.n_vis)) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)        // every pair allowed
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] *= c2;
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = p0 + 8 * nt + 2 * tq + (e & 1);
+            p[nt][e] = walk_score(p[nt][e], c2, j < N,
+                                  pr.allows(rpos[e >> 1], j));
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[nt][e] = ex2(p[nt][e] - lse2[e >> 1]);
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - d_row[e >> 1]);
+        }
+      uint32_t w[3][4];
+      split3(w, ds);
+      mma_split_t<DH>(acc, w, ks[t & 1], 16 * c, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();          // no copy outlives the CTA (n_tiles = 0)
+  const float mul[2] = {scale, scale};
+  store_rows<DH>(dq + head, acc, row, 2 * tq, mul);
+}
+
+// Pass 2 in bfloat16 on the tensor cores: dK and dV, a warp per 16 key
+// columns.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const Plan plan,
+                                const float* __restrict__ lse,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ delta,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int H, int N, float scale, int n_blocks) {
+  using namespace mma;
+  using S = Shape<DH>;
+  __shared__ __align__(16) bf16 qs[2][kTile * S::SROW];
+  __shared__ __align__(16) bf16 dos[2][kTile * S::SROW];
+  __shared__ __align__(16) float lses[2][kTile];
+  __shared__ __align__(16) float deltas[2][kTile];
+
+  const int bh = blockIdx.x / n_blocks;
+  const PlanRow pr = plan_row(plan, bh / H, N);
+  const int p0 = (blockIdx.x % n_blocks) * kRows;    // positions in key_perm
+  const int lane = threadIdx.x % 32, tq = lane % 4;
+  const int w0 = p0 + 16 * (threadIdx.x / 32);       // the warp's first key
+  const int kpos[2] = {w0 + lane / 4, w0 + lane / 4 + 8};
+  int col[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) col[h] = kpos[h] < N ? pr.key_perm[kpos[h]] : -1;
+  const size_t head = (size_t)bh * N * DH;
+  const bf16* qh = q + head;
+  const bf16* doh = dout + head;
+  const float* lseh = lse + (size_t)bh * N;
+  const float* deltah = delta + (size_t)bh * N;
+
+  uint32_t kf[S::KS][4], vf[S::KS][4];
+  load_a<DH>(kf, k + head, col, tq);
+  load_a<DH>(vf, v + head, col, tq);
+  float dka[S::NT][4], dva[S::NT][4];
+  zero<DH>(dka);
+  zero<DH>(dva);
+  const float c2 = scale * kLog2e;
+  const bool all_ctx = w0 + 16 <= pr.n_ctx;   // every row sees every key
+  const bool all_vis = w0 + 16 <= pr.n_vis;   // every query row does
+
+  // rows of row_perm [i0, i0 + n) with their lse and D (zeros past N)
+  auto gather = [&](int stage, int i0, int n) {
+    gather_tiles<DH>(qs[stage], dos[stage], qh, doh, pr.row_perm, i0, n, N);
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      const bool ok = i0 + t < N;
+      const int i = ok ? pr.row_perm[i0 + t] : 0;
+      cp_async4_zfill(&lses[stage][t], lseh + i, ok);
+      cp_async4_zfill(&deltas[stage][t], deltah + i, ok);
+    }
+  };
+  // the first stage is in flight before the plan's counts arrive; then
+  // the CTA walks as far as its first column, a warp as far as its own
+  gather(0, 0, min(kTile, ceil16(N)));
+  cp_async_commit();
+  const int n_rows = ceil16(pr.rows_for(p0));
+  const int warp_rows = ceil16(pr.rows_for(w0));
+  const int n_tiles = (n_rows + kTile - 1) / kTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int i0 = t * kTile;
+    if (t + 1 < n_tiles)
+      gather((t + 1) & 1, i0 + kTile, min(kTile, n_rows - i0 - kTile));
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int n = warp_rows - i0;               // uniform in the warp
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (16 * c >= n) continue;
+      float p[2][4], ds[2][4];                  // Pᵀ and dSᵀ: keys x rows
+      mma_nt<DH>(p, kf, qs[t & 1], 16 * c, lane);
+      mma_nt<DH>(ds, vf, dos[t & 1], 16 * c, lane);
+      const int ic = i0 + 16 * c;               // the chunk's first row
+      if (ic + 16 <= N &&
+          (all_ctx || (all_vis && ic + 16 <= pr.n_query))) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)        // every pair allowed
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] *= c2;
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = ic + 8 * nt + 2 * tq + (e & 1), j = kpos[e >> 1];
+            p[nt][e] = walk_score(p[nt][e], c2, i < N && j < N,
+                                  pr.allows(i, j));
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int at = 16 * c + 8 * nt + 2 * tq;   // this thread's rows
+        const float2 lse_i = *reinterpret_cast<const float2*>(
+            &lses[t & 1][at]);
+        const float2 d_i = *reinterpret_cast<const float2*>(
+            &deltas[t & 1][at]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[nt][e] = ex2(p[nt][e] -
+                         __fmul_rn(e & 1 ? lse_i.y : lse_i.x, kLog2e));
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - (e & 1 ? d_i.y : d_i.x));
+        }
+      }
+      uint32_t w[3][4];
+      split3(w, p);
+      mma_split_t<DH>(dva, w, dos[t & 1], 16 * c, lane);
+      split3(w, ds);
+      mma_split_t<DH>(dka, w, qs[t & 1], 16 * c, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();          // no copy outlives the CTA (n_tiles = 0)
+  const float kmul[2] = {scale, scale}, vmul[2] = {1.f, 1.f};
+  store_rows<DH>(dk + head, dka, col, 2 * tq, kmul);
+  store_rows<DH>(dv + head, dva, col, 2 * tq, vmul);
+}
+
 template <int DH, typename T>
 cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
                    const T* o, const float* lse, const T* dout, T* dq, T* dk,
                    T* dv, float* delta, int B, int H, int N, float scale,
                    cudaStream_t stream) {
-  constexpr int ROWS = Split<DH>::ROWS;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int ROWS = kBf16 ? mma::kRows : Split<DH>::ROWS;
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  flash_attn_bwd_dq_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
-      q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
+  if constexpr (kBf16)
+    flash_attn_bwd_dq_bf16_kernel<DH>
+        <<<(unsigned)ctas, kThreads, 0, stream>>>(
+            q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
+  else
+    flash_attn_bwd_dq_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
+        q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // same stream: pass 2 reads the D that pass 1 wrote
-  flash_attn_bwd_dkdv_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
-      q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
+  if constexpr (kBf16)
+    flash_attn_bwd_dkdv_bf16_kernel<DH>
+        <<<(unsigned)ctas, kThreads, 0, stream>>>(
+            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
+  else
+    flash_attn_bwd_dkdv_kernel<DH, T>
+        <<<(unsigned)ctas, kThreads, 0, stream>>>(
+            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
   return cudaGetLastError();
 }
 

@@ -10,16 +10,16 @@
 //
 // A query row (or, in the backward's dK/dV pass, a key column) is owned by
 // a group of G = dh/16 lanes (G = 1 for dh <= 16); each lane keeps
-// DPT = dh/G of its dims in registers.  Every kernel computes a score with
-// masked_score below, so the backward's passes recompute the forward's
-// scores bit for bit: the same FMA order within a lane and the same
-// xor-shuffle tree across the group.
+// DPT = dh/G of its dims in registers (the float32 kernels).  Every float32
+// kernel computes a score with masked_score below, so the backward's
+// passes recompute the forward's scores bit for bit: the same FMA order
+// within a lane and the same xor-shuffle tree across the group.
 //
-// The arrays of q, k, v, O, dO and the gradients hold T = float or
-// __nv_bfloat16; every helper below that reads or writes them takes either.
-// A bfloat16 element is widened to float32 where it is read (exact), all
-// arithmetic is float32, and a bfloat16 output is rounded once, to nearest
-// even, where it is stored.  lse and D stay float32.
+// The float32 kernels read and write their arrays (T = float) through the
+// helpers below.  The bfloat16 kernels have building blocks of their own
+// (flash_attn_mma.cuh) and take from here the plan and, for the backward's
+// D, the widening reads (a bfloat16 element widened to float32 is exact).
+// lse and D are float32 in both.
 
 #pragma once
 
@@ -69,6 +69,11 @@ struct PlanRow {
   __device__ __forceinline__ int keys_for(int r) const {
     if (r >= N) return 0;
     return dense ? N : (r < n_query ? n_vis : n_ctx);
+  }
+  // whether the role codes let the row at position r of row_perm see the
+  // key at position p of key_perm
+  __device__ __forceinline__ bool allows(int r, int p) const {
+    return p < n_ctx || (r < n_query && p < n_vis);
   }
   // how many rows of row_perm the key at position p of key_perm walks: a
   // context key all rows, a code-2 key the query rows, a code-0 key none
@@ -144,16 +149,6 @@ __device__ __forceinline__ void widen8(float* dst, const uint4& w) {
   }
 }
 
-// 8 floats rounded to bfloat16, as one 16-byte word
-__device__ __forceinline__ uint4 narrow8(const float* src, float mul) {
-  uint4 w;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    h[e] = __floats2bfloat162_rn(src[2 * e + 0] * mul, src[2 * e + 1] * mul);
-  return w;
-}
-
 // x rounded to T and widened back: the identity for float
 template <typename T>
 __device__ __forceinline__ float rounded(float x) {
@@ -220,14 +215,6 @@ __device__ __forceinline__ void store_dims(float* dst, const float* src,
                         src[4 * d4 + 2] * mul, src[4 * d4 + 3] * mul);
 }
 
-template <int DPT>
-__device__ __forceinline__ void store_dims(bf16* dst, const float* src,
-                                           float mul) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int c = 0; c < DPT / 8; ++c) d[c] = narrow8(src + 8 * c, mul);
-}
-
 // sum over the lane's dims of a[d] * row[d], in one fixed order; row is in
 // shared memory
 template <int DPT>
@@ -245,16 +232,6 @@ __device__ __forceinline__ float dot_dims(const float* a, const float* row) {
   return dot;
 }
 
-template <int DPT>
-__device__ __forceinline__ float dot_dims(const float* a, const bf16* row) {
-  float w[DPT];
-  widen_dims<DPT>(w, row);
-  float dot = 0.f;
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) dot = fmaf(a[d], w[d], dot);
-  return dot;
-}
-
 // acc[d] += p * row[d] over the lane's dims; row is in shared memory
 template <int DPT>
 __device__ __forceinline__ void axpy_dims(float* acc, float p,
@@ -268,15 +245,6 @@ __device__ __forceinline__ void axpy_dims(float* acc, float p,
     acc[4 * d4 + 2] = fmaf(p, w.z, acc[4 * d4 + 2]);
     acc[4 * d4 + 3] = fmaf(p, w.w, acc[4 * d4 + 3]);
   }
-}
-
-template <int DPT>
-__device__ __forceinline__ void axpy_dims(float* acc, float p,
-                                          const bf16* row) {
-  float w[DPT];
-  widen_dims<DPT>(w, row);
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = fmaf(p, w[d], acc[d]);
 }
 
 // The score of (row, key): (a . b) * scale from the group's lanes, replaced

@@ -45,17 +45,51 @@
 //  * The score comes from masked_score (flash_attn_common.cuh), which the
 //    backward's passes call too.
 //
-// bfloat16 (flash_attn_fwd_bf16) is the same kernel with q, k, v and O in
-// bfloat16, as the TPU kernel runs with bfloat16 operands: a key row at
-// dh = 8 is 16 bytes, one cp.async, and the ring's stages hold bfloat16,
-// half the bytes a tile.  An element is widened to float32 as it is read;
-// the scores, the online softmax, the accumulator and lse are float32, and
-// O is rounded once to bfloat16 where it is stored.
+// bfloat16 (flash_attn_fwd_bf16) has a kernel of its own,
+// flash_attn_fwd_bf16_kernel, on the bf16 tensor cores (building blocks in
+// flash_attn_mma.cuh).  It computes what the TPU kernel computes with
+// bfloat16 q, k, v: float32 scores of the bfloat16 operands, a float32
+// online softmax and lse, P·V in float32, O rounded once.
+//
+// What bounds it.  At the eval shape the mask allows 9.5e7 (row, key)
+// pairs.  Each takes one exp: 0.023 ms at the 4.18e12 exp/s of the
+// special-function units (16 a clock on each of 132 SMs at 1.98 GHz),
+// above the 0.018 ms of its 59 MB (2 bytes an element of q, k, v, O) and
+// far above the products' 0.006 ms on the tensor cores (q·kᵀ once, P·V
+// as three bfloat16 products).  So the instructions a pair takes bound it,
+// and the float32 form above (one row a lane) spends about 35 a pair on
+// the CUDA cores.  The design moves the products to the tensor cores and
+// keeps the rest per pair small:
+//  * A warp owns 16 consecutive rows of row_perm, a CTA 4 warps.  The keys
+//    of key_perm are gathered into a two-stage shared ring of 64-key
+//    tiles by 16-byte cp.async (zeros past N), read by ldmatrix; the
+//    first tile is in flight before the plan's counts are read.
+//  * S = Q Kᵀ by mma.sync (m16n8k8 at dh = 8, m16n8k16 over dh / 16 steps
+//    above), float32 sums of exact bfloat16 products, in chunks of 16
+//    keys; a warp walks its first row's keys rounded up to 16.  A chunk
+//    inside the codes every row of the warp sees (code 1, or codes 1 and 2
+//    for a warp of query rows) takes no mask; the others score each pair
+//    by the codes (walk_score).
+//  * Online softmax on the accumulator fragments in log2 units (the scale
+//    times log2 e, ex2): a row's max and sum over its quad by two
+//    shuffles, one rescale a 64-key stage, the sum reduced once at the end.
+//  * P·V as three bfloat16 pieces of P (split3) on m16n8k16 into float32:
+//    P stays in registers.
+// By count of the operations above, a pair costs a thread about 12
+// instructions (a warp's 100 or so for 16 rows x 16 keys, 8 of them
+// exps), where the float32 form spends about 35.  At the eval shape the
+// kernel takes well over that count's issue time: the CTAs' gathers and
+// stores take a large share of it.  Variants that gave a CTA more rows (several 16-row groups a warp, or
+// 64-row blocks in turn over a resident ring), capped the registers, or
+// summed the three pieces into separate accumulators measured no faster.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include <type_traits>
+
 #include "flash_attn_common.cuh"
+#include "flash_attn_mma.cuh"
 
 namespace {
 
@@ -70,15 +104,6 @@ __device__ __forceinline__ void store_out(float* dst, const float* acc,
   for (int d4 = 0; d4 < DPT / 4; ++d4)
     d[d4] = make_float4(acc[4 * d4 + 0] / l, acc[4 * d4 + 1] / l,
                         acc[4 * d4 + 2] / l, acc[4 * d4 + 3] / l);
-}
-
-template <int DPT>
-__device__ __forceinline__ void store_out(bf16* dst, const float* acc,
-                                          float l) {
-  float out[DPT];
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) out[d] = acc[d] / l;
-  store_dims<DPT>(dst, out, 1.f);
 }
 
 template <int DH, typename T>
@@ -165,16 +190,186 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (part == 0) lse[(size_t)bh * N + i] = m + logf(l);
 }
 
+// The bfloat16 form on the tensor cores (see the note at the top).
+
+// A warp's 16 rows: their q fragments, O accumulators, running max and
+// sum; this thread holds rows g and g + 8.
+template <int DH>
+struct RowGroup {
+  using S = mma::Shape<DH>;
+  int rpos[2];                 // positions in row_perm
+  int row[2];                  // row indices; -1: past N
+  uint32_t qf[S::KS][4];
+  float acc[S::NT][4];
+  float m[2], l[2];            // log2 units; every score is >= kNeg2
+  int keys;                    // keys walked (a multiple of 16)
+  bool all_query;              // every row of the group is a query row
+
+  // the rows of row_perm [w0, w0 + 16) and their q
+  __device__ __forceinline__ void init(const PlanRow& pr, const bf16* qh,
+                                       int w0, int lane) {
+    using namespace mma;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rpos[h] = w0 + lane / 4 + 8 * h;
+      row[h] = rpos[h] < pr.N ? pr.row_perm[rpos[h]] : -1;
+      m[h] = kNeg2;
+      l[h] = 0.f;
+    }
+    load_a<DH>(qf, qh, row, lane % 4);
+    mma::zero<DH>(acc);
+    keys = ceil16(pr.keys_for(w0));
+    all_query = w0 + 16 <= pr.n_query;
+  }
+
+  // the keys of key_perm [j0, j0 + kTile) from the stage ks, vs
+  __device__ __forceinline__ void step(const PlanRow& pr, const bf16* ks,
+                                       const bf16* vs, int j0, float c2,
+                                       int lane) {
+    using namespace mma;
+    const int n = keys - j0, tq = lane % 4;   // uniform in the warp
+    if (n <= 0) return;
+    float s[kChunks][2][4];
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (16 * c >= n) continue;
+      mma_nt<DH>(s[c], qf, ks, 16 * c, lane);
+      const int p0 = j0 + 16 * c;             // the chunk's first key
+      if (p0 + 16 <= pr.n_ctx || (all_query && p0 + 16 <= pr.n_vis)) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)        // every pair allowed
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][nt][e] *= c2;
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = p0 + 8 * nt + 2 * tq + (e & 1);
+            s[c][nt][e] = walk_score(s[c][nt][e], c2, p < pr.N,
+                                     pr.allows(rpos[e >> 1], p));
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mx[h] = fmaxf(mx[h], fmaxf(fmaxf(s[c][0][2 * h], s[c][0][2 * h + 1]),
+                                   fmaxf(s[c][1][2 * h], s[c][1][2 * h + 1])));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = ex2(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int u = 0; u < S::NT; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (16 * c >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[c][nt][e] = ex2(s[c][nt][e] - m[e >> 1]);
+          l[e >> 1] += s[c][nt][e];
+        }
+      uint32_t w[3][4];
+      split3(w, s[c]);
+      mma_split_t<DH>(acc, w, vs, 16 * c, lane);
+    }
+  }
+
+  // O and lse of the group's rows; n_pad padded columns score -1e9 and
+  // have v = 0 (they add 0 unless a row is blind)
+  __device__ __forceinline__ void finish(bf16* oh, float* lseh, int n_pad,
+                                         int lane) {
+    using namespace mma;
+    const int tq = lane % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = group_sum<4>(l[h]) + (float)n_pad * ex2(kNeg2 - m[h]);
+      // a blind row's max is the replaced score itself: its lse is -1e9 +
+      // log(Np) as the TPU kernel's, not a log2 round trip of -1e9
+      if (row[h] >= 0 && tq == 0)
+        lseh[row[h]] =
+            m[h] == kNeg2 ? kNeg + logf(l[h]) : m[h] * kLn2 + logf(l[h]);
+    }
+#pragma unroll
+    for (int u = 0; u < S::NT; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][e] /= l[e >> 1];
+    const float one[2] = {1.f, 1.f};
+    store_rows<DH>(oh, acc, row, 2 * tq, one);
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const Plan plan,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int H, int N, int n_pad, float scale,
+                           int n_blocks) {
+  using namespace mma;
+  using S = Shape<DH>;
+  __shared__ __align__(16) bf16 ks[2][kTile * S::SROW];
+  __shared__ __align__(16) bf16 vs[2][kTile * S::SROW];
+
+  const int bh = blockIdx.x / n_blocks;
+  const PlanRow pr = plan_row(plan, bh / H, N);
+  const int r0 = (blockIdx.x % n_blocks) * kRows;    // positions in row_perm
+  const int lane = threadIdx.x % 32;
+  const size_t head = (size_t)bh * N * DH;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  const float c2 = scale * kLog2e;
+
+  // the first stage is in flight before the plan's counts arrive
+  gather_tiles<DH>(ks[0], vs[0], kh, vh, pr.key_perm, 0,
+                   min(kTile, ceil16(N)), N);
+  cp_async_commit();
+  RowGroup<DH> rows;
+  rows.init(pr, q + head, r0 + 16 * (threadIdx.x / 32), lane);
+  // the CTA walks as far as its first row, a warp as far as its own first
+  const int n_keys = ceil16(pr.keys_for(r0));
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = t * kTile;
+    if (t + 1 < n_tiles)       // the stage read in step t - 1 is free again
+      gather_tiles<DH>(ks[(t + 1) & 1], vs[(t + 1) & 1], kh, vh,
+                       pr.key_perm, j0 + kTile,
+                       min(kTile, n_keys - j0 - kTile), N);
+    cp_async_commit();
+    cp_async_wait<1>();                         // tile t has landed
+    __syncthreads();
+    rows.step(pr, ks[t & 1], vs[t & 1], j0, c2, lane);
+    __syncthreads();                            // stage t & 1 is consumed
+  }
+  cp_async_wait<0>();          // no copy outlives the CTA (n_tiles = 0)
+  rows.finish(o + head, lse + (size_t)bh * N, n_pad, lane);
+}
+
 template <int DH, typename T>
 cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
                    T* o, float* lse, int B, int H, int N, int n_pad,
                    float scale, cudaStream_t stream) {
-  constexpr int ROWS = Split<DH>::ROWS;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int ROWS = kBf16 ? mma::kRows : Split<DH>::ROWS;
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  flash_attn_fwd_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
-      q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
+  if constexpr (kBf16)
+    flash_attn_fwd_bf16_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
+        q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
+  else
+    flash_attn_fwd_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
+        q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
   return cudaGetLastError();
 }
 

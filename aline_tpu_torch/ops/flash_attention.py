@@ -39,9 +39,13 @@ float32 from the bfloat16 operands, accumulates P·V in float32 and rounds
 O and dQ once; it sums dK and dV into bfloat16 outputs, one rounding per
 block of ``block_q(N)`` rows.  The plain versions do the same.  The CUDA
 kernels (separate ``*_bf16`` entry points, counted apart in ``LAUNCHES``)
-widen each element to float32 as they read it and sum dK and dV in float32
-over all rows, rounding once: they differ from the plain backward by its
-per-block roundings.
+run on the bf16 tensor cores (``csrc/flash_attn_mma.cuh``): q·kᵀ and
+dO·vᵀ are float32 sums of exact bfloat16 products, P and dS are cut into
+three bfloat16 pieces whose products sum to the float32 product (P·V, dS·K,
+Pᵀ·dO, dSᵀ·Q), the softmax runs in float32 in log2 units, and dK and dV
+are summed in float32 over all rows and rounded once: they differ from the
+plain backward by its per-block roundings and elsewhere only by the order
+of float32 sums.
 
 On a CUDA tensor a wrapper launches its kernel or raises; there is no
 other path.

@@ -51,9 +51,11 @@ Phases, each printing its result lines; any failure exits non-zero:
              backward at the training shape under
              ``torch.cuda.set_sync_debug_mode("error")``: the plan, the
              kernels and their wrappers never wait for the host.
-3d. bf16 flash kernels — the bf16 forms of the flash forward (eval,
-             training and burning shapes) and backward (training, burning)
-             against their plain versions in bf16 on the card: O and dQ
+3d. bf16 flash kernels — the bf16 forms of the flash forward and
+             backward at every shape of 3c and the data-parallel ones
+             (``BF16_FLASH_CASES``; the plain backward checked on 8 batch
+             rows at the eval shapes) against their plain versions in
+             bf16 on the card: O and dQ
              within one bf16 ulp of each element plus 1e-5 (O) or 1e-4 (dQ)
              of the largest, dK and dV plus (blocks + 1) * 2^-8 of the
              largest (the plain version sums them into bf16 block by block
@@ -65,8 +67,10 @@ Phases, each printing its result lines; any failure exits non-zero:
              Times as in 3c; bytes at 2 an element of q, k, v, O, dO, dQ,
              dK, dV and 4 of lse and D; the products of two bf16 operands
              (q·kᵀ, dO·vᵀ) at the bf16 tensor cores' 989 TFLOP/s, those
-             with a float32 operand (p, dS) at 67 (``tc_bound_ms``; all at
-             67: ``fma_bound_ms``); library: SDPA in bf16.
+             with a float32 operand (p, dS) the lesser of two forms: on
+             FMAs at 67 (``fma_bound_ms``) or as three bf16 products each
+             at 989 (``tc_bound_ms``), as the kernels run them; library:
+             SDPA in bf16.
 Phases 4, 4b, 5, 6, 6b, 7 and 7b compute in float32 (``dtype=float32``
 pinned), as before the port followed the run's dtype.
 
@@ -289,7 +293,9 @@ loader of HPO-B; no kernel lies on their paths:
 
 ``--only ces psych hpo train_tasks bench cont dad trend gp demo demo_train
 hpob dp mesh seq`` runs phase 1 and the named ones of 10-24 alone (no
-kernels line); with no arguments it runs every phase.
+kernels line); ``--only kernels`` runs phases 1-3d and prints the kernels
+line, its launches null (no main path ran); with no arguments it runs
+every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -492,36 +498,40 @@ def phase_kernels():
     return rows, worst
 
 
-def split_bound(tc_s, tc_flops, other_flops, nbytes):
-    """The least time of a kernel's two forms: every FLOP on float32 FMAs
-    (``fma_bound_ms``), or ``tc_flops`` of them on the tensor cores, in
-    ``tc_s`` seconds, and the rest on FMAs (``tc_bound_ms``); each against
-    the bytes."""
-    fma = bound(tc_flops + other_flops, nbytes)
-    t_tc = tc_s + other_flops / PEAK_F32_FLOPS
-    tc = max(t_tc, nbytes / PEAK_HBM_BYTES) * 1e3
-    best = (dict(bound_ms=tc, bound_by="operations" if t_tc >= nbytes /
-                 PEAK_HBM_BYTES else "bytes")
-            if tc <= fma["bound_ms"] else
-            dict(bound_ms=fma["bound_ms"], bound_by=fma["bound_by"]))
-    return dict(best, fma_bound_ms=fma["bound_ms"], tc_bound_ms=tc,
-                flops=tc_flops + other_flops, bytes=nbytes)
+def split_bound(t_fma, t_tc, flops, nbytes):
+    """The least time of a kernel's two forms, each against the bytes:
+    ``t_fma`` seconds of operations with its float32 products on FMAs
+    (``fma_bound_ms``), ``t_tc`` with them on the tensor cores
+    (``tc_bound_ms``)."""
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = min(t_fma, t_tc)
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                fma_bound_ms=max(t_fma, t_bytes) * 1e3,
+                tc_bound_ms=max(t_tc, t_bytes) * 1e3,
+                flops=flops, bytes=nbytes)
 
 
 def gmm_bound(mma_flops, other_flops, nbytes):
     """A GMM kernel's bound: its D x F products (``mma_flops``) as 3xTF32
-    on the tensor cores (three TF32 products each), or on FMAs."""
-    return split_bound(3 * mma_flops / PEAK_TF32_FLOPS, mma_flops,
-                       other_flops, nbytes)
+    on the tensor cores (three TF32 products each), or every FLOP on
+    FMAs."""
+    t_other = other_flops / PEAK_F32_FLOPS
+    return split_bound(mma_flops / PEAK_F32_FLOPS + t_other,
+                       3 * mma_flops / PEAK_TF32_FLOPS + t_other,
+                       mma_flops + other_flops, nbytes)
 
 
 def bf16_flash_bound(bf16_flops, f32_flops, nbytes):
     """A bf16 flash kernel's bound: its products of two bfloat16 operands
     (``bf16_flops``: q·kᵀ, and dO·vᵀ in the backward) at the bf16 tensor
-    cores' rate with float32 sums, those with a float32 operand (p or dS)
-    on FMAs."""
-    return split_bound(bf16_flops / PEAK_BF16_FLOPS, bf16_flops, f32_flops,
-                       nbytes)
+    cores' rate with float32 sums, and those with a float32 operand
+    (``f32_flops``: p or dS) on FMAs or, as the kernels run them, as three
+    bfloat16 products each on the tensor cores."""
+    t_bf16 = bf16_flops / PEAK_BF16_FLOPS
+    return split_bound(t_bf16 + f32_flops / PEAK_F32_FLOPS,
+                       t_bf16 + 3 * f32_flops / PEAK_BF16_FLOPS,
+                       bf16_flops + f32_flops, nbytes)
 
 
 def grads_close(got, ref):
@@ -1318,9 +1328,10 @@ BF16_ULP = 2.0 ** -7     # bfloat16's spacing relative to a value, at most
 # largest one; dK and dV also by the plain version's per-block roundings
 # (as the TPU kernel sums them into bf16 per block of block_q rows): up to
 # 2^-8 of a partial sum per block.
-BF16_FLASH_CASES = {"eval": ("fwd",), "train": ("fwd", "bwd"),
-                    "burning": ("fwd", "bwd"), "dp_train": ("fwd", "bwd"),
-                    "dp_burning": ("fwd", "bwd")}
+# Every FLASH_CASES shape, forward and backward (the plain backward checked
+# on CHECK_ROWS batch rows at the eval shapes, as in 3c).
+BF16_FLASH_CASES = ("eval", "train", "burning", "dp_train", "dp_burning",
+                    "eval_late", "ragged", "dh64")
 # Phases 4c and 4d, the card against the port on the CPU in bf16 (one
 # code): the float32 sums inside each bf16 layer run in other orders on the
 # two devices, which now and then moves a bf16 rounding, and the compact
@@ -1360,11 +1371,11 @@ def bf16_close(got, ref, floor):
 
 
 def phase_flash_kernels_bf16():
-    """3d: the bf16 flash kernels at the eval, training and burning
-    shapes against their plain versions in bf16 on the card; times."""
+    """3d: the bf16 flash kernels at every shape of ``BF16_FLASH_CASES``
+    against their plain versions in bf16 on the card; times."""
     from aline_tpu_torch.ops import flash_attention as fa
     rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
-    for seed, (what, parts) in enumerate(BF16_FLASH_CASES.items()):
+    for seed, what in enumerate(BF16_FLASH_CASES):
         q, k, v, kcode, qrow, do = (
             t.to(BF16) if t.is_floating_point() else t
             for t in flash_inputs(*FLASH_CASES[what], seed=60 + seed))
@@ -1384,36 +1395,35 @@ def phase_flash_kernels_bf16():
                                  f"plain version at {what}: O {err:.3e}, "
                                  f"lse {lse_err:.3e}")
         errs.update(O=err, lse=lse_err)
-        if "bwd" in parts:
-            grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-            again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                raise AssertionError(f"bf16 flash_attn_bwd is not "
-                                     f"deterministic at {what}")
-            ref = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo)
-            blocks = -(-N // fa.block_q(N))
-            floors = (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))
-            for name, a, r, floor in zip(("dq", "dk", "dv"), grads, ref,
-                                         floors):
-                err, ok = bf16_close(a, r, floor)
-                if not (ok and a.dtype == BF16):
-                    raise AssertionError(
-                        f"bf16 flash_attn_bwd {name} disagrees with its "
-                        f"plain version at {what}: max abs {err:.3e} "
-                        f"(largest {r.float().abs().max():.3e})")
-                errs[name] = err
-            # the kernel's own sums: over all rows in float32, rounded once
-            once = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo,
-                                           per_block=False)
-            for name, a, r in zip(("dk", "dv"), grads[1:], once[1:]):
-                err, ok = bf16_close(a, r, TOL)
-                if not ok:
-                    raise AssertionError(
-                        f"bf16 flash_attn_bwd {name} disagrees with the plain "
-                        f"version summed once at {what}: max abs {err:.3e}")
-                errs[f"{name} vs summed once"] = err
-            del grads, again, ref, once
+        grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+        again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"bf16 flash_attn_bwd is not "
+                                 f"deterministic at {what}")
+        ref = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo)
+        blocks = -(-N // fa.block_q(N))
+        floors = (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))
+        for name, a, r, floor in zip(("dq", "dk", "dv"), grads, ref,
+                                     floors):
+            err, ok = bf16_close(a, r, floor)
+            if not (ok and a.dtype == BF16):
+                raise AssertionError(
+                    f"bf16 flash_attn_bwd {name} disagrees with its "
+                    f"plain version at {what}: max abs {err:.3e} "
+                    f"(largest {r.float().abs().max():.3e})")
+            errs[name] = err
+        # the kernel's own sums: over all rows in float32, rounded once
+        once = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo,
+                                       per_block=False)
+        for name, a, r in zip(("dk", "dv"), grads[1:], once[1:]):
+            err, ok = bf16_close(a, r, TOL)
+            if not ok:
+                raise AssertionError(
+                    f"bf16 flash_attn_bwd {name} disagrees with the plain "
+                    f"version summed once at {what}: max abs {err:.3e}")
+            errs[f"{name} vs summed once"] = err
+        del grads, again, ref, once
         del ref_o, ref_lse
         worst["fwd"] = max(worst["fwd"], errs["O"], errs["lse"])
         worst["bwd"] = max([worst["bwd"]] + [e for name, e in errs.items()
@@ -1441,31 +1451,37 @@ def phase_flash_kernels_bf16():
                 q, k, v, attn_mask=allowed)),
             pairs=pairs, **bf16_flash_bound(2 * pairs * dh, 2 * pairs * dh,
                                             fwd_bytes))
-        if "bwd" in parts:
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-            rec["bwd"] = dict(
-                shape=[B, H, N, dh],
-                ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
-                                                     lse, do, plan)),
-                device_ms=device_ms(lambda: fa.flash_attn_bwd(
-                    q, k, v, kcode, qrow, o, lse, do, plan)),
-                plain_ms=time_ms(lambda: fa.flash_attn_bwd_plain(
-                    q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3),
-                library_ms=time_ms(lambda: torch.autograd.grad(
-                    sdpa, leaves, do, retain_graph=True)),
-                pairs=pairs, **bf16_flash_bound(4 * pairs * dh,
-                                                6 * pairs * dh, bwd_bytes))
-            del leaves, sdpa
+        # the plain and SDPA backwards timed where 3c times them
+        small = (4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
+                 or what in PLAIN_BWD_EVAL)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+                if small else None)
+        rec["bwd"] = dict(
+            shape=[B, H, N, dh],
+            ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
+                                                 lse, do, plan)),
+            device_ms=device_ms(lambda: fa.flash_attn_bwd(
+                q, k, v, kcode, qrow, o, lse, do, plan)),
+            plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
+                q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
+                if small else None),
+            library_ms=(time_ms(lambda: torch.autograd.grad(
+                sdpa, leaves, do, retain_graph=True)) if small else None),
+            pairs=pairs, **bf16_flash_bound(4 * pairs * dh, 6 * pairs * dh,
+                                            bwd_bytes))
+        del leaves, sdpa
         rows[what] = rec
-        for part in parts:
+        for part in ("fwd", "bwd"):
             r = rec[part]
+            plain, lib = ("not timed" if r[key] is None
+                          else f"{r[key]:.4f} ms"
+                          for key in ("plain_ms", "library_ms"))
             log("kernels", f"bf16 flash_attn_{part} {what} B={B} H={H} "
                 f"N={N} dh={dh}: kernel {r['ms']:.4f} ms (device "
-                f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, SDPA "
-                f"bf16 {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-                f"ms ({r['bound_by']}; FMA bound {r['fma_bound_ms']:.4f} "
-                f"ms)")
+                f"{r['device_ms']:.4f}), plain {plain}, SDPA bf16 {lib}, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; P- and "
+                f"dS-products on FMAs {r['fma_bound_ms']:.4f} ms)")
         log("kernels", f"bf16 flash {what}: {n} of {B} batch rows checked, "
             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
         del q, k, v, do, o, lse, allowed, plan
@@ -4180,9 +4196,11 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Smoke run of the port on one NVIDIA GPU; with no "
                     "arguments, every phase")
-    ap.add_argument("--only", nargs="+", choices=NEW_PHASES + DIST_PHASES,
+    ap.add_argument("--only", nargs="+",
+                    choices=("kernels",) + NEW_PHASES + DIST_PHASES,
                     help="run only these of phases 10-24 (after phase 1) "
-                         "and print no kernels line")
+                         "and print no kernels line; kernels: phases 2-3d "
+                         "and the kernels line")
     ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
                     help="phase 10's rows (2000: the JAX run's protocol)")
     return ap.parse_args(argv)
@@ -4220,6 +4238,65 @@ def new_phases(smi, only, ces_M, gp_B):
     return rec
 
 
+def kernel_phases():
+    """Phases 2-3d: {record name: rows} and {kernel: worst error}."""
+    rec = {"build_s": phase_build()}
+    rec["gmm_head_fwd"], gmm_err = phase_kernels()
+    rec["gmm_head_bwd"], bwd_err = phase_kernels_bwd()
+    rec["flash"], flash_err = phase_flash_kernels()
+    rec["flash_bf16"], bf16_err = phase_flash_kernels_bf16()
+    errs = {"gmm_head_fwd": gmm_err, "gmm_head_bwd": bwd_err,
+            "flash_attn_fwd": flash_err["fwd"],
+            "flash_attn_bwd": flash_err["bwd"],
+            "flash_attn_fwd_bf16": bf16_err["fwd"],
+            "flash_attn_bwd_bf16": bf16_err["bwd"]}
+    return rec, errs
+
+
+def kernel_records(rec, errs, paths):
+    """The kernels line: every kernel at its main shape, with its launches
+    by path (``paths``: {path: record with "launches"}; None where no main
+    path ran, and then the launches are null)."""
+    def record(name, replaces, row, source=None, dtype="float32", **extra):
+        by_path = (None if paths is None else
+                   {p: r["launches"][name] for p, r in paths.items()})
+        return {"name": name, "route": "cuda",
+                "source": f"aline_tpu_torch/csrc/{source or name}.cu",
+                "replaces": replaces, "dtype": dtype, **extra,
+                "launches": None if by_path is None else sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": errs.get(name, 0.0),
+                "ms": row["ms"], "device_ms": row["device_ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                **{k: row[k] for k in ("fma_bound_ms", "tc_bound_ms",
+                                       "dense_bound_ms") if k in row},
+                "shape": row.get("shape", [row.get("B"), row.get("T")])}
+
+    flash, bf16 = rec["flash"], rec["flash_bf16"]
+    return [
+        record("gmm_head_fwd", "aline_tpu/ops/gmm_head_kernel.py:27",
+               rec["gmm_head_fwd"]["pool"]),
+        # no Pallas kernel of its own: it lists the pairs that both flash
+        # kernels walk
+        record("flash_plan", None, flash["eval"]["plan"],
+               serves=["flash_attn_fwd", "flash_attn_bwd"]),
+        record("gmm_head_bwd", "aline_tpu/ops/gmm_head_kernel.py:41",
+               rec["gmm_head_bwd"]["train targets"]),
+        record("flash_attn_fwd", "aline_tpu/ops/flash_attention.py:43",
+               flash["eval"]["fwd"]),
+        record("flash_attn_bwd", "aline_tpu/ops/flash_attention.py:65",
+               flash["train"]["bwd"]),
+        # the bf16 forms: the same sources' *_bf16 entry points
+        record("flash_attn_fwd_bf16", "aline_tpu/ops/flash_attention.py:43",
+               bf16["eval"]["fwd"], source="flash_attn_fwd",
+               dtype="bfloat16"),
+        record("flash_attn_bwd_bf16", "aline_tpu/ops/flash_attention.py:65",
+               bf16["train"]["bwd"], source="flash_attn_bwd",
+               dtype="bfloat16")]
+
+
 def main(argv=None):
     args = parse_args(argv)
     smi = phase_device()
@@ -4228,21 +4305,24 @@ def main(argv=None):
     OUT_DIR.mkdir(exist_ok=True)
     if args.only:
         t0 = time.perf_counter()
-        rec = new_phases(smi, args.only, args.ces_M, GP["batch_size"])
+        rec, kernels = {}, None
+        if "kernels" in args.only:
+            rec, errs = kernel_phases()
+            kernels = kernel_records(rec, errs, None)
+        rec.update(new_phases(smi, args.only, args.ces_M, GP["batch_size"]))
         if set(args.only) & set(DIST_PHASES):
             rec.update(dist_phases(smi, args.only))
         rec["wall_s"] = time.perf_counter() - t0
         (OUT_DIR / f"chip_smoke_{'_'.join(args.only)}.json").write_text(
             json.dumps(dict(nvidia_smi=smi, torch=torch.__version__,
-                            device=device, **rec), indent=1, default=str))
+                            device=device, **rec, kernels=kernels), indent=1,
+                       default=str))
         print(smi)
+        if kernels is not None:
+            print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": device}))
         return
-    build_s = phase_build()
-    gmm_rows, gmm_err = phase_kernels()
-    bwd_rows, bwd_err = phase_kernels_bwd()
-    flash_rows, flash_err = phase_flash_kernels()
-    bf16_rows, bf16_err = phase_flash_kernels_bf16()
+    kernel_rec, errs = kernel_phases()
     slice_rec, batch, curves = phase_slice()
     flash_slice_rec = phase_flash_slice(batch, curves)
     bf16_slice_rec, bf16_curves, model_c = phase_slice_bf16(batch, curves)
@@ -4280,47 +4360,10 @@ def main(argv=None):
              "seq": dist_recs["seq"],
              **{k: {"launches": v}
                 for k, v in dist_recs["settings_paths"].items()}}
-
-    def record(name, replaces, row, err, source=None, dtype="float32",
-               **extra):
-        by_path = {p: rec["launches"][name] for p, rec in paths.items()}
-        return {"name": name, "route": "cuda",
-                "source": f"aline_tpu_torch/csrc/{source or name}.cu",
-                "replaces": replaces, "dtype": dtype, **extra,
-                "launches": sum(by_path.values()),
-                "launches_by_path": by_path, "max_abs_err": err,
-                "ms": row["ms"], "device_ms": row["device_ms"],
-                "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"],
-                **{k: row[k] for k in ("fma_bound_ms", "tc_bound_ms",
-                                       "dense_bound_ms") if k in row},
-                "shape": row.get("shape", [row.get("B"), row.get("T")])}
-
-    kernels = [
-        record("gmm_head_fwd", "aline_tpu/ops/gmm_head_kernel.py:27",
-               gmm_rows["pool"], gmm_err),
-        # no Pallas kernel of its own: it lists the pairs that both flash
-        # kernels walk
-        record("flash_plan", None, flash_rows["eval"]["plan"], 0.0,
-               serves=["flash_attn_fwd", "flash_attn_bwd"]),
-        record("gmm_head_bwd", "aline_tpu/ops/gmm_head_kernel.py:41",
-               bwd_rows["train targets"], bwd_err),
-        record("flash_attn_fwd", "aline_tpu/ops/flash_attention.py:43",
-               flash_rows["eval"]["fwd"], flash_err["fwd"]),
-        record("flash_attn_bwd", "aline_tpu/ops/flash_attention.py:65",
-               flash_rows["train"]["bwd"], flash_err["bwd"]),
-        # the bf16 forms: the same sources' *_bf16 entry points
-        record("flash_attn_fwd_bf16", "aline_tpu/ops/flash_attention.py:43",
-               bf16_rows["eval"]["fwd"], bf16_err["fwd"],
-               source="flash_attn_fwd", dtype="bfloat16"),
-        record("flash_attn_bwd_bf16", "aline_tpu/ops/flash_attention.py:65",
-               bf16_rows["train"]["bwd"], bf16_err["bwd"],
-               source="flash_attn_bwd", dtype="bfloat16")]
+    kernels = kernel_records(kernel_rec, errs, paths)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        nvidia_smi=smi, torch=torch.__version__, build_s=build_s,
-        gmm_head_fwd=gmm_rows, gmm_head_bwd=bwd_rows, flash=flash_rows,
-        flash_bf16=bf16_rows, slice=slice_rec, flash_slice=flash_slice_rec,
+        nvidia_smi=smi, torch=torch.__version__, **kernel_rec,
+        slice=slice_rec, flash_slice=flash_slice_rec,
         slice_bf16=bf16_slice_rec, flash_slice_bf16=bf16_flash_slice_rec,
         parity_max_abs=parity_err, train=train_rec,
         flash_train=flash_train_rec, train_bf16=bf16_train_rec,
