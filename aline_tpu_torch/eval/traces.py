@@ -7,21 +7,28 @@ and the time token runs backwards, (T - t)/T, the eval direction of
 ``aline_tpu`` (training counts up).
 
 With ``seq_mesh`` the candidate pool is split over the ranks of its
-``seq`` axis, exactly and with no collective inside the encoder.  Under
-the role mask (``ops/roles.py``) every row attends only to the context
-keys and, for a query row, the selected targets and the time token; a
-context or target row attends only to the context.  So each rank builds
-its own sequence, [time? | the Ck context tokens, gathered by
-``ctx_idx`` | its block of the pool | the targets], and computes on it
-exactly the rows that the unsharded forward computes for these tokens.
+``seq`` axis, under every attention core.  Under the role mask
+(``ops/roles.py``) every row attends only to the context keys and, for a
+query row, the selected targets and the time token; a context or target
+row attends only to the context.  So each rank builds its own sequence,
+[time? | the Ck context tokens, gathered by ``ctx_idx`` | its block of
+the pool | the targets], and computes on it exactly the rows that the
+unsharded forward computes for these tokens: the compact core (``auto``,
+``compact``) over the gathered keys in slot order, as the unsharded
+compact path reads them; the flash kernels and the dense bias (``flash``,
+``naive``) from the local roles, the copies in token-index order, the
+order in which the unsharded flash plan walks the context keys.  One row
+kind reads beyond the rank: a row that sees no key (a batch row with no
+context yet) averages over the whole global sequence, so under flash and
+naive ``_blind_hook`` replaces its attention output from the pool's
+sums (flash) or its gathered keys (naive), at such steps only.
 The pool's x and y are small (B x n_pool x a few floats): every rank
-keeps them whole.  Only the design head crosses ranks: the log-softmax
-over the global pool (``all_reduce_lse``: an all-reduce MAX, then an
-all-reduce SUM of the rescaled exponentials) and the greedy argmax (the
-global max, then the smallest global index among the ranks that hold
-it, ``torch.argmax``'s first-index rule).  ``select_design`` then runs alike on every rank.
-The compact attention (``auto``, ``compact``) is covered; ``flash`` and
-``naive`` are not.
+keeps them whole.  Beyond that only the design head crosses ranks: the
+log-softmax over the global pool (``all_reduce_lse``: an all-reduce MAX,
+then an all-reduce SUM of the rescaled exponentials) and the greedy
+argmax (the global max, then the smallest global index among the ranks
+that hold it, ``torch.argmax``'s first-index rule).  ``select_design``
+then runs alike on every rank.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from aline_tpu_torch.ops.attention import CompactKeys
+from aline_tpu_torch.ops.attention import CompactKeys, dense_bias_attention
+from aline_tpu_torch.ops.flash_attention import padded_len
 from aline_tpu_torch.ops.roles import NEG_INF, build_roles
 from aline_tpu_torch.parallel.collectives import (all_reduce, all_reduce_lse,
                                                    lse_init, lse_update)
@@ -75,34 +83,114 @@ def get_traces(model, task, batch: Batch, T: int, time_token: bool = False,
     return batch.theta, task.unnormalise_design(xs), ys
 
 
-def _local_scores(model, batch: Batch, lo: int, hi: int) -> torch.Tensor:
+def _context_order(batch: Batch, valid: torch.Tensor,
+                   impl: str) -> torch.Tensor:
+    """[B, Ck] the context slots in the order each rank lays out its copies.
+    The compact core keeps slot order (acquisition order), as the
+    unsharded compact path does.  The flash plan walks context keys in
+    token-index order, so under flash and naive the valid slots are
+    sorted by index, the invalid ones after them: each rank then walks the
+    keys that the unsharded kernel walks, in its order."""
+    if impl in ("auto", "compact"):
+        return batch.ctx_idx
+    key = torch.where(valid, batch.ctx_idx, batch.n_points)
+    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.gather(batch.ctx_idx, 1, order)
+
+
+def _blind_hook(impl: str, roles, t_off: int, Ck: int, nb: int,
+                n_pool: int, group):
+    """The encoder's ``attn_hook`` for the rows that see no key, or None
+    where every row sees one.  Such a row (a batch row with no context:
+    its target rows and time row, and its pool rows when no target is
+    selected and no time token leads) averages over every column of the
+    GLOBAL sequence [time? | pool | targets], not over the rank's.
+
+    * flash: the kernel's rule, ``sum(v) / Np`` over the global padded
+      length; the pool's part of the sum is one all-reduce of [B, H, dh].
+    * naive: ``softmax(s - 1e9)``, in which the rounding of each
+      ``s - 1e9`` weighs a column, so the pool's keys themselves are
+      needed: its K and V blocks are gathered from the ranks and the dense
+      core runs the blind rows against the global sequence.
+
+    The gathered context copies are left out: in such a batch row none is
+    valid, and the pool block holds exactly the rank's pool tokens."""
+    sees_ctx = roles.k_is_ctx.any(dim=1)
+    sees_extra = (roles.k_is_sel | roles.k_is_time[None]).any(dim=1)
+    blind = ~sees_ctx[:, None] & ~(roles.q_is_query & sees_extra[:, None])
+    if not bool(blind.any()):
+        return None
+    N = blind.shape[1]
+    pool = slice(t_off + Ck, t_off + Ck + nb)
+    dev = blind.device
+    rest = torch.cat([torch.arange(t_off, device=dev),
+                      torch.arange(pool.stop, N, device=dev)])
+    n_global = N - Ck - nb + n_pool
+    rows = blind[:, None, :, None]
+
+    def flash(q, k, v, out):
+        vf = v.float()
+        total = (all_reduce(vf[:, :, pool].sum(dim=2), group=group)
+                 + vf[:, :, rest].sum(dim=2))
+        mean = (total / padded_len(n_global)).to(out.dtype)
+        return torch.where(rows, mean[:, :, None], out)
+
+    def naive(q, k, v, out):
+        def glob(t):
+            blocks = [t[:, :, pool].contiguous()]
+            if group is not None:
+                blocks = [torch.empty_like(blocks[0])
+                          for _ in range(n_pool // nb)]
+                dist.all_gather(blocks, t[:, :, pool].contiguous(),
+                                group=group)
+            return torch.cat([t[:, :, :t_off], *blocks, t[:, :, pool.stop:]],
+                             dim=2)
+        which = torch.nonzero(blind.any(dim=0))[:, 0]
+        neg = torch.full((1, 1, 1, 1), NEG_INF, dtype=q.dtype,
+                         device=q.device)
+        o = dense_bias_attention(q[:, :, which], glob(k), glob(v), neg)
+        return out.index_copy(2, which, torch.where(rows[:, :, which], o,
+                                                    out[:, :, which]))
+
+    return flash if impl == "flash" else naive
+
+
+def _local_scores(model, batch: Batch, lo: int, hi: int, n_pool: int,
+                  group) -> torch.Tensor:
     """The design scores [B, hi - lo] of pool tokens ``lo .. hi - 1``,
     from the sequence [time? | context | pool block | targets]."""
     B, Ck = batch.batch_size, batch.ctx_capacity
+    enc = model.encoder
     count = batch.ctx_mask.sum(dim=1)
     slots = torch.arange(Ck, device=count.device)
     valid = slots[None] < count[:, None]
+    ctx_idx = _context_order(batch, valid, enc.impl)
 
     def gather(v):
-        return torch.gather(
-            v, 1, batch.ctx_idx[..., None].expand(-1, -1, v.shape[-1]))
+        return torch.gather(v, 1, ctx_idx[..., None].expand(-1, -1,
+                                                             v.shape[-1]))
 
     # the block's context points stay query-flagged here: no key reads
-    # them (the keys are the gathered copies) and the head masks them
+    # them (the keys are the gathered copies) and the head masks them;
+    # an invalid copy is a query-flagged token that no row reads either
     local = batch.replace(
         x=torch.cat([gather(batch.x), batch.x[:, lo:hi]], dim=1),
         y=torch.cat([gather(batch.y), batch.y[:, lo:hi]], dim=1),
         ctx_mask=torch.cat([valid, torch.zeros(B, hi - lo, dtype=torch.bool,
                                                device=valid.device)], dim=1),
         ctx_idx=slots[None].expand(B, Ck))
-    enc = model.encoder
     t_off = int(enc.with_time_token)
     tokens = model.embedder(local)
     roles = build_roles(local.ctx_mask, tokens.shape[1] - local.n_points,
                         local.target_mask, enc.with_time_token)
-    compact = CompactKeys(local.ctx_idx + t_off, valid, local.n_points, None,
-                          t_off)
-    z = enc(tokens, roles, local.t, compact=compact)
+    if enc.impl in ("auto", "compact"):
+        compact = CompactKeys(local.ctx_idx + t_off, valid, local.n_points,
+                              None, t_off)
+        z = enc(tokens, roles, local.t, compact=compact)
+    else:
+        # the flash plan or the dense bias of the local roles
+        z = enc(tokens, roles, local.t, attn_hook=_blind_hook(
+            enc.impl, roles, t_off, Ck, hi - lo, n_pool, group))
     z_pool = z[:, t_off + Ck:t_off + Ck + hi - lo]
     return model.head.acquisition_head(z_pool, local.t)
 
@@ -111,13 +199,9 @@ def sharded_greedy_rollout(model, batch: Batch, T: int, time_token: bool,
                            mesh: Mesh, axis_name: str = "seq"):
     """T greedy steps with the pool split over ``mesh``'s ``axis_name``
     axis → (idx [T, B], xs [T, B, dim_x], ys [T, B, dim_y], log_probs
-    [T, B]), as ``rollout`` gives them greedily; the time token runs in
-    the eval direction.  ``batch`` needs its ``ctx_idx`` buffer."""
-    impl = model.encoder.impl
-    if impl not in ("auto", "compact"):
-        raise NotImplementedError(
-            f"seq_mesh with attention_impl={impl!r}: the pool is split "
-            f"only under the compact attention (auto, compact)")
+    [T, B]), as ``rollout`` gives them greedily, under the model's
+    attention core; the time token runs in the eval direction.  ``batch``
+    needs its ``ctx_idx`` buffer."""
     if batch.ctx_idx is None or batch.ctx_capacity <= 0:
         raise ValueError("sharded_greedy_rollout needs batch.ctx_idx "
                          "(init_ctx_idx)")
@@ -130,7 +214,7 @@ def sharded_greedy_rollout(model, batch: Batch, T: int, time_token: bool,
                          device=batch.t.device) / T if time_token
               else torch.zeros((), device=batch.t.device))
         batch = batch.replace(t=tt)
-        scores = _local_scores(model, batch, lo, hi)
+        scores = _local_scores(model, batch, lo, hi, n_pool, group)
         logits = torch.where(batch.query_mask[:, lo:hi], scores,
                              torch.full((), NEG_INF, device=scores.device))
         # log_softmax over the global pool, in torch.log_softmax's form

@@ -12,7 +12,7 @@ and each LayerNorm normalises in float32 and rounds once to bfloat16.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -51,7 +51,8 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
                 compact: Optional[CompactKeys] = None,
-                codes: Optional[tuple] = None) -> torch.Tensor:
+                codes: Optional[tuple] = None,
+                attn_hook: Optional[Callable] = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.n_head
 
@@ -66,6 +67,8 @@ class MultiHeadSelfAttention(nn.Module):
                                        v.contiguous(), *codes)
         else:
             out = dense_bias_attention(q, k, v, bias)
+        if attn_hook is not None:
+            out = attn_hook(q, k, v, out)
         return self.out_proj(out.transpose(1, 2).reshape(B, N, D))
 
 
@@ -93,9 +96,11 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, roles: Roles,
                 bias: Optional[torch.Tensor] = None,
                 compact: Optional[CompactKeys] = None,
-                codes: Optional[tuple] = None) -> torch.Tensor:
+                codes: Optional[tuple] = None,
+                attn_hook: Optional[Callable] = None) -> torch.Tensor:
         x = self._norm(self.norm1,
-                       x + self.self_attn(x, roles, bias, compact, codes))
+                       x + self.self_attn(x, roles, bias, compact, codes,
+                                          attn_hook))
         return self._norm(self.norm2,
                           x + self.linear2(torch.relu(self.linear1(x))))
 
@@ -126,11 +131,13 @@ class Encoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, roles: Roles,
                 t: Optional[torch.Tensor] = None,
-                compact: Optional[CompactKeys] = None) -> torch.Tensor:
+                compact: Optional[CompactKeys] = None,
+                attn_hook: Optional[Callable] = None) -> torch.Tensor:
         """[B, N, D] tokens (without the time token) and the [] time
         scalar ``t`` (read with the time token) → [B, N(+1), D] encoded
         tokens, the time token first.  ``roles`` are sized for the time
-        token."""
+        token.  ``attn_hook(q, k, v, out)``, where given, returns each
+        layer's attention output [B, H, N, dh] in place of ``out``."""
         if self.with_time_token:
             t_emb = self.time_proj(t.reshape(1, 1).to(tokens.dtype))
             tokens = torch.cat([t_emb[None].expand(tokens.shape[0], 1, -1),
@@ -145,5 +152,6 @@ class Encoder(nn.Module):
             bias = attention_bias(roles, tokens.dtype)
         x = tokens
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, roles, bias, compact, codes)
+            x = getattr(self, f"layer_{i}")(x, roles, bias, compact, codes,
+                                            attn_hook)
         return x

@@ -49,14 +49,15 @@ def _entry(rank, world, device, backend, init_file, timeout, num_threads,
             dist.destroy_process_group()
 
 
-def run_ranks(worker, world: int, *args, device="cpu",
+def run_ranks(worker, world: int, *args, device="cuda",
               backend: Optional[str] = None, tmp_dir=None,
               timeout: float = RANK_TIMEOUT_S,
               num_threads: Optional[int] = None) -> list:
     """[result of rank 0, ..., rank world-1] of ``worker(rank, world,
     *args)``, tensors as numpy arrays.  Each rank runs on ``device``
-    (``init_distributed``: ``"cuda"`` is one card a rank, an indexed
-    device is shared) over ``backend`` (NCCL on CUDA, gloo on the CPU by
+    (``init_distributed``: ``"cuda"``, the default, is one card a rank;
+    an indexed device is shared; ``"cpu"`` runs the ranks on the CPU)
+    over ``backend`` (NCCL on CUDA, gloo on the CPU by
     default); the rendezvous file lies in a directory made under
     ``tmp_dir`` (the system's temporary directory by default) and removed
     after.  Raises if a rank fails or does not answer within ``timeout``

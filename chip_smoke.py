@@ -40,7 +40,9 @@ Phases, each printing its result lines; any failure exits non-zero:
              scattered context points, the most pairs the eval reaches),
              training (B=200, N=303), burning (N=133), ragged (N=37, rows
              that see no key, a time column) and dh=64 (B=4, H=8, N=2048)
-             shapes: forward ``close()`` at 1e-4, backward ``grads_close()``
+             shapes, and forward alone at phase 21b's BED traces (B=200,
+             H=4: N=2003 unsharded, N=704 a rank's of 3; 8 rows compared):
+             forward ``close()`` at 1e-4, backward ``grads_close()``
              against the plain version and against autograd through the
              plain forward (where every row sees a key), bitwise equal over
              two calls.  Times as in phase 3.  Library yardstick:
@@ -271,6 +273,11 @@ rank; any rank's failure fails the phase.
              the card: a row may leave its choices only where the
              unsharded bf16 design scores of the two candidates lie within
              BF16_TIE_ULPS; the rollout's wall time.
+21b. seq, flash — the same with ``attention_impl=flash`` (a copy of the
+             run's config.json): each rank launches exactly 34 plans and
+             102 bf16 flash forwards (as the unsharded rollout does) and
+             keeps the unsharded flash choices but at ties, as 21; the
+             walls; a float32 control on SEQ_F32_ROWS rows, reported.
 
 Phases 22-24 run the demo run and its recipe, and the host
 loader of HPO-B; no kernel lies on their paths:
@@ -292,10 +299,10 @@ loader of HPO-B; no kernel lies on their paths:
              path's; both timed.
 
 ``--only ces psych hpo train_tasks bench cont dad trend gp demo demo_train
-hpob dp mesh seq`` runs phase 1 and the named ones of 10-24 alone (no
-kernels line); ``--only kernels`` runs phases 1-3d and prints the kernels
-line, its launches null (no main path ran); with no arguments it runs
-every phase.
+hpob dp mesh seq`` runs phase 1 and the named ones of 10-24 alone (seq:
+21 and 21b; no kernels line); ``--only kernels`` runs phases 1-3d and
+prints the kernels line, its launches null (no main path ran); with no
+arguments it runs every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -662,7 +669,15 @@ FLASH_CASES = {
     # phase 19's data-parallel steps: each of 2 ranks holds 100 rows
     "dp_train": (100, 4, 201, 102, 8, False, False, None),
     "dp_burning": (100, 4, 31, 102, 8, False, False, None),
+    # phase 21b's BED traces of loc_100k under flash (B=200, T=34): the
+    # unsharded sequence [1 + 2000 pool points | 2 targets] and a rank's
+    # of 3, [35 context copies + 667 pool points | 2 targets], at step 17
+    # (18 context points)
+    "bed": (200, 4, 2001, 2, 8, False, False, 18),
+    "bed_seq_rank": (200, 4, 702, 2, 8, False, False, 18),
 }
+# forward only: the traces run no backward
+FWD_ONLY = ("bed", "bed_seq_rank")
 CHECK_ROWS = 8            # batch rows compared at the eval shapes
 WITNESS_ROWS = 25         # phase 4b's compact rollout on the CPU
 # larger [B, H, N, N] plain and SDPA backwards are not timed, but at the
@@ -715,6 +730,37 @@ def phase_flash_plan(kcode, qrow, what):
     return plan, rec
 
 
+def check_flash_bwd(what, blind, q, k, v, kcode, qrow, o, lse, do):
+    """3c's backward check: two calls bitwise equal, each gradient held to
+    the plain backward (and, where every row sees a key, to autograd of
+    the plain forward) within ``grads_close``; {name: max abs error}."""
+    from aline_tpu_torch.ops import flash_attention as fa
+    grads = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    again = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"flash_attn_bwd is not deterministic at "
+                             f"{what}")
+    refs = {"plain": fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse,
+                                             do)}
+    if not blind:
+        # autograd of the replaced scores gives a row that sees no key
+        # no gradient; the kernels follow the TPU kernel there
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attn_fwd_plain(*leaves, kcode, qrow)[0]
+        refs["autograd"] = torch.autograd.grad(out, leaves, do)
+    errs = {}
+    for ref_name, ref in refs.items():
+        for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+            err, ok = grads_close(a, r)
+            if not ok:
+                raise AssertionError(
+                    f"flash_attn_bwd {name} disagrees with {ref_name} "
+                    f"at {what}: max abs {err:.3e}")
+            errs[f"{name} vs {ref_name}"] = err
+    return errs
+
+
 def phase_flash_kernels():
     from aline_tpu_torch.ops import flash_attention as fa
     rows, worst = {}, {"fwd": 0.0, "bwd": 0.0}
@@ -724,7 +770,7 @@ def phase_flash_kernels():
         blind = case[6]
         plan, plan_rec = phase_flash_plan(kcode, qrow, what)
         # the check: the first CHECK_ROWS batch rows at the eval shapes
-        n = CHECK_ROWS if what in PLAIN_BWD_EVAL else B
+        n = CHECK_ROWS if what in PLAIN_BWD_EVAL + FWD_ONLY else B
         cq, ck, cv, cdo = (t[:n].contiguous() for t in (q, k, v, do))
         ckc, cqr = kcode[:n].contiguous(), qrow[:n].contiguous()
         o, lse = fa.flash_attn_fwd(cq, ck, cv, ckc, cqr)
@@ -738,32 +784,13 @@ def phase_flash_kernels():
                     f"flash_attn_fwd {name} disagrees with its plain version "
                     f"at {what} {tuple(q.shape)}: max abs {abs_err:.3e}")
             errs[name] = abs_err
-        grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-        again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"flash_attn_bwd is not deterministic at "
-                                 f"{what}")
-        refs = {"plain": fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse,
-                                                 cdo)}
-        if not blind:
-            # autograd of the replaced scores gives a row that sees no key
-            # no gradient; the kernels follow the TPU kernel there
-            leaves = [t.clone().requires_grad_() for t in (cq, ck, cv)]
-            out = fa.flash_attn_fwd_plain(*leaves, ckc, cqr)[0]
-            refs["autograd"] = torch.autograd.grad(out, leaves, cdo)
-        for ref_name, ref in refs.items():
-            for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
-                err, ok = grads_close(a, r)
-                if not ok:
-                    raise AssertionError(
-                        f"flash_attn_bwd {name} disagrees with {ref_name} "
-                        f"at {what}: max abs {err:.3e}")
-                errs[f"{name} vs {ref_name}"] = err
-        del refs, grads, again, ref_o, ref_lse
+        if what not in FWD_ONLY:
+            errs.update(check_flash_bwd(what, blind, cq, ck, cv, ckc, cqr, o,
+                                        lse, cdo))
+        del ref_o, ref_lse
         worst["fwd"] = max(worst["fwd"], errs["O"], errs["lse"])
-        worst["bwd"] = max(worst["bwd"], *(e for name, e in errs.items()
-                                           if name.startswith("d")))
+        worst["bwd"] = max([worst["bwd"]] + [e for name, e in errs.items()
+                                             if name.startswith("d")])
 
         # timings at full B, the kernels with the plan built above
         kc = kcode[:, None, None, :]
@@ -773,6 +800,7 @@ def phase_flash_kernels():
                  or what in PLAIN_BWD_EVAL)
         rec = dict(shape=[B, H, N, dh], n_checked=n, errors=errs,
                    plan=plan_rec)
+        fwd_only = what in FWD_ONLY
         fwd_bytes = 4 * (4 * B * H * N * dh + B * H * N + 2 * B * N)
         bwd_bytes = 4 * (8 * B * H * N * dh + B * H * N + 2 * B * N)
         # the FLOPs this batch's mask needs (4·dh a pair forward, 10·dh
@@ -793,24 +821,24 @@ def phase_flash_kernels():
             **bound(4 * pairs * dh, fwd_bytes))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-                if small else None)
-        rec["bwd"] = dict(
-            shape=[B, H, N, dh],
-            ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
-                                                 lse, do, plan)),
-            device_ms=device_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode,
-                                                          qrow, o, lse, do,
-                                                          plan)),
-            plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
-                q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
-                if small else None),
-            library_ms=(time_ms(lambda: torch.autograd.grad(
-                sdpa, leaves, do, retain_graph=True)) if small else None),
-            dense_bound_ms=bound(10 * dense * dh, bwd_bytes)["bound_ms"],
-            pairs=pairs, dense_pairs=dense,
-            **bound(10 * pairs * dh, bwd_bytes))
+                if small and not fwd_only else None)
+        if not fwd_only:
+            rec["bwd"] = dict(
+                shape=[B, H, N, dh],
+                ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
+                                                     lse, do, plan)),
+                device_ms=device_ms(lambda: fa.flash_attn_bwd(
+                    q, k, v, kcode, qrow, o, lse, do, plan)),
+                plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
+                    q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
+                    if small else None),
+                library_ms=(time_ms(lambda: torch.autograd.grad(
+                    sdpa, leaves, do, retain_graph=True)) if small else None),
+                dense_bound_ms=bound(10 * dense * dh, bwd_bytes)["bound_ms"],
+                pairs=pairs, dense_pairs=dense,
+                **bound(10 * pairs * dh, bwd_bytes))
         rows[what] = rec
-        for part in ("fwd", "bwd"):
+        for part in ("fwd",) if fwd_only else ("fwd", "bwd"):
             r = rec[part]
             plain, lib = ("not timed" if r[key] is None
                           else f"{r[key]:.4f} ms"
@@ -823,7 +851,7 @@ def phase_flash_kernels():
                 f"{r['dense_bound_ms']:.4f} ms)")
         log("kernels", f"flash {what}: {n} of {B} batch rows checked, "
             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-            + "; backward bitwise repeatable")
+            + ("" if fwd_only else "; backward bitwise repeatable"))
         del q, k, v, do, o, lse, allowed, plan, leaves, sdpa
         torch.cuda.empty_cache()
     rows["no_sync"] = phase_flash_no_sync()
@@ -1331,7 +1359,7 @@ BF16_ULP = 2.0 ** -7     # bfloat16's spacing relative to a value, at most
 # Every FLASH_CASES shape, forward and backward (the plain backward checked
 # on CHECK_ROWS batch rows at the eval shapes, as in 3c).
 BF16_FLASH_CASES = ("eval", "train", "burning", "dp_train", "dp_burning",
-                    "eval_late", "ragged", "dh64")
+                    "eval_late", "ragged", "dh64", "bed", "bed_seq_rank")
 # Phases 4c and 4d, the card against the port on the CPU in bf16 (one
 # code): the float32 sums inside each bf16 layer run in other orders on the
 # two devices, which now and then moves a bf16 rounding, and the compact
@@ -1381,7 +1409,7 @@ def phase_flash_kernels_bf16():
             for t in flash_inputs(*FLASH_CASES[what], seed=60 + seed))
         B, H, N, dh = q.shape
         plan = fa.flash_plan(kcode, qrow)
-        n = CHECK_ROWS if what in PLAIN_BWD_EVAL else B
+        n = CHECK_ROWS if what in PLAIN_BWD_EVAL + FWD_ONLY else B
         cq, ck, cv, cdo = (t[:n].contiguous() for t in (q, k, v, do))
         ckc, cqr = kcode[:n].contiguous(), qrow[:n].contiguous()
         o, lse = fa.flash_attn_fwd(cq, ck, cv, ckc, cqr)
@@ -1395,35 +1423,36 @@ def phase_flash_kernels_bf16():
                                  f"plain version at {what}: O {err:.3e}, "
                                  f"lse {lse_err:.3e}")
         errs.update(O=err, lse=lse_err)
-        grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-        again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"bf16 flash_attn_bwd is not "
-                                 f"deterministic at {what}")
-        ref = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo)
-        blocks = -(-N // fa.block_q(N))
-        floors = (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))
-        for name, a, r, floor in zip(("dq", "dk", "dv"), grads, ref,
-                                     floors):
-            err, ok = bf16_close(a, r, floor)
-            if not (ok and a.dtype == BF16):
-                raise AssertionError(
-                    f"bf16 flash_attn_bwd {name} disagrees with its "
-                    f"plain version at {what}: max abs {err:.3e} "
-                    f"(largest {r.float().abs().max():.3e})")
-            errs[name] = err
-        # the kernel's own sums: over all rows in float32, rounded once
-        once = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo,
-                                       per_block=False)
-        for name, a, r in zip(("dk", "dv"), grads[1:], once[1:]):
-            err, ok = bf16_close(a, r, TOL)
-            if not ok:
-                raise AssertionError(
-                    f"bf16 flash_attn_bwd {name} disagrees with the plain "
-                    f"version summed once at {what}: max abs {err:.3e}")
-            errs[f"{name} vs summed once"] = err
-        del grads, again, ref, once
+        if what not in FWD_ONLY:
+            grads = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            again = fa.flash_attn_bwd(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"bf16 flash_attn_bwd is not "
+                                     f"deterministic at {what}")
+            ref = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo)
+            blocks = -(-N // fa.block_q(N))
+            floors = (TOL, *(2 * [(blocks + 1) * 2.0 ** -8]))
+            for name, a, r, floor in zip(("dq", "dk", "dv"), grads, ref,
+                                         floors):
+                err, ok = bf16_close(a, r, floor)
+                if not (ok and a.dtype == BF16):
+                    raise AssertionError(
+                        f"bf16 flash_attn_bwd {name} disagrees with its "
+                        f"plain version at {what}: max abs {err:.3e} "
+                        f"(largest {r.float().abs().max():.3e})")
+                errs[name] = err
+            # the kernel's own sums: over all rows in float32, rounded once
+            once = fa.flash_attn_bwd_plain(cq, ck, cv, ckc, cqr, o, lse, cdo,
+                                           per_block=False)
+            for name, a, r in zip(("dk", "dv"), grads[1:], once[1:]):
+                err, ok = bf16_close(a, r, TOL)
+                if not ok:
+                    raise AssertionError(
+                        f"bf16 flash_attn_bwd {name} disagrees with the plain "
+                        f"version summed once at {what}: max abs {err:.3e}")
+                errs[f"{name} vs summed once"] = err
+            del grads, again, ref, once
         del ref_o, ref_lse
         worst["fwd"] = max(worst["fwd"], errs["O"], errs["lse"])
         worst["bwd"] = max([worst["bwd"]] + [e for name, e in errs.items()
@@ -1451,28 +1480,33 @@ def phase_flash_kernels_bf16():
                 q, k, v, attn_mask=allowed)),
             pairs=pairs, **bf16_flash_bound(2 * pairs * dh, 2 * pairs * dh,
                                             fwd_bytes))
-        # the plain and SDPA backwards timed where 3c times them
-        small = (4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
-                 or what in PLAIN_BWD_EVAL)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        sdpa = (F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-                if small else None)
-        rec["bwd"] = dict(
-            shape=[B, H, N, dh],
-            ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
-                                                 lse, do, plan)),
-            device_ms=device_ms(lambda: fa.flash_attn_bwd(
-                q, k, v, kcode, qrow, o, lse, do, plan)),
-            plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
-                q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
-                if small else None),
-            library_ms=(time_ms(lambda: torch.autograd.grad(
-                sdpa, leaves, do, retain_graph=True)) if small else None),
-            pairs=pairs, **bf16_flash_bound(4 * pairs * dh, 6 * pairs * dh,
-                                            bwd_bytes))
-        del leaves, sdpa
         rows[what] = rec
-        for part in ("fwd", "bwd"):
+        if what in FWD_ONLY:
+            parts = ("fwd",)
+        else:
+            parts = ("fwd", "bwd")
+            # the plain and SDPA backwards timed where 3c times them
+            small = (4 * B * H * N * N <= PLAIN_BWD_MAX_BYTES
+                     or what in PLAIN_BWD_EVAL)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            sdpa = (F.scaled_dot_product_attention(*leaves,
+                                                   attn_mask=allowed)
+                    if small else None)
+            rec["bwd"] = dict(
+                shape=[B, H, N, dh],
+                ms=time_ms(lambda: fa.flash_attn_bwd(q, k, v, kcode, qrow, o,
+                                                     lse, do, plan)),
+                device_ms=device_ms(lambda: fa.flash_attn_bwd(
+                    q, k, v, kcode, qrow, o, lse, do, plan)),
+                plain_ms=(time_ms(lambda: fa.flash_attn_bwd_plain(
+                    q, k, v, kcode, qrow, o, lse, do), reps=3, iters=3)
+                    if small else None),
+                library_ms=(time_ms(lambda: torch.autograd.grad(
+                    sdpa, leaves, do, retain_graph=True)) if small else None),
+                pairs=pairs, **bf16_flash_bound(4 * pairs * dh,
+                                                6 * pairs * dh, bwd_bytes))
+            del leaves, sdpa
+        for part in parts:
             r = rec[part]
             plain, lib = ("not timed" if r[key] is None
                           else f"{r[key]:.4f} ms"
@@ -3628,6 +3662,9 @@ DP_BF16_STEP = ["dtype=bfloat16", "head.fused_gmm=on",
                 "encoder.attention_impl=flash"]
 DP_BF16_ARGS = DP_BF16_STEP + ["max_epoch=4", "mesh_data=2"]
 SEQ_RANKS = 3                  # 2001 = 3 x 667 pool tokens
+# 21b: the float32 control of the flash traces, on the first rows of the
+# batch (bitwise equal to the unsharded ones, or not: reported)
+SEQ_F32_ROWS = 8
 
 
 def _rank_phases(rank, world, phases, inputs):
@@ -3996,10 +4033,11 @@ def check_mesh(smi, inp, ranks):
 
 
 def _seq_inputs():
-    """21: a loc_100k batch with the full 2001-token pool and the
-    unsharded greedy rollout's choices on the card (bf16)."""
+    """21 and 21b: a loc_100k batch with the full 2001-token pool, and the
+    unsharded greedy rollouts' choices on the card (bf16): compact (21),
+    then flash (21b) with its launches, and flash in float32 on the first
+    SEQ_F32_ROWS rows."""
     from aline_tpu_torch.tasks import build_task, init_ctx_idx
-    from aline_tpu_torch.train.rollout import rollout
     from aline_tpu_torch.utils.serialization import (
         LOC_100K_PARAMS, load_model)
     cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
@@ -4007,42 +4045,103 @@ def _seq_inputs():
     gen = torch.Generator(device="cuda").manual_seed(21)
     batch = task.sample_batch(gen, BED["batch_size"], n_query=BED["n_query"])
     b = init_ctx_idx(batch, task.n_context_init + BED["T"])
+    rec = dict(batch=_np_batch(b))
+    ro, rec["unsharded_s"], _ = _seq_rollout(model, b)
+    rec["idx"] = ro.idx.cpu()
+    flash = {"flash": run_copy("seq_flash_run", attention_impl="flash",
+                               src=LOC_RUN),
+             "flash_f32": run_copy("seq_flash_f32_run", dtype="float32",
+                                   attention_impl="flash", src=LOC_RUN)}
+    rec["flash_runs"] = flash
+    _, fmodel = load_model(flash["flash"], LOC_100K_PARAMS, "cuda")
+    _seq_rollout(fmodel, b, T=1)                 # the kernels loaded
+    ro, rec["flash_s"], rec["flash_launches"] = _seq_rollout(fmodel, b)
+    rec["flash_idx"], rec["flash_lp"] = ro.idx.cpu(), ro.log_probs.cpu()
+    _, f32 = load_model(flash["flash_f32"], LOC_100K_PARAMS, "cuda")
+    ro = _seq_rollout(f32, batch_rows(b, SEQ_F32_ROWS, "cuda"))[0]
+    rec["f32_idx"], rec["f32_lp"] = ro.idx.cpu(), ro.log_probs.cpu()
+    return rec
+
+
+def _seq_rollout(model, b, T=BED["T"]):
+    """(the unsharded greedy rollout of ``b``, its wall seconds, its
+    launches)."""
+    from aline_tpu_torch.train.rollout import rollout
     zero = torch.zeros(b.n_target, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        ro = rollout(model, b, BED["T"], zero, zero, None,
-                     time_token=cfg.time_token, time_forward=False,
-                     use_remat=False)
-    torch.cuda.synchronize()
-    return dict(batch=_np_batch(b), idx=ro.idx.cpu(),
-                unsharded_s=time.perf_counter() - t0)
-
-
-def _rank_seq(rank, inp):
-    from aline_tpu_torch.eval.traces import sharded_greedy_rollout
-    from aline_tpu_torch.parallel.mesh import get_mesh
-    from aline_tpu_torch.utils.serialization import (
-        LOC_100K_PARAMS, load_model)
-    cfg, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
-    mesh = get_mesh(SEQ_RANKS, "seq")
-    batch = _from_np(inp["batch"])
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
-        idx = sharded_greedy_rollout(model, batch, BED["T"], cfg.time_token,
-                                     mesh)[0]
+        ro = rollout(model, b, T, zero, zero, None, time_forward=False,
+                     use_remat=False)
     torch.cuda.synchronize()
-    return dict(idx=idx.cpu(), s=time.perf_counter() - t0,
-                launches=launches())
+    return ro, time.perf_counter() - t0, launches()
+
+
+def _sharded_rollout(model, batch, mesh, T=BED["T"]):
+    """(idx, log-probs, wall seconds, launches) of ``sharded_greedy_rollout``
+    on this rank."""
+    from aline_tpu_torch.eval.traces import sharded_greedy_rollout
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        idx, _, _, lp = sharded_greedy_rollout(model, batch, T, False, mesh)
+    torch.cuda.synchronize()
+    return idx.cpu(), lp.cpu(), time.perf_counter() - t0, launches()
+
+
+def _rank_seq(rank, inp):
+    from aline_tpu_torch.parallel.mesh import get_mesh
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    _, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
+    mesh = get_mesh(SEQ_RANKS, "seq")
+    batch = _from_np(inp["batch"])
+    idx, _, s, counts = _sharded_rollout(model, batch, mesh)
+    rec = dict(idx=idx, s=s, launches=counts)
+    # 21b: flash, bf16 (the kernels loaded by one step first), then float32
+    _, fmodel = load_model(inp["flash_runs"]["flash"], LOC_100K_PARAMS,
+                           "cuda")
+    _sharded_rollout(fmodel, batch, mesh, T=1)
+    idx, lp, s, counts = _sharded_rollout(fmodel, batch, mesh)
+    rec["flash"] = dict(idx=idx, lp=lp, s=s, launches=counts)
+    _, f32 = load_model(inp["flash_runs"]["flash_f32"], LOC_100K_PARAMS,
+                        "cuda")
+    idx, lp = _sharded_rollout(f32, batch_rows(batch, SEQ_F32_ROWS, "cuda"),
+                               mesh)[:2]
+    rec["flash_f32"] = dict(idx=idx, lp=lp)
+    return rec
+
+
+def seq_ties(tag, model, batch_np, ref, got):
+    """The rows where ``got`` [T, B] leaves the unsharded choices ``ref``,
+    and the largest bf16-ulp gap between the unsharded design scores of
+    the two candidates at such a row's first change (phase 4c's rule:
+    at most BF16_TIE_ULPS)."""
+    from aline_tpu_torch.tasks.base import select_design
+    differs, first = first_change(got.T, ref.T)
+    gap = torch.zeros(ref.shape[1], dtype=torch.int32)
+    if differs.any():
+        b = _from_np(batch_np)
+        with torch.no_grad():
+            for t in range(int(first[differs].max()) + 1):
+                _, sc = design_forward(model, b)
+                here = differs & (first == t)
+                g = score_gap_ulps(sc.cpu(), ref[t], got[t])
+                gap = torch.where(here, g, gap)
+                b, _, _ = select_design(b, ref[t].cuda())
+    worst = int(gap[differs].max()) if differs.any() else 0
+    if worst > BF16_TIE_ULPS:
+        raise AssertionError(f"{tag}: a row leaves the unsharded choices at "
+                             f"a score gap of {worst} bf16 ulps")
+    return differs, worst
 
 
 def check_seq(smi, inp, ranks):
     """21: every rank's choices equal the unsharded ones, or a row leaves
     them where the unsharded bf16 design scores of the two candidates lie
     within BF16_TIE_ULPS (phase 4c's rule)."""
-    from aline_tpu_torch.tasks.base import select_design
     from aline_tpu_torch.utils.serialization import (
         LOC_100K_PARAMS, load_model)
     _, model = load_model(str(LOC_RUN), LOC_100K_PARAMS, "cuda")
@@ -4050,22 +4149,8 @@ def check_seq(smi, inp, ranks):
     for r in range(1, SEQ_RANKS):
         if not torch.equal(ranks[r]["seq"]["idx"], ranks[0]["seq"]["idx"]):
             raise AssertionError(f"seq: rank {r} chose otherwise than 0")
-    got = ranks[0]["seq"]["idx"]
-    differs, first = first_change(got.T, ref.T)
-    gap = torch.zeros(ref.shape[1], dtype=torch.int32)
-    if differs.any():
-        b = _from_np(inp["batch"])
-        with torch.no_grad():
-            for t in range(int(first[differs].max()) + 1):
-                _, s = design_forward(model, b)
-                here = differs & (first == t)
-                g = score_gap_ulps(s.cpu(), ref[t], got[t])
-                gap = torch.where(here, g, gap)
-                b, _, _ = select_design(b, ref[t].cuda())
-    worst = int(gap[differs].max()) if differs.any() else 0
-    if worst > BF16_TIE_ULPS:
-        raise AssertionError(f"seq: a row leaves the unsharded choices at "
-                             f"a score gap of {worst} bf16 ulps")
+    differs, worst = seq_ties("seq", model, inp["batch"], ref,
+                              ranks[0]["seq"]["idx"])
     if any(any(ranks[r]["seq"]["launches"].values())
            for r in range(SEQ_RANKS)):
         raise AssertionError("seq: a kernel was launched (compact path)")
@@ -4080,6 +4165,63 @@ def check_seq(smi, inp, ranks):
     return dict(rows_differing=int(differs.sum()), max_tie_gap_ulps=worst,
                 sharded_s=times, unsharded_s=inp["unsharded_s"],
                 launches={k: 0 for k in launches()})
+
+
+def check_seq_flash(smi, inp, ranks):
+    """21b: the same traces with attention_impl=flash in bf16: every rank's
+    choices equal rank 0's, and the unsharded flash choices but at ties
+    (``seq_ties``); each rank launched exactly T plans and T x layers bf16
+    flash forwards, as the unsharded rollout did, and nothing else.  The
+    float32 control on SEQ_F32_ROWS rows is reported, not held: the rows
+    that leave the unsharded choices, and whether the log-probs came out
+    bitwise equal."""
+    from aline_tpu_torch.utils.serialization import (
+        LOC_100K_PARAMS, load_model)
+    cfg, model = load_model(inp["flash_runs"]["flash"], LOC_100K_PARAMS,
+                            "cuda")
+    per = [ranks[r]["seq"]["flash"] for r in range(SEQ_RANKS)]
+    f32 = [ranks[r]["seq"]["flash_f32"] for r in range(SEQ_RANKS)]
+    for r in range(1, SEQ_RANKS):
+        if not (torch.equal(per[r]["idx"], per[0]["idx"])
+                and torch.equal(f32[r]["idx"], f32[0]["idx"])):
+            raise AssertionError(f"seq flash: rank {r} chose otherwise "
+                                 f"than 0")
+    differs, worst = seq_ties("seq flash", model, inp["batch"],
+                              inp["flash_idx"], per[0]["idx"])
+    want = expected_launches(cfg, flash_plan=BED["T"],
+                             flash_attn_fwd=BED["T"] * cfg.encoder.num_layers)
+    for who, counts in [("unsharded", inp["flash_launches"])] + [
+            (f"rank {r}", per[r]["launches"]) for r in range(SEQ_RANKS)]:
+        if counts != want:
+            raise AssertionError(f"seq flash: {who} launched {counts}, "
+                                 f"expected {want}")
+    same = ~differs
+    lp_err = (per[0]["lp"] - inp["flash_lp"])[:, same].abs().max().item()
+    f32_differs = first_change(f32[0]["idx"].T, inp["f32_idx"].T)[0]
+    f32_err = (f32[0]["lp"] - inp["f32_lp"])[:, ~f32_differs].abs().max()
+    f32_err = f32_err.item()
+    f32_bitwise = bool(torch.equal(f32[0]["lp"], inp["f32_lp"]))
+    times = [p["s"] for p in per]
+    log("seq", f"21b: the same traces under attention_impl=flash, bf16, "
+        f"over {SEQ_RANKS} ranks (gloo, cuda:0): {int(differs.sum())} of "
+        f"{differs.numel()} rows leave the unsharded flash choices, at gaps "
+        f"up to {worst} ulps (limit {BF16_TIE_ULPS}); the other rows' "
+        f"log-probs within {lp_err:.3e}; launches per rank "
+        f"{per[0]['launches']}; rollout wall {max(times):.2f} s sharded "
+        f"(ranks {', '.join(f'{t:.2f}' for t in times)}), "
+        f"{inp['flash_s']:.2f} s unsharded; float32 on {SEQ_F32_ROWS} "
+        f"rows: {int(f32_differs.sum())} rows leave the unsharded choices; "
+        f"the log-probs of the others "
+        f"{'bitwise equal' if f32_bitwise else f'within {f32_err:.3e}'} "
+        f"({smi})")
+    return dict(rows_differing=int(differs.sum()), max_tie_gap_ulps=worst,
+                lp_max_abs=lp_err, f32_rows_differing=int(f32_differs.sum()),
+                f32_lp_max_abs=f32_err, f32_lp_bitwise=f32_bitwise,
+                sharded_s=times,
+                unsharded_s=inp["flash_s"],
+                launches_per_rank=[p["launches"] for p in per],
+                launches={k: sum(p["launches"][k] for p in per)
+                          for k in launches()})
 
 
 def _settings_step(label, extra):
@@ -4174,8 +4316,11 @@ def dist_phases(smi, only):
     if "seq" in only:
         inputs["seq"] = _seq_inputs()
     phases = [p for p in ("dp", "mesh", "seq") if p in only]
+    # the ranks take the inputs, not the one-process results
+    refs_only = ("pce", "nmc", "idx", "flash_idx", "flash_lp", "f32_idx",
+                 "f32_lp")
     ranks = run_ranks(phases, {k: {kk: vv for kk, vv in v.items()
-                                   if kk not in ("pce", "nmc", "idx")}
+                                   if kk not in refs_only}
                                for k, v in inputs.items()})
     if "dp" in only:
         rec["dp"] = check_dp(smi, rec["dp"], ranks, refs["dp"])
@@ -4184,6 +4329,7 @@ def dist_phases(smi, only):
         rec["mesh"] = check_mesh(smi, inputs["mesh"], ranks)
     if "seq" in only:
         rec["seq"] = check_seq(smi, inputs["seq"], ranks)
+        rec["seq_flash"] = check_seq_flash(smi, inputs["seq"], ranks)
     return rec
 
 
@@ -4357,7 +4503,7 @@ def main(argv=None):
              "demo_eval": task_recs["demo_eval"],
              "demo_train": task_recs["demo_train"],
              "dp": dist_recs["dp"], "mesh": dist_recs["mesh"],
-             "seq": dist_recs["seq"],
+             "seq": dist_recs["seq"], "seq_flash": dist_recs["seq_flash"],
              **{k: {"launches": v}
                 for k, v in dist_recs["settings_paths"].items()}}
     kernels = kernel_records(kernel_rec, errs, paths)

@@ -183,3 +183,13 @@ def test_init_distributed_keeps_the_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no card of its own"):
         tmesh.init_distributed("cuda", rank=1, world=2)
     assert tmesh.init_distributed("cpu") == torch.device("cpu")
+
+
+def test_run_ranks_starts_on_the_card_by_default():
+    """``spawn.run_ranks``, like every entry point of the port, runs on the
+    card unless the caller names the CPU (``tests/torch_ranks.py`` does)."""
+    import inspect
+    from aline_tpu_torch.parallel import spawn
+    params = inspect.signature(spawn.run_ranks).parameters
+    assert params["device"].default == "cuda"
+    assert params["backend"].default is None    # NCCL on the card

@@ -9,8 +9,9 @@ designs, x and y within 1e-6, as JAX's
 ``test_sharded_traces_match_unsharded``) and JAX's ``get_traces`` on the
 same batch and parameters; the design log-probs equal the unsharded
 rollout's; so do they with the time token.  ``eval_boed`` with both meshes over the 3 ranks gives one
-process's bounds.  A pool the axis does not divide raises JAX's ``ValueError``;
-the flash attention raises ``NotImplementedError``.
+process's bounds.  A pool the axis does not divide raises JAX's ``ValueError``.
+Under flash the rank's sequence on a mesh of one rank gives the unsharded
+flash traces.
 """
 import copy
 import json
@@ -139,12 +140,25 @@ def test_indivisible_pool_raises_jax_error(seq):
         sharded_greedy_rollout(seq["model"], batch, T, False, _mesh(2))
 
 
-def test_flash_is_refused(seq, tmp_path):
+def test_flash_pool_on_one_rank_equals_unsharded(seq, tmp_path):
+    """The rank's own sequence under flash, [context copies in index order
+    | the pool | targets], on a mesh of one rank: the unsharded flash
+    traces (``tests/test_torch_seq_shard_flash.py`` splits the pool)."""
     with open(os.path.join(LOC_RUN, "config.json")) as f:
         run_cfg = json.load(f)
+    run_cfg["dtype"] = "float32"
     run_cfg["encoder"]["attention_impl"] = "flash"
     (tmp_path / "config.json").write_text(json.dumps(run_cfg))
     _, model = load_model(str(tmp_path), LOC_100K_PARAMS, "cpu")
-    batch = batch_from_numpy(seq["cases"][0][1])
-    with pytest.raises(NotImplementedError, match="flash"):
-        get_traces(model, seq["task"], batch, T, seq_mesh=_mesh(3))
+    batch = init_ctx_idx(batch_from_numpy(seq["cases"][0][1]), 1 + T)
+    zero = torch.zeros(batch.n_target)
+    with torch.no_grad():
+        ro = rollout(model, batch, T, zero, zero, None, time_forward=False,
+                     use_remat=False)
+        idx, xs, ys, lp = sharded_greedy_rollout(model, batch, T, False,
+                                                 _mesh(1))
+    np.testing.assert_array_equal(idx.numpy(), ro.idx.numpy())
+    np.testing.assert_allclose(xs.numpy(), ro.xs.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ys.numpy(), ro.ys.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(lp.numpy(), ro.log_probs.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -60,10 +60,11 @@ EIG_MESHES = (("1d", 2), ("1d", 4), ("2d", (2, 2)), ("2d", (1, 4)),
 
 
 def eig_mesh_worker(rank, world, theta_0, x, y, thetas, L, L_chunk, seed,
-                    stepwise):
-    """The location-finding bounds on every mesh of ``EIG_MESHES``, on
-    the port's draws and on ``thetas``: {(kind, shape, given): (pce,
-    nmc)}; the 2-D ones also through ``eval_eig_from_history``."""
+                    stepwise, meshes=EIG_MESHES):
+    """The location-finding bounds on every mesh of ``meshes``, on the
+    port's draws and on ``thetas`` (one array, or {mesh: array}):
+    {(kind, shape, given): (pce, nmc)}; the 2-D ones also through
+    ``eval_eig_from_history``."""
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.eval.eig import (compute_eig_from_history,
                                           eval_eig_from_history)
@@ -72,13 +73,15 @@ def eig_mesh_worker(rank, world, theta_0, x, y, thetas, L, L_chunk, seed,
     task = HiddenLocation(parse_overrides(["task=location_finding"]).task)
     args = [torch.from_numpy(a) for a in (theta_0, x, y)]
     out = {}
-    for kind, shape in EIG_MESHES:
+    for kind, shape in meshes:
         mesh = (get_mesh(shape, "contrastive") if kind == "1d"
                 else get_eval_mesh(*shape))
         if not mesh.member:
             continue
+        given_thetas = (thetas[(kind, shape)] if isinstance(thetas, dict)
+                        else thetas)
         for given in (False, True):
-            th = torch.from_numpy(thetas) if given else None
+            th = torch.from_numpy(given_thetas) if given else None
             pce, nmc = compute_eig_from_history(
                 task, *args, L, seed, L_chunk=L_chunk, stepwise=stepwise,
                 thetas=th, mesh=mesh)
@@ -175,29 +178,39 @@ def dp_train_worker(rank, world, overrides, out_dir, odd_overrides):
 
 # -- test_torch_seq_shard.py ---------------------------------------------------
 
-def seq_worker(rank, world, run_dir, params_npz, cases, T):
-    """Greedy traces of each case ``(n_ranks, batch)`` with the pool split
-    over the first ``n_ranks`` ranks: {i: (x, y, log_probs, idx)}."""
+def _sharded_traces(model, task, n, batch_np, T):
+    """(x, y, log_probs, idx) of the greedy traces of ``batch_np`` with the
+    pool split over the first ``n`` ranks, or None outside them."""
     from aline_tpu_torch.eval.traces import get_traces, \
         sharded_greedy_rollout
     from aline_tpu_torch.parallel.mesh import get_mesh
-    from aline_tpu_torch.tasks import build_task
     from aline_tpu_torch.tasks.base import batch_from_numpy, init_ctx_idx
+    mesh = get_mesh(n, "seq")
+    if not mesh.member:
+        return None
+    batch = batch_from_numpy(batch_np)
+    _, x, y = get_traces(model, task, batch, T, seq_mesh=mesh)
+    b = init_ctx_idx(batch, min(task.n_context_init + T, batch.n_points))
+    with torch.no_grad():
+        idx, _, _, lp = sharded_greedy_rollout(model, b, T, False, mesh)
+    return x.numpy(), y.numpy(), lp.numpy(), idx.numpy()
+
+
+def seq_worker(rank, world, run_dir, params_npz, cases, T):
+    """Greedy traces of each case ``(n_ranks, batch)`` with the pool split
+    over the first ``n_ranks`` ranks: {i: (x, y, log_probs, idx)}."""
+    from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.parallel.mesh import get_mesh
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.tasks.base import batch_from_numpy
     from aline_tpu_torch.utils.serialization import load_model
     cfg, model = load_model(run_dir, params_npz, "cpu")
     task = build_task(cfg.task)
     out = {}
     for i, (n, batch_np) in enumerate(cases):
-        mesh = get_mesh(n, "seq")
-        if not mesh.member:
-            continue
-        batch = batch_from_numpy(batch_np)
-        _, x, y = get_traces(model, task, batch, T, seq_mesh=mesh)
-        b = init_ctx_idx(batch, min(task.n_context_init + T,
-                                    batch.n_points))
-        with torch.no_grad():
-            idx, _, _, lp = sharded_greedy_rollout(model, b, T, False, mesh)
-        out[i] = (x.numpy(), y.numpy(), lp.numpy(), idx.numpy())
+        traces = _sharded_traces(model, task, n, batch_np, T)
+        if traces is not None:
+            out[i] = traces
     # a fresh model with the time token and the design head's time feature
     model_t, task_t = time_token_model()
     batch = batch_from_numpy(cases[0][1])
@@ -216,12 +229,14 @@ TIME_TOKEN_ARGS = ["task=location_finding", "encoder.with_time_token=true",
                    "encoder.num_layers=2", "head.num_components=4"]
 
 
-def time_token_model():
-    """(model, task) of TIME_TOKEN_ARGS, initialised from seed 0."""
+def time_token_model(attention_impl="auto"):
+    """(model, task) of TIME_TOKEN_ARGS under ``attention_impl``,
+    initialised from seed 0."""
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.models.aline import build_model
     from aline_tpu_torch.tasks import build_task
-    cfg = parse_overrides(TIME_TOKEN_ARGS)
+    cfg = parse_overrides(TIME_TOKEN_ARGS
+                          + [f"encoder.attention_impl={attention_impl}"])
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_model(cfg, "cpu").eval()
@@ -231,6 +246,42 @@ def time_token_model():
 # eval_boed at a tiny protocol: pools of 15 tokens, 5 chunks of 64 draws
 BOED = dict(T=3, L=300, M=8, batch_size=4, seed=5, n_query=14,
             L_chunk=64, stepwise=True)
+
+
+# -- test_torch_seq_shard_flash.py ---------------------------------------------
+
+def seq_core_worker(rank, world, run_dirs, params_npz, cases, T, boed):
+    """The flash and dense cores with the pool split: the greedy traces of
+    each case ``(run, n_ranks, batch)`` on the run directory
+    ``run_dirs[run]``, {i: (x, y, log_probs, idx)}; the time-token model's
+    traces under each core, {("time", impl): x}, the pool of ``cases[0]``
+    over its ranks; and ``eval_boed(**boed)`` on ``run_dirs["flash"]``
+    with the pool and the contrastive chunks over all ranks."""
+    from aline_tpu_torch.eval.eig import eval_boed
+    from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.parallel.mesh import get_mesh
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.tasks.base import batch_from_numpy
+    from aline_tpu_torch.utils.serialization import load_model
+    runs = {k: load_model(d, params_npz, "cpu") for k, d in run_dirs.items()}
+    tasks = {k: build_task(cfg.task) for k, (cfg, _) in runs.items()}
+    out = {}
+    for i, (run, n, batch_np) in enumerate(cases):
+        traces = _sharded_traces(runs[run][1], tasks[run], n, batch_np, T)
+        if traces is not None:
+            out[i] = traces
+    n, batch_np = cases[0][1:]
+    for impl in ("flash", "naive"):
+        mesh = get_mesh(n, "seq")            # collective: every rank
+        if mesh.member:
+            model_t, task_t = time_token_model(impl)
+            out[("time", impl)] = get_traces(
+                model_t, task_t, batch_from_numpy(batch_np), T,
+                time_token=True, seq_mesh=mesh)[1].numpy()
+    out["boed"] = eval_boed(runs["flash"][1], tasks["flash"], **boed,
+                            seq_mesh=get_mesh(0, "seq"),
+                            mesh=get_mesh(0, "contrastive"))
+    return out
 
 
 def numpy_batch(batch):
