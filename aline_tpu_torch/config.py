@@ -66,6 +66,21 @@ class EvalConfig:
     err_type: str = "se"
 
 
+# al1d_wide128 (assets/al1d_wide128_config.json, which these overrides
+# give with output_dir=outputs/al1d_wide128): the GP-AL-1D recipe of
+# bench.py:35-47 (B=200, T=30, n_query_init=200, bf16) at d=1024 with 8
+# heads of 128 (benchmarks/bench_attention_wide.py's ``wide128`` head),
+# F = 4 d (ALINE's own ratio, 32 -> 128: assumed, no published config of
+# this width exists), 3 post-norm layers, 10 components, and the
+# role-masked flash attention.  ``dtype=float32`` runs it through both
+# GMM kernels and the float32 flash pair.
+WIDE128_RECIPE = ("task=al_mix", "task.dim_x=1", "task.n_target_theta=2",
+                  "task.n_query_init=200", "batch_size=200", "min_T=30",
+                  "T=30", "dtype=bfloat16", "encoder.dim_embedding=1024",
+                  "encoder.n_head=8", "encoder.dim_feedforward=4096",
+                  "encoder.num_layers=3", "head.num_components=10",
+                  "encoder.attention_impl=flash")
+
 EVAL_PRESETS = {
     "default": EvalConfig(),
     "bed": EvalConfig(EIG=True),

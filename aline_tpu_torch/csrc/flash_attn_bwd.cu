@@ -82,7 +82,11 @@
 // so its scores are the forward's bit for bit; pass 2 takes the same
 // products over the same k positions in the transposed orientation, and
 // its P may differ from pass 1's in the last bits of the tensor cores'
-// sums.  By count, a pair costs a thread about 12 instructions in pass 1
+// sums.  At dh = 128 a pass-2 warp's k and v fragments and two [16, 128]
+// float32 accumulators would need more than a thread's 255 registers, so
+// two warps take the same 16 key columns, each computing Sᵀ and dPᵀ whole
+// and summing dK and dV over one half of dh (Shape::WAYS): the scores cost
+// twice, the accumulators half.  By count, a pair costs a thread about 12 instructions in pass 1
 // and 19 in pass 2.  At the training shape the keys that pass 2 walks
 // (codes 1 and 2) fill two of a head's five CTAs, so few CTAs carry that
 // pass.  No atomics: bitwise repeatable.
@@ -111,8 +115,9 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
-  __shared__ __align__(16) T ks[2][TILE * DH];
-  __shared__ __align__(16) T vs[2][TILE * DH];
+  T* const ring = dyn_smem<T>();           // ring_smem<DH, T>() bytes
+  const Ring<T> ks{ring, TILE * DH};
+  const Ring<T> vs{ring + 2 * TILE * DH, TILE * DH};
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
@@ -183,8 +188,9 @@ flash_attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int N, float scale, int n_blocks) {
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
-  __shared__ __align__(16) T qs[2][TILE * DH];
-  __shared__ __align__(16) T dos[2][TILE * DH];
+  T* const ring = dyn_smem<T>();           // ring_smem<DH, T>() bytes
+  const Ring<T> qs{ring, TILE * DH};
+  const Ring<T> dos{ring + 2 * TILE * DH, TILE * DH};
   __shared__ float lses[2][TILE];
   __shared__ float deltas[2][TILE];
 
@@ -268,8 +274,10 @@ flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                               float scale, int n_blocks) {
   using namespace mma;
   using S = Shape<DH>;
-  __shared__ __align__(16) bf16 ks[2][kTile * S::SROW];
-  __shared__ __align__(16) bf16 vs[2][kTile * S::SROW];
+  bf16* const ring = dyn_smem<bf16>();     // ring_smem<DH, bf16>() bytes
+  const Ring<bf16> ks{ring, kTile * S::SROW};
+  const Ring<bf16> vs{ring + 2 * kTile * S::SROW,
+                      kTile * S::SROW};
   __shared__ float d_rows[kWarps][16];
 
   const int bh = blockIdx.x / n_blocks;
@@ -325,7 +333,7 @@ flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   load_a<DH>(qf, q + head, row, tq);
   load_a<DH>(df, dout + head, row, tq);
   float acc[S::NT][4];
-  zero<DH>(acc);
+  zero(acc);
   const float c2 = scale * kLog2e;
   const bool all_query = w0 + 16 <= pr.n_query;
 
@@ -382,8 +390,8 @@ flash_attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   store_rows<DH>(dq + head, acc, row, 2 * tq, mul);
 }
 
-// Pass 2 in bfloat16 on the tensor cores: dK and dV, a warp per 16 key
-// columns.
+// Pass 2 in bfloat16 on the tensor cores: dK and dV, S::WAYS warps per 16
+// key columns (each summing NTW of the n8 tiles of dh).
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
@@ -396,16 +404,21 @@ flash_attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                                 int H, int N, float scale, int n_blocks) {
   using namespace mma;
   using S = Shape<DH>;
-  __shared__ __align__(16) bf16 qs[2][kTile * S::SROW];
-  __shared__ __align__(16) bf16 dos[2][kTile * S::SROW];
+  constexpr int NTW = S::NTW;
+  bf16* const ring = dyn_smem<bf16>();     // ring_smem<DH, bf16>() bytes
+  const Ring<bf16> qs{ring, kTile * S::SROW};
+  const Ring<bf16> dos{ring + 2 * kTile * S::SROW,
+                       kTile * S::SROW};
   __shared__ __align__(16) float lses[2][kTile];
   __shared__ __align__(16) float deltas[2][kTile];
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
-  const int p0 = (blockIdx.x % n_blocks) * kRows;    // positions in key_perm
-  const int lane = threadIdx.x % 32, tq = lane % 4;
-  const int w0 = p0 + 16 * (threadIdx.x / 32);       // the warp's first key
+  // positions in key_perm
+  const int p0 = (blockIdx.x % n_blocks) * (kRows / S::WAYS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+  const int w0 = p0 + 16 * (warp / S::WAYS);         // the warp's first key
+  const int u0 = NTW * (warp % S::WAYS);             // its first n8 tile
   const int kpos[2] = {w0 + lane / 4, w0 + lane / 4 + 8};
   int col[2];
 #pragma unroll
@@ -419,9 +432,9 @@ flash_attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
   uint32_t kf[S::KS][4], vf[S::KS][4];
   load_a<DH>(kf, k + head, col, tq);
   load_a<DH>(vf, v + head, col, tq);
-  float dka[S::NT][4], dva[S::NT][4];
-  zero<DH>(dka);
-  zero<DH>(dva);
+  float dka[NTW][4], dva[NTW][4];
+  zero(dka);
+  zero(dva);
   const float c2 = scale * kLog2e;
   const bool all_ctx = w0 + 16 <= pr.n_ctx;   // every row sees every key
   const bool all_vis = w0 + 16 <= pr.n_vis;   // every query row does
@@ -490,16 +503,26 @@ flash_attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
       }
       uint32_t w[3][4];
       split3(w, p);
-      mma_split_t<DH>(dva, w, dos[t & 1], 16 * c, lane);
+      mma_split_t<DH, NTW>(dva, w, dos[t & 1], 16 * c, lane, u0);
       split3(w, ds);
-      mma_split_t<DH>(dka, w, qs[t & 1], 16 * c, lane);
+      mma_split_t<DH, NTW>(dka, w, qs[t & 1], 16 * c, lane, u0);
     }
     __syncthreads();
   }
   cp_async_wait<0>();          // no copy outlives the CTA (n_tiles = 0)
   const float kmul[2] = {scale, scale}, vmul[2] = {1.f, 1.f};
-  store_rows<DH>(dk + head, dka, col, 2 * tq, kmul);
-  store_rows<DH>(dv + head, dva, col, 2 * tq, vmul);
+  store_rows<DH, NTW>(dk + head, dka, col, 2 * tq, kmul, u0);
+  store_rows<DH, NTW>(dv + head, dva, col, 2 * tq, vmul, u0);
+}
+
+// the dynamic shared memory of a CTA of either pass: two stages of two
+// tiles
+template <int DH, typename T>
+constexpr size_t ring_smem() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return 4 * (size_t)mma::Shape<DH>::STAGE_BYTES;
+  else
+    return 4 * (size_t)Split<DH>::TILE * DH * sizeof(T);
 }
 
 template <int DH, typename T>
@@ -508,28 +531,47 @@ cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
                    T* dv, float* delta, int B, int H, int N, float scale,
                    cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  // rows of a pass-1 CTA, key columns of a pass-2 CTA
   constexpr int ROWS = kBf16 ? mma::kRows : Split<DH>::ROWS;
+  constexpr int KEYS = kBf16 ? mma::kRows / mma::Shape<DH>::WAYS : ROWS;
+  constexpr size_t smem = ring_smem<DH, T>();
+  static int granted[2][kMaxDevices] = {};
   const int n_blocks = (N + ROWS - 1) / ROWS;
+  const int n_blocks2 = (N + KEYS - 1) / KEYS;
   const long long ctas = (long long)B * H * n_blocks;
-  if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
+  const long long ctas2 = (long long)B * H * n_blocks2;
+  if (ctas2 > INT_MAX) return cudaErrorInvalidConfiguration;
+  const void* pass1;
+  const void* pass2;
+  if constexpr (kBf16) {
+    pass1 = (const void*)flash_attn_bwd_dq_bf16_kernel<DH>;
+    pass2 = (const void*)flash_attn_bwd_dkdv_bf16_kernel<DH>;
+  } else {
+    pass1 = (const void*)flash_attn_bwd_dq_kernel<DH, T>;
+    pass2 = (const void*)flash_attn_bwd_dkdv_kernel<DH, T>;
+  }
+  cudaError_t e = allow_smem(pass1, smem, granted[0]);
+  if (e == cudaSuccess) e = allow_smem(pass2, smem, granted[1]);
+  if (e != cudaSuccess) return e;
   if constexpr (kBf16)
     flash_attn_bwd_dq_bf16_kernel<DH>
-        <<<(unsigned)ctas, kThreads, 0, stream>>>(
+        <<<(unsigned)ctas, kThreads, smem, stream>>>(
             q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
   else
-    flash_attn_bwd_dq_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
+    flash_attn_bwd_dq_kernel<DH, T><<<(unsigned)ctas, kThreads, smem,
+                                      stream>>>(
         q, k, v, plan, o, lse, dout, dq, delta, H, N, scale, n_blocks);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // same stream: pass 2 reads the D that pass 1 wrote
   if constexpr (kBf16)
     flash_attn_bwd_dkdv_bf16_kernel<DH>
-        <<<(unsigned)ctas, kThreads, 0, stream>>>(
-            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
+        <<<(unsigned)ctas2, kThreads, smem, stream>>>(
+            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks2);
   else
     flash_attn_bwd_dkdv_kernel<DH, T>
-        <<<(unsigned)ctas, kThreads, 0, stream>>>(
-            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks);
+        <<<(unsigned)ctas2, kThreads, smem, stream>>>(
+            q, k, v, plan, lse, dout, delta, dk, dv, H, N, scale, n_blocks2);
   return cudaGetLastError();
 }
 
@@ -561,6 +603,7 @@ int run(const void* q, const void* k, const void* v, const void* key_perm,
     case 16: return launch<16>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
     case 32: return launch<32>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
     case 64: return launch<64>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
+    case 128: return launch<128>(qt, kt, vt, plan, ot, lf, gt, dqt, dkt, dvt, df, B, H, N, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -572,8 +615,8 @@ int run(const void* q, const void* k, const void* v, const void* key_perm,
 // [B, H, N, dh] (float32 in flash_attn_bwd, bfloat16 in
 // flash_attn_bwd_bf16) and lse, delta (scratch for D) [B, H, N] float32;
 // the plan's key_perm, row_perm [B, N] and n_ctx, n_vis, n_query, dense
-// [B] int32 (flash_plan.cu).  Returns the cudaError_t of the launches (0 =
-// launched).
+// [B] int32 (flash_plan.cu); dh in {8, 16, 32, 64, 128}.  Returns the
+// cudaError_t of the launches (0 = launched).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* key_perm, const void* row_perm,
                               const void* n_ctx, const void* n_vis,

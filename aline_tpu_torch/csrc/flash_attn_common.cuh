@@ -10,7 +10,13 @@
 //
 // A query row (or, in the backward's dK/dV pass, a key column) is owned by
 // a group of G = dh/16 lanes (G = 1 for dh <= 16); each lane keeps
-// DPT = dh/G of its dims in registers (the float32 kernels).  Every float32
+// DPT = dh/G of its dims in registers (the float32 kernels).
+//
+// The kernels take dh in {8, 16, 32, 64, 128}; the wrapper zero-pads any
+// other dh up to 128 to the next of these (exact: a zero dim adds 0 to
+// every dot product, and the scale is the true dh's).  The shared-memory
+// rings are dynamic (dyn_smem, allow_smem): at dh = 128 they outgrow the
+// 48 KB that static shared memory may hold.  Every float32
 // kernel computes a score with masked_score below, so the backward's
 // passes recompute the forward's scores bit for bit: the same FMA order
 // within a lane and the same xor-shuffle tree across the group.
@@ -37,7 +43,7 @@ struct Split {
   static constexpr int G = DH / DPT;             // lanes per row or column
   static constexpr int ROWS = kThreads / G;      // rows or columns per CTA
   // keys (or rows) per shared-memory stage: two stages of two [TILE, DH]
-  // float arrays stay within 32 KB (16 KB in bfloat16)
+  // float arrays take 32 KB up to dh = 64 and 64 KB at dh = 128
   static constexpr int TILE = DH <= 32 ? 64 : 32;
 };
 
@@ -93,6 +99,44 @@ __device__ __forceinline__ PlanRow plan_row(const Plan& plan, int b, int N) {
   r.N = N;
   r.dense = plan.dense[b] != 0;
   return r;
+}
+
+// -- dynamic shared memory ----------------------------------------------------
+
+// The block's dynamic shared memory (16-byte aligned) as T
+template <typename T>
+__device__ __forceinline__ T* dyn_smem() {
+  extern __shared__ float4 flash_smem[];
+  return reinterpret_cast<T*>(flash_smem);
+}
+
+// Stage i of a ring of equal tiles in shared memory: base + i * stride
+// (arithmetic, so a run-time stage index costs no local memory)
+template <typename T>
+struct Ring {
+  T* base;
+  int stride;
+  __device__ __forceinline__ T* operator[](int i) const {
+    return base + i * stride;
+  }
+};
+
+constexpr int kMaxDevices = 64;
+
+// Let kernel fn take smem bytes of dynamic shared memory on the current
+// device; granted[dev] remembers the most it was given there (one array
+// per kernel, kept by the caller).
+inline cudaError_t allow_smem(const void* fn, size_t smem, int* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if ((int)smem <= granted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess) granted[dev] = (int)smem;
+  return e;
 }
 
 // -- asynchronous copies into shared memory (sm_80+) ------------------------

@@ -115,8 +115,9 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int DPT = Split<DH>::DPT, G = Split<DH>::G;
   constexpr int ROWS = Split<DH>::ROWS, TILE = Split<DH>::TILE;
   constexpr int kChunk = DH <= 16 ? 16 : 8;
-  __shared__ __align__(16) T ks[2][TILE * DH];
-  __shared__ __align__(16) T vs[2][TILE * DH];
+  T* const ring = dyn_smem<T>();           // fwd_smem<DH, T>() bytes
+  const Ring<T> ks{ring, TILE * DH};
+  const Ring<T> vs{ring + 2 * TILE * DH, TILE * DH};
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
@@ -217,7 +218,7 @@ struct RowGroup {
       l[h] = 0.f;
     }
     load_a<DH>(qf, qh, row, lane % 4);
-    mma::zero<DH>(acc);
+    mma::zero(acc);
     keys = ceil16(pr.keys_for(w0));
     all_query = w0 + 16 <= pr.n_query;
   }
@@ -318,8 +319,10 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q,
                            int n_blocks) {
   using namespace mma;
   using S = Shape<DH>;
-  __shared__ __align__(16) bf16 ks[2][kTile * S::SROW];
-  __shared__ __align__(16) bf16 vs[2][kTile * S::SROW];
+  bf16* const ring = dyn_smem<bf16>();     // fwd_smem<DH, bf16>() bytes
+  const Ring<bf16> ks{ring, kTile * S::SROW};
+  const Ring<bf16> vs{ring + 2 * kTile * S::SROW,
+                      kTile * S::SROW};
 
   const int bh = blockIdx.x / n_blocks;
   const PlanRow pr = plan_row(plan, bh / H, N);
@@ -355,21 +358,40 @@ flash_attn_fwd_bf16_kernel(const bf16* __restrict__ q,
   rows.finish(o + head, lse + (size_t)bh * N, n_pad, lane);
 }
 
+// the dynamic shared memory of a forward CTA: two stages of k and v tiles
+template <int DH, typename T>
+constexpr size_t fwd_smem() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return 4 * (size_t)mma::Shape<DH>::STAGE_BYTES;
+  else
+    return 4 * (size_t)Split<DH>::TILE * DH * sizeof(T);
+}
+
 template <int DH, typename T>
 cudaError_t launch(const T* q, const T* k, const T* v, const Plan& plan,
                    T* o, float* lse, int B, int H, int N, int n_pad,
                    float scale, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int ROWS = kBf16 ? mma::kRows : Split<DH>::ROWS;
+  constexpr size_t smem = fwd_smem<DH, T>();
+  static int granted[kMaxDevices] = {};
   const int n_blocks = (N + ROWS - 1) / ROWS;
   const long long ctas = (long long)B * H * n_blocks;
   if (ctas > INT_MAX) return cudaErrorInvalidConfiguration;
-  if constexpr (kBf16)
-    flash_attn_fwd_bf16_kernel<DH><<<(unsigned)ctas, kThreads, 0, stream>>>(
+  cudaError_t e;
+  if constexpr (kBf16) {
+    e = allow_smem((const void*)flash_attn_fwd_bf16_kernel<DH>, smem,
+                   granted);
+    if (e != cudaSuccess) return e;
+    flash_attn_fwd_bf16_kernel<DH><<<(unsigned)ctas, kThreads, smem,
+                                     stream>>>(q, k, v, plan, o, lse, H, N,
+                                               n_pad, scale, n_blocks);
+  } else {
+    e = allow_smem((const void*)flash_attn_fwd_kernel<DH, T>, smem, granted);
+    if (e != cudaSuccess) return e;
+    flash_attn_fwd_kernel<DH, T><<<(unsigned)ctas, kThreads, smem, stream>>>(
         q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
-  else
-    flash_attn_fwd_kernel<DH, T><<<(unsigned)ctas, kThreads, 0, stream>>>(
-        q, k, v, plan, o, lse, H, N, n_pad, scale, n_blocks);
+  }
   return cudaGetLastError();
 }
 
@@ -395,6 +417,7 @@ int run(const void* q, const void* k, const void* v, const void* key_perm,
     case 16: return launch<16>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
     case 32: return launch<32>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
     case 64: return launch<64>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
+    case 128: return launch<128>(qt, kt, vt, plan, ot, lf, B, H, N, n_pad, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -405,8 +428,8 @@ int run(const void* q, const void* k, const void* v, const void* key_perm,
 // contiguous, 16-byte aligned arrays: q, k, v, o [B, H, N, dh] (float32 in
 // flash_attn_fwd, bfloat16 in flash_attn_fwd_bf16) and lse [B, H, N]
 // float32; the plan's key_perm, row_perm [B, N] and n_ctx, n_vis,
-// n_query, dense [B] int32 (flash_plan.cu).  n_pad = Np - N.  Returns the
-// cudaError_t of the launch (0 = launched).
+// n_query, dense [B] int32 (flash_plan.cu).  n_pad = Np - N; dh in {8, 16,
+// 32, 64, 128}.  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* key_perm, const void* row_perm,
                               const void* n_ctx, const void* n_vis,

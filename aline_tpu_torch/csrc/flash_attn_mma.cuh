@@ -53,6 +53,15 @@ struct Shape {
   static constexpr int SROW = DH == 8 ? DH : DH + 8;  // shared row stride
   static constexpr int KS = DH == 8 ? 1 : DH / 16;     // k-steps over dh
   static constexpr int NT = DH / 8;                    // n8 tiles over dh
+  // the backward's dK/dV pass: warps that share 16 key columns, each
+  // summing dK and dV over NT / WAYS of the n8 tiles.  At dh = 128 two
+  // [16, 128] float32 accumulators beside the k and v fragments would take
+  // more than the 255 registers a thread has; two warps then score the
+  // same keys and split the dims.
+  static constexpr int WAYS = DH >= 128 ? 2 : 1;
+  static constexpr int NTW = NT / WAYS;
+  // a ring stage's bytes: kTile rows of SROW bfloat16
+  static constexpr int STAGE_BYTES = kTile * SROW * 2;
 };
 
 __device__ __forceinline__ int ceil16(int n) { return (n + 15) & ~15; }
@@ -223,11 +232,13 @@ __device__ __forceinline__ void split3(uint32_t (&w)[3][4],
 }
 
 // acc += (w[0] + w[1] + w[2]) X[r0, r0 + 16), the tile's rows as the k
-// side, over the DH columns of X: three m16n8k16 products, smallest first.
-template <int DH>
-__device__ __forceinline__ void mma_split_t(float (&acc)[Shape<DH>::NT][4],
+// side, over NTS n8 tiles of the DH columns of X from tile u0 (all of them
+// by default): three m16n8k16 products, smallest first.
+template <int DH, int NTS = Shape<DH>::NT>
+__device__ __forceinline__ void mma_split_t(float (&acc)[NTS][4],
                                             const uint32_t (&w)[3][4],
-                                            const bf16* x, int r0, int lane) {
+                                            const bf16* x, int r0, int lane,
+                                            int u0 = 0) {
   constexpr int SROW = Shape<DH>::SROW, NT = Shape<DH>::NT;
   if constexpr (NT == 1) {
     uint32_t b[2];
@@ -239,9 +250,10 @@ __device__ __forceinline__ void mma_split_t(float (&acc)[Shape<DH>::NT][4],
     // 8u + 8), transposed
     const int mi = lane >> 3, r = lane & 7;
 #pragma unroll
-    for (int u = 0; u < NT; u += 2) {
+    for (int u = 0; u < NTS; u += 2) {
       uint32_t b[4];
-      ldsm_x4_t(b, x + (r0 + 8 * (mi & 1) + r) * SROW + 8 * (u + (mi >> 1)));
+      ldsm_x4_t(b, x + (r0 + 8 * (mi & 1) + r) * SROW +
+                       8 * (u0 + u + (mi >> 1)));
 #pragma unroll
       for (int p = 2; p >= 0; --p) {
         mma_k16(acc[u], w[p], b[0], b[1]);
@@ -251,10 +263,10 @@ __device__ __forceinline__ void mma_split_t(float (&acc)[Shape<DH>::NT][4],
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void zero(float (&acc)[Shape<DH>::NT][4]) {
+template <int NTS>
+__device__ __forceinline__ void zero(float (&acc)[NTS][4]) {
 #pragma unroll
-  for (int u = 0; u < Shape<DH>::NT; ++u)
+  for (int u = 0; u < NTS; ++u)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
 }
@@ -268,20 +280,20 @@ __device__ __forceinline__ float walk_score(float d, float c2, bool exists,
 }
 
 // acc's rows as bfloat16 pairs: rows row[0] (elements 0, 1 of each
-// m16n8 tile) and row[1] (2, 3), columns 8 u + d and + 1 of the [*, DH]
-// array x, each times mul[h]; rows < 0 are skipped
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* x,
-                                           const float (&acc)[Shape<DH>::NT][4],
+// m16n8 tile) and row[1] (2, 3), columns 8 (u0 + u) + d and + 1 of the
+// [*, DH] array x, each times mul[h]; rows < 0 are skipped
+template <int DH, int NTS = Shape<DH>::NT>
+__device__ __forceinline__ void store_rows(bf16* x, const float (&acc)[NTS][4],
                                            const int (&row)[2], int d,
-                                           const float (&mul)[2]) {
+                                           const float (&mul)[2],
+                                           int u0 = 0) {
 #pragma unroll
-  for (int u = 0; u < Shape<DH>::NT; ++u)
+  for (int u = 0; u < NTS; ++u)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       if (row[h] >= 0)
-        *reinterpret_cast<__nv_bfloat162*>(x + (size_t)row[h] * DH + 8 * u +
-                                           d) =
+        *reinterpret_cast<__nv_bfloat162*>(x + (size_t)row[h] * DH +
+                                           8 * (u0 + u) + d) =
             __floats2bfloat162_rn(acc[u][2 * h] * mul[h],
                                   acc[u][2 * h + 1] * mul[h]);
 }

@@ -29,7 +29,7 @@
 // Design.
 //  * One wave of persistent CTAs (8 warps, one CTA an SM): CTA b owns the
 //    contiguous rows [b*L, (b+1)*L), L a whole number of steps chosen from
-//    the row count and the SM count alone (gmm_head_bwd_grid), so the grid,
+//    the row count and the SM count alone (plan_grid), so the grid,
 //    and with it every sum, depends only on the shape and the device.  The
 //    range's Z rows, split into TF32 (hi, lo), stay in shared memory for
 //    all components, and so does the range's dz sum.
@@ -72,11 +72,36 @@
 // register-resident dW1 sums and one wave of CTAs.  Timed in turns with
 // the first form in one call, this one was faster (PERF.md, section 6).
 // Whether a well register-tiled FMA form would beat it is not measured.
+//
+// Wide heads (D and F multiples of 128; gmm_tiled.cuh).  Here the design
+// above fails twice: W1[c] does not fit in shared memory, and 128 partial
+// copies of the weight gradients would take C (D F + 4 F + 3) floats each
+// (21.6 GB at D = 1024, F = 4096, C = 10).  At the training shape (B=200,
+// T=102) the three products take 5.1 TFLOP: 31 ms at the 3xTF32 bound,
+// far above the bytes of any buffer below.  So per component c, four
+// launches on the stream, each sum in a fixed order (no atomics, bitwise
+// repeatable):
+//  1. gmm_bwd_dh_kernel, one CTA per (128 rows, 128 hidden units): the
+//     forward's mainloop and bias give pre bitwise as the forward has it;
+//     the epilogue forms dh = (g . W2[c]^T) [pre > 0] and writes it to a
+//     [rows, F] scratch (the only hidden-sized buffer: one component's,
+//     334 MB at the training shape), and sums dW2 and db1 over its rows
+//     (the thread's rows, the xor 4/8/16 tree, the 4 warps along M in
+//     order) into one partial per row tile: [rows / 128, F, 4] floats;
+//  2. gmm_bwd_sum_kernel sums those partials over the row tiles in order
+//     (and db2's, the sums of g);
+//  3. gmm_bwd_dz_kernel: dz (+)= dh . W1[c]^T, one CTA per (128 rows, 128
+//     of D), adding to component c - 1's sum (c = 0 writes): dz sums over
+//     the components in order;
+//  4. gmm_bwd_dw1_kernel: dW1[c] = Z^T . dh, one CTA per (128 of D, 128 of
+//     F) tile of the output, reducing over every row inside the CTA (K =
+//     rows): no partial copies at all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gmm_head_common.cuh"
+#include "gmm_tiled.cuh"
 
 namespace {
 
@@ -448,34 +473,275 @@ cudaError_t launch_d(const float* z, const float* w1, const float* b1,
   return launch<D, 4>(z, w1, b1, w2, g, dz, part, grads, rows, C, F, s);
 }
 
+// -- the wide form (gmm_tiled.cuh; see the note at the top) -----------------
+
+// 1: dh of component c into dh [rows, F], and per row tile the partial sums
+// part[tile][f] = (dW2[c][f, 0..2], db1[c][f]) and, from the CTAs of the
+// first F chunk, part_b2[tile] = the sums of g[:, c, 0..2].
+__global__ void __launch_bounds__(gmm::tiled::kThreads, 2)
+gmm_bwd_dh_kernel(const float* __restrict__ z, const float* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ g, float* __restrict__ dh,
+                  float4* __restrict__ part, float4* __restrict__ part_b2,
+                  long long rows, int D, int C, int F, int c) {
+  using namespace gmm::tiled;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int gq = gmm::lane_g();
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const float* b1c = b1 + (size_t)c * F;
+  const float* w2c = w2 + (size_t)c * F * 3;
+  Acc acc;
+  mainloop<kMK, kKN>(acc, z, D, w1 + (size_t)c * D * F, F, m0, n0, rows, D,
+                     smem);
+  float gv[kMT][2][3];  // g of the thread's rows (zero past the end)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = m0 + acc_row(mt, 2 * h);
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        gv[mt][h][o] = r < rows ? __ldg(g + (r * C + c) * 3 + o) : 0.f;
+    }
+  float* red = smem;  // [4 warps along M][kBN][4]
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = acc_col(nt, j), f = n0 + col;
+      const float bias = __ldg(b1c + f);
+      const float v0 = __ldg(w2c + 3 * f), v1 = __ldg(w2c + 3 * f + 1),
+                  v2 = __ldg(w2c + 3 * f + 2);
+      float s[4] = {0.f, 0.f, 0.f, 0.f};  // dW2[f, 0..2], db1[f]
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* gg = gv[mt][h];
+          const float pre = acc.v[mt][nt][2 * h + j] + bias;
+          const float x = fmaxf(pre, 0.f);
+          s[0] = fmaf(x, gg[0], s[0]);
+          s[1] = fmaf(x, gg[1], s[1]);
+          s[2] = fmaf(x, gg[2], s[2]);
+          float gw = gg[0] * v0;
+          gw = fmaf(gg[1], v1, gw);
+          gw = fmaf(gg[2], v2, gw);
+          const float d = pre > 0.f ? gw : 0.f;
+          s[3] += d;
+          acc.v[mt][nt][2 * h + j] = d;
+        }
+      // over the 8 lanes that share t (the warp's rows), in a fixed tree
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int sh = 4; sh < 32; sh <<= 1)
+          s[q] += __shfl_xor_sync(0xffffffffu, s[q], sh);
+      }
+      if (gq == 0)
+        *reinterpret_cast<float4*>(red + (warp_m() * kBN + col) * 4) =
+            make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+  // dh of the tile, two columns a store
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = m0 + acc_row(mt, 2 * h);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        *reinterpret_cast<float2*>(dh + r * F + n0 + acc_col(nt, 0)) =
+            make_float2(acc.v[mt][nt][2 * h], acc.v[mt][nt][2 * h + 1]);
+    }
+  __syncthreads();
+  const float4* red4 = reinterpret_cast<const float4*>(red);
+  for (int col = threadIdx.x; col < kBN; col += kThreads) {
+    float4 a = red4[col];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) {
+      const float4 b = red4[w * kBN + col];
+      a = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+    }
+    part[(long long)blockIdx.x * F + n0 + col] = a;
+  }
+  if (blockIdx.y == 0 && threadIdx.x < 3) {
+    float sum = 0.f;  // g over the tile's rows, in order
+    for (int i = 0; i < kBM && m0 + i < rows; ++i)
+      sum += __ldg(g + ((m0 + i) * C + c) * 3 + threadIdx.x);
+    reinterpret_cast<float*>(part_b2 + blockIdx.x)[threadIdx.x] = sum;
+  }
+}
+
+// 2: dW2[c], db1[c] and db2[c] from the row tiles' partials, summed over
+// the tiles in order, into grads = [dW1 | db1 | dW2 | db2]
+__global__ void gmm_bwd_sum_kernel(const float4* __restrict__ part,
+                                   const float4* __restrict__ part_b2,
+                                   float* __restrict__ grads, int tiles,
+                                   int D, int C, int F, int c) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f > F) return;
+  const float4* src = f < F ? part + f : part_b2;
+  const long long stride = f < F ? F : 1;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < tiles; ++i) {
+    const float4 b = src[i * stride];
+    a = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+  float* db1 = grads + (long long)C * D * F;
+  float* dw2 = db1 + (long long)C * F;
+  float* db2 = dw2 + (long long)C * F * 3;
+  float* d = f < F ? dw2 + ((long long)c * F + f) * 3 : db2 + 3 * c;
+  d[0] = a.x;
+  d[1] = a.y;
+  d[2] = a.z;
+  if (f < F) db1[(long long)c * F + f] = a.w;
+}
+
+// 3: dz[:, d tile] = (c > 0 ? dz : 0) + dh . W1[c]^T
+__global__ void __launch_bounds__(gmm::tiled::kThreads, 2)
+gmm_bwd_dz_kernel(const float* __restrict__ dh, const float* __restrict__ w1,
+                  float* __restrict__ dz, long long rows, int D, int F,
+                  int c) {
+  using namespace gmm::tiled;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  Acc acc;
+  mainloop<kMK, kNK>(acc, dh, F, w1 + (size_t)c * D * F, F, m0, n0, rows, F,
+                     smem);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = m0 + acc_row(mt, 2 * h);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float2* dst =
+            reinterpret_cast<float2*>(dz + r * D + n0 + acc_col(nt, 0));
+        float2 v = make_float2(acc.v[mt][nt][2 * h], acc.v[mt][nt][2 * h + 1]);
+        if (c > 0) {
+          const float2 prev = *dst;
+          v = make_float2(prev.x + v.x, prev.y + v.y);
+        }
+        *dst = v;
+      }
+    }
+}
+
+// 4: dW1[c][d tile, f tile] = Z^T . dh over every row
+__global__ void __launch_bounds__(gmm::tiled::kThreads, 2)
+gmm_bwd_dw1_kernel(const float* __restrict__ z, const float* __restrict__ dh,
+                   float* __restrict__ grads, long long rows, int D, int F,
+                   int c) {
+  using namespace gmm::tiled;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  Acc acc;
+  mainloop<kKM, kKN>(acc, z, D, dh, F, m0, n0, D, rows, smem);
+  float* dw1 = grads + (size_t)c * D * F;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = m0 + acc_row(mt, 2 * h);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        *reinterpret_cast<float2*>(dw1 + (size_t)d * F + n0 +
+                                   acc_col(nt, 0)) =
+            make_float2(acc.v[mt][nt][2 * h], acc.v[mt][nt][2 * h + 1]);
+    }
+}
+
+// floats of the wide form's scratch: dh [rows, F], then the partials
+// [tiles, F] and [tiles] float4
+long long tiled_scratch(long long rows, int F) {
+  const long long tiles = (rows + gmm::tiled::kBM - 1) / gmm::tiled::kBM;
+  return rows * F + tiles * 4LL * (F + 1);
+}
+
+cudaError_t launch_tiled(const float* z, const float* w1, const float* b1,
+                         const float* w2, const float* g, float* dz,
+                         float* scratch, float* grads, long long rows, int D,
+                         int C, int F, cudaStream_t stream) {
+  using namespace gmm::tiled;
+  static int granted[3][gmm::kMaxDevices] = {};
+  gmm::DeviceInfo info;
+  cudaError_t e = gmm::device_info(&info);
+  if (e != cudaSuccess) return e;
+  const size_t smem_fwd = Gemm<kMK, kKN>::SMEM, smem_dz = Gemm<kMK, kNK>::SMEM,
+               smem_dw1 = Gemm<kKM, kKN>::SMEM;
+  e = gmm::allow_smem((const void*)gmm_bwd_dh_kernel, smem_fwd, info.dev,
+                      granted[0]);
+  if (e == cudaSuccess)
+    e = gmm::allow_smem((const void*)gmm_bwd_dz_kernel, smem_dz, info.dev,
+                        granted[1]);
+  if (e == cudaSuccess)
+    e = gmm::allow_smem((const void*)gmm_bwd_dw1_kernel, smem_dw1, info.dev,
+                        granted[2]);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (rows + kBM - 1) / kBM;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  float* dh = scratch;
+  float4* part = reinterpret_cast<float4*>(scratch + rows * F);
+  float4* part_b2 = part + tiles * F;
+  const int sum_threads = 128;
+  for (int c = 0; c < C; ++c) {
+    gmm_bwd_dh_kernel<<<dim3((unsigned)tiles, F / kBN), kThreads, smem_fwd,
+                        stream>>>(z, w1, b1, w2, g, dh, part, part_b2, rows,
+                                  D, C, F, c);
+    gmm_bwd_sum_kernel<<<(F + sum_threads) / sum_threads, sum_threads, 0,
+                         stream>>>(part, part_b2, grads, (int)tiles, D, C, F,
+                                   c);
+    gmm_bwd_dz_kernel<<<dim3((unsigned)tiles, D / kBN), kThreads, smem_dz,
+                        stream>>>(dh, w1, dz, rows, D, F, c);
+    gmm_bwd_dw1_kernel<<<dim3(D / kBM, F / kBN), kThreads, smem_dw1,
+                         stream>>>(z, dh, grads, rows, D, F, c);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// CTAs of a call with this many rows on the current device, so the caller
-// can size the partials buffer: part holds gmm_head_bwd_grid(rows, D, F)
-// copies of C*(D*F + 4F + 3) floats, each rounded up to a multiple of 4.
-// 0 for no rows; a negative cudaError_t on error.
-extern "C" int gmm_head_bwd_grid(long long rows, int D, int F) {
+// Floats of scratch a call with these widths and this many rows needs on
+// the current device: the narrow kernel's per-CTA partial copies of the
+// weight gradients (plan_grid's CTAs, C*(D*F + 4F + 3) floats each,
+// rounded up to a multiple of 4), or the wide form's dh and row-tile
+// partials.  0 for no rows; a negative cudaError_t on error.
+extern "C" long long gmm_head_bwd_scratch(long long rows, int D, int C,
+                                          int F) {
   if (rows <= 0) return 0;
-  if ((D != 16 && D != 32 && D != 64) || F % 8 != 0 || F <= 0 ||
-      F > gmm::kMaxF)
-    return -(int)cudaErrorInvalidValue;
+  if (!gmm::narrow_takes(D, F))
+    return gmm::tiled::takes(D, F) ? tiled_scratch(rows, F)
+                                   : -(long long)cudaErrorInvalidValue;
   Grid grid;
   gmm::DeviceInfo info;
   const cudaError_t e = plan_grid(rows, D, F, &grid, &info);
-  return e == cudaSuccess ? grid.ctas : -(int)e;
+  return e == cudaSuccess ? (long long)grid.ctas * per_cta(D, C, F)
+                          : -(long long)e;
 }
 
 // Plain C interface for ctypes.  All pointers are device pointers to
-// contiguous float32 arrays; z, dz, w1, b1 and w2 must be 16-byte aligned,
-// F a multiple of 8 and at most gmm::kMaxF.  grads receives
-// [dW1 (C*D*F) | db1 (C*F) | dW2 (C*F*3) | db2 (C*3)].  Returns the
-// cudaError_t of the launches (0 = launched).
+// contiguous float32 arrays; z, dz, w1, b1, w2 and part must be 16-byte
+// aligned.  The widths: D in {16, 32, 64} with F a multiple of 8 up to
+// gmm::kMaxF (the narrow kernel), or D and F multiples of 128 (the wide
+// form).  part holds gmm_head_bwd_scratch(rows, D, C, F) floats.  grads
+// receives [dW1 (C*D*F) | db1 (C*F) | dW2 (C*F*3) | db2 (C*3)].  Returns
+// the cudaError_t of the launches (0 = launched).
 extern "C" int gmm_head_bwd(const void* z, const void* w1, const void* b1,
                             const void* w2, const void* g, void* dz,
                             void* part, void* grads, long long rows, int D,
                             int C, int F, void* stream) {
   if (rows <= 0) return 0;
-  if (F % 8 != 0 || F <= 0 || F > gmm::kMaxF) return (int)cudaErrorInvalidValue;
+  const bool narrow = gmm::narrow_takes(D, F);
+  if (!narrow && !gmm::tiled::takes(D, F)) return (int)cudaErrorInvalidValue;
   const float* zf = static_cast<const float*>(z);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -485,6 +751,9 @@ extern "C" int gmm_head_bwd(const void* z, const void* w1, const void* b1,
   float* pf = static_cast<float*>(part);
   float* of = static_cast<float*>(grads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!narrow)
+    return (int)launch_tiled(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, D, C,
+                             F, s);
   switch (D) {
     case 16:
       return launch_d<16>(zf, w1f, b1f, w2f, gf, dzf, pf, of, rows, C, F, s);

@@ -1,5 +1,5 @@
 // Device helpers shared by the fused GMM-head kernels (gmm_head_fwd.cu,
-// gmm_head_bwd.cu): float32 products on the tensor cores as 3xTF32, and
+// gmm_head_bwd.cu), narrow form: float32 products on the tensor cores as 3xTF32, and
 // the pre-activation tile pre = Z . W1[c] + b1[c] that both kernels compute
 // with pre_tile below, so the backward's relu mask is bitwise the forward's.
 //
@@ -29,6 +29,12 @@
 namespace gmm {
 
 constexpr int kMaxF = 256;            // widest hidden layer the kernels take
+
+// the widths of the narrow kernels (the tiled ones: gmm_tiled.cuh)
+__host__ __device__ inline bool narrow_takes(int D, int F) {
+  return (D == 16 || D == 32 || D == 64) && F % 8 == 0 && F > 0 &&
+         F <= kMaxF;
+}
 
 // float2 row stride of a split tile with n columns: >= n and = 4 (mod 16)
 __host__ __device__ constexpr int split_stride(int n) {

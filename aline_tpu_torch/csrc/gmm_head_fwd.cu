@@ -54,6 +54,19 @@
 // splits components.  Timed in turns with the first form in one call, this
 // one was faster at every main-path shape (PERF.md, section 6).  Whether a
 // well register-tiled FMA form would beat it at T=2001 is not measured.
+//
+// Wide heads (D and F multiples of 128, the wrapper zero-pads other widths
+// past the narrow ones): W1[c] no longer fits in shared memory (16 MiB at
+// D = 1024, F = 4096), and the product is a real tensor-core workload (2
+// rows D F C FLOP: 16.8 TFLOP at B=100, T=2001, C=10: 0.10 s at the 3xTF32
+// bound, far above its 0.8 GB of z).  gmm_head_fwd_tiled_kernel is one CTA
+// per (128 rows, component): over F in chunks of 128 it runs the tiled
+// mainloop of gmm_tiled.cuh (pre = Z . W1[c][:, chunk], K = D in steps of
+// 32 through a cp.async ring), and its epilogue adds b1, takes relu and the
+// three FMAs against W2[c] into the row's outputs in registers.  A row's
+// output sums over the thread's columns chunk by chunk, then over the quad
+// (xor 1, 2), then over the two warps along F in order, plus b2: a fixed
+// order, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +74,7 @@
 #include <algorithm>
 
 #include "gmm_head_common.cuh"
+#include "gmm_tiled.cuh"
 
 namespace {
 
@@ -209,18 +223,107 @@ cudaError_t launch(const float* z, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
+// The wide form (see the note at the top): one CTA per 128 rows and
+// component, over F in chunks of 128.
+__global__ void __launch_bounds__(gmm::tiled::kThreads, 2)
+gmm_head_fwd_tiled_kernel(const float* __restrict__ z,
+                          const float* __restrict__ w1,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ w2,
+                          const float* __restrict__ b2,
+                          float* __restrict__ out, long long rows, int D,
+                          int C, int F) {
+  using namespace gmm::tiled;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int c = blockIdx.y, t = gmm::lane_t();
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const float* w1c = w1 + (size_t)c * D * F;
+  const float* b1c = b1 + (size_t)c * F;
+  const float* w2c = w2 + (size_t)c * F * 3;
+  float o[kMT][2][3] = {};  // the thread's rows (mt, half): their 3 outputs
+  Acc acc;
+  for (int n0 = 0; n0 < F; n0 += kBN) {
+    mainloop<kMK, kKN>(acc, z, D, w1c, F, m0, n0, rows, D, smem);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int f = n0 + acc_col(nt, j);
+        const float bias = __ldg(b1c + f);
+        const float v0 = __ldg(w2c + 3 * f), v1 = __ldg(w2c + 3 * f + 1),
+                    v2 = __ldg(w2c + 3 * f + 2);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = fmaxf(acc.v[mt][nt][2 * h + j] + bias, 0.f);
+            o[mt][h][0] = fmaf(x, v0, o[mt][h][0]);
+            o[mt][h][1] = fmaf(x, v1, o[mt][h][1]);
+            o[mt][h][2] = fmaf(x, v2, o[mt][h][2]);
+          }
+      }
+    }
+  }
+  // the quad's columns, then the two warps along F in order (the ring is
+  // free: the last mainloop ended synchronised)
+  float* red = smem;  // [2][kBM][3]
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float x = o[mt][h][j];
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        if (t == 0) red[(warp_n() * kBM + acc_row(mt, 2 * h)) * 3 + j] = x;
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBM * 3; i += kThreads) {
+    const long long r = m0 + i / 3;
+    const int j = i % 3;
+    if (r < rows)
+      out[(r * C + c) * 3 + j] =
+          red[i] + red[kBM * 3 + i] + __ldg(b2 + 3 * c + j);
+  }
+}
+
+cudaError_t launch_tiled(const float* z, const float* w1, const float* b1,
+                         const float* w2, const float* b2, float* out,
+                         long long rows, int D, int C, int F,
+                         cudaStream_t stream) {
+  using namespace gmm::tiled;
+  static int granted[gmm::kMaxDevices] = {};
+  gmm::DeviceInfo info;
+  cudaError_t e = gmm::device_info(&info);
+  if (e != cudaSuccess) return e;
+  const size_t smem = Gemm<kMK, kKN>::SMEM;
+  e = gmm::allow_smem((const void*)gmm_head_fwd_tiled_kernel, smem, info.dev,
+                      granted);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (rows + kBM - 1) / kBM;
+  if (tiles > 0x7fffffffLL || C > 65535) return cudaErrorInvalidConfiguration;
+  gmm_head_fwd_tiled_kernel<<<dim3((unsigned)tiles, (unsigned)C), kThreads,
+                              smem, stream>>>(z, w1, b1, w2, b2, out, rows, D,
+                                              C, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  All pointers are device pointers to
-// contiguous float32 arrays; z, w1, b1 and w2 must be 16-byte aligned,
-// F a multiple of 8 and at most gmm::kMaxF.  Returns the cudaError_t of
-// the launch (0 = launched).
+// contiguous float32 arrays; z, w1, b1 and w2 must be 16-byte aligned.
+// The widths: D in {16, 32, 64} with F a multiple of 8 up to gmm::kMaxF
+// (the narrow kernel), or D and F multiples of 128 (the tiled one).
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int gmm_head_fwd(const void* z, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out,
                             long long rows, int D, int C, int F,
                             void* stream) {
   if (rows <= 0) return 0;
-  if (F % 8 != 0 || F <= 0 || F > gmm::kMaxF) return (int)cudaErrorInvalidValue;
+  const bool narrow = gmm::narrow_takes(D, F);
+  if (!narrow && !gmm::tiled::takes(D, F)) return (int)cudaErrorInvalidValue;
   const float* zf = static_cast<const float*>(z);
   const float* w1f = static_cast<const float*>(w1);
   const float* b1f = static_cast<const float*>(b1);
@@ -228,6 +331,8 @@ extern "C" int gmm_head_fwd(const void* z, const void* w1, const void* b1,
   const float* b2f = static_cast<const float*>(b2);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!narrow)
+    return (int)launch_tiled(zf, w1f, b1f, w2f, b2f, of, rows, D, C, F, s);
   switch (D) {
     // 32-row tasks (one B fragment serves two tiles); 16-row ones at
     // D = 64, whose two tiles of Z fragments take too many registers

@@ -58,8 +58,8 @@ SIGNATURES = {
 }
 # other entry points of a library: library name → {entry: (argtypes, restype)}
 HELPERS = {
-    # the grid of a call with (rows, D, F): the partial copies to allocate
-    "gmm_head_bwd": {"gmm_head_bwd_grid": ([_LL, _I, _I], _I)},
+    # the scratch floats of a call with (rows, D, C, F)
+    "gmm_head_bwd": {"gmm_head_bwd_scratch": ([_LL, _I, _I, _I], _LL)},
     # the bfloat16 forms: the float32 entry's arguments, with q, k, v, o,
     # do, dq, dk and dv pointing at bfloat16 arrays
     "flash_attn_fwd": {"flash_attn_fwd_bf16": SIGNATURES["flash_attn_fwd"]},

@@ -47,6 +47,13 @@ are summed in float32 over all rows and rounded once: they differ from the
 plain backward by its per-block roundings and elsewhere only by the order
 of float32 sums.
 
+Widths.  The kernels take every dh up to ``DH_MAX`` (``kernel_takes``);
+each source has an instance for each dh of ``DH_KERNEL``, and the wrappers
+zero-pad q, k, v (and O, dO) of any other dh to the next of these
+(``kernel_dh``, ``pad_dh``).  That is exact: a zero dim adds 0 to every
+dot product, a zero column of v gives a zero column of O, which is cut
+off, and the scale stays 1/√dh of the true dh.
+
 On a CUDA tensor a wrapper launches its kernel or raises; there is no
 other path.
 """
@@ -68,8 +75,28 @@ LAUNCHES = {"flash_plan": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
 
 DTYPES = (torch.float32, torch.bfloat16)
 
-DH_SUPPORTED = (8, 16, 32, 64)
+DH_KERNEL = (8, 16, 32, 64, 128)   # the head widths of the instances
+DH_MAX = DH_KERNEL[-1]             # no configuration has a wider head
 NEG = -1e9
+
+
+def kernel_takes(dh: int) -> bool:
+    """Whether the kernels take heads of width dh (through ``kernel_dh``)."""
+    return 1 <= dh <= DH_MAX
+
+
+def kernel_dh(dh: int) -> int:
+    """The instance a head of width dh runs at: the next of ``DH_KERNEL``."""
+    if not kernel_takes(dh):
+        raise ValueError(f"the flash-attention kernels take dh up to "
+                         f"{DH_MAX}, got {dh}")
+    return next(d for d in DH_KERNEL if d >= dh)
+
+
+def pad_dh(x, dh_to: int):
+    """[..., dh] zero-padded to [..., dh_to] (contiguous)."""
+    pad = dh_to - x.shape[-1]
+    return x if pad == 0 else F.pad(x, (0, pad)).contiguous()
 
 
 def block_q(N: int) -> int:
@@ -137,22 +164,25 @@ def flash_plan(kcode, qrow) -> FlashPlan:
     return plan
 
 
-def _masked_scores(q, k, kcode, qrow):
-    """[B, H, N, Nk] float32 scores ``q·kᵀ/√dh`` (of bfloat16 q and k
-    widened, not rounded), replaced by -1e9 where masked."""
+def _masked_scores(q, k, kcode, qrow, scale=None):
+    """[B, H, N, Nk] float32 scores ``q·kᵀ·scale`` (of bfloat16 q and k
+    widened, not rounded; scale 1/√dh by default), replaced by -1e9 where
+    masked."""
     kc = kcode[:, None, None, :]
     allowed = (kc == 1) | ((qrow[:, None, :, None] == 1) & (kc == 2))
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     return torch.where(allowed, s, NEG)
 
 
-def flash_attn_fwd_plain(q, k, v, kcode, qrow):
+def flash_attn_fwd_plain(q, k, v, kcode, qrow, scale=None):
     """The TPU kernel's forward, written literally over the Np padded
-    columns → (O [B, H, N, dh] in q's dtype, lse [B, H, N] float32)."""
+    columns → (O [B, H, N, dh] in q's dtype, lse [B, H, N] float32).
+    ``scale`` multiplies the scores (1/√dh by default)."""
     pad = padded_len(q.shape[2]) - q.shape[2]
     s = _masked_scores(q, F.pad(k, (0, 0, 0, pad)), F.pad(kcode, (0, pad)),
-                       qrow)
+                       qrow, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -162,7 +192,7 @@ def flash_attn_fwd_plain(q, k, v, kcode, qrow):
 
 
 def flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do,
-                         per_block=True):
+                         per_block=True, scale=None):
     """The TPU kernel's backward, written literally → (dQ, dK, dV) in q's
     dtype.  The padded columns are left out: their k and v are 0, so they
     add nothing to dQ, and their dK and dV are discarded.  In bfloat16 the
@@ -170,10 +200,12 @@ def flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do,
     rounded to bfloat16, and dK and dV are summed block by block of
     ``block_q(N)`` rows into bfloat16, as the TPU kernel's revisited
     output blocks sum them; with ``per_block`` False they are summed over
-    all rows in float32 and rounded once, as the CUDA kernel sums them."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    all rows in float32 and rounded once, as the CUDA kernel sums them.
+    ``scale`` as for ``flash_attn_fwd_plain``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     dt = q.dtype
-    p = torch.exp(_masked_scores(q, k, kcode, qrow) - lse[..., None])
+    p = torch.exp(_masked_scores(q, k, kcode, qrow, scale) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     # as XLA fuses the TPU kernel's bfloat16 sum(do * o): float32 products
     # and sum, rounded once
@@ -244,10 +276,7 @@ def _kernel_device(q) -> bool:
         return False
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    dh = q.shape[-1]
-    if dh not in DH_SUPPORTED:
-        raise ValueError(f"the flash-attention kernels take dh in "
-                         f"{DH_SUPPORTED}, got {dh}")
+    kernel_dh(q.shape[-1])              # raises past DH_MAX
     return True
 
 
@@ -312,16 +341,18 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
         with torch.no_grad():
             return flash_attn_fwd_plain(q, k, v, kcode, qrow)
     B, H, N, dh = q.shape
-    o = torch.empty_like(q)
     lse = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, lse                   # nothing to compute, no launch
+    if q.numel() == 0:
+        return torch.empty_like(q), lse  # nothing to compute, no launch
     plan = _kernel_plan(q, kcode, qrow, plan)
+    width = kernel_dh(dh)
+    q, k, v = (pad_dh(t, width) for t in (q, k, v))
+    o = torch.empty_like(q)
     _launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
-            padded_len(N) - N, dh, 1.0 / math.sqrt(dh),
+            padded_len(N) - N, width, 1.0 / math.sqrt(dh),
             entry=_entry("flash_attn_fwd", q))
     check_kernel_outputs(_entry("flash_attn_fwd", q), o, lse)
-    return o, lse
+    return (o if width == dh else o[..., :dh].contiguous()), lse
 
 
 def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
@@ -337,16 +368,20 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
         with torch.no_grad():
             return flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     B, H, N, dh = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
-        return dq, dk, dv
+        return tuple(torch.empty_like(q) for _ in range(3))
     plan = _kernel_plan(q, kcode, qrow, plan)
+    width = kernel_dh(dh)
+    q, k, v, o, do = (pad_dh(t, width) for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
     _launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk, dv,
-                               delta), B, H, N, dh, 1.0 / math.sqrt(dh),
+                               delta), B, H, N, width, 1.0 / math.sqrt(dh),
             entry=_entry("flash_attn_bwd", q))
     check_kernel_outputs(_entry("flash_attn_bwd", q), dq, dk, dv)
-    return dq, dk, dv
+    if width == dh:
+        return dq, dk, dv
+    return tuple(t[..., :dh].contiguous() for t in (dq, dk, dv))
 
 
 class _FlashRoleAttention(torch.autograd.Function):

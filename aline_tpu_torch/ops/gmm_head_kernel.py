@@ -14,10 +14,22 @@ The GMM target head runs ``C`` independent 2-layer MLPs over every token.
 Both kernels keep the ``[B, T, C, F]`` hidden activations out of device
 memory.  On a CUDA tensor a wrapper launches its kernel or raises; there
 is no other path.
+
+Widths.  The kernels take every D ≥ 1 and F ≥ 1, as the Pallas kernels
+do (``kernel_takes``).  Each source holds two forms: the narrow kernel
+(D in ``NARROW_D``, F a multiple of 8 up to ``NARROW_F_MAX``: the
+flagship's 32 and 128), which stages all of W1[c] in shared memory, and
+the tiled one (D and F multiples of ``TILED_STEP``), for wide heads such
+as D=1024, F=4096.  ``kernel_widths`` picks the form and the widths it
+runs at; ``pad_head`` zero-pads z, W1, b1 and W2 up to them, which is
+exact: a zero column of z meets a zero row of W1, and a zero hidden unit
+has relu(0 + 0) = 0 and a zero row of W2.  The backward drops the padded
+parts of the gradients (``unpad_grads``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as nnf
 
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.utils.debug import check_kernel_outputs
@@ -26,8 +38,52 @@ from aline_tpu_torch.utils.debug import check_kernel_outputs
 # show that a path went through the kernels.
 LAUNCHES = {"gmm_head_fwd": 0, "gmm_head_bwd": 0}
 
-D_SUPPORTED = (16, 32, 64)
-F_MAX = 256          # widest hidden layer (F a multiple of 8, the mma width)
+NARROW_D = (16, 32, 64)   # the narrow kernel's D
+NARROW_F_MAX = 256        # and its widest F (a multiple of 8, the mma width)
+TILED_STEP = 128          # the tiled kernel's D and F are multiples of this
+
+
+def kernel_takes(D: int, F: int) -> bool:
+    """Whether the kernels take a head of widths D, F (through
+    ``kernel_widths``): every positive width, as the Pallas kernels."""
+    return D >= 1 and F >= 1
+
+
+def kernel_widths(D: int, F: int):
+    """(Dp, Fp): the widths a head of widths D, F runs at on the card.
+    Narrow heads (D ≤ 64, F ≤ 256) take the narrow kernel at the next D of
+    ``NARROW_D`` and F rounded up to 8; wider ones the tiled kernel at D
+    and F rounded up to ``TILED_STEP``."""
+    if not kernel_takes(D, F):
+        raise ValueError(f"no GMM-head kernel for D={D}, F={F}")
+    F8 = -(-F // 8) * 8
+    if D <= NARROW_D[-1] and F8 <= NARROW_F_MAX:
+        return next(d for d in NARROW_D if d >= D), F8
+    return (-(-D // TILED_STEP) * TILED_STEP,
+            -(-F // TILED_STEP) * TILED_STEP)
+
+
+def pad_head(z, w1, b1, w2, Dp: int, Fp: int):
+    """z [..., D], W1 [C, D, F], b1 [C, F], W2 [C, F, 3] zero-padded to
+    widths Dp ≥ D and Fp ≥ F (contiguous).  Exact: the padded head
+    computes the same outputs."""
+    D, F = w1.shape[1], w1.shape[2]
+    if (Dp, Fp) == (D, F):
+        return z, w1, b1, w2
+    return (nnf.pad(z, (0, Dp - D)).contiguous(),
+            nnf.pad(w1, (0, Fp - F, 0, Dp - D)).contiguous(),
+            nnf.pad(b1, (0, Fp - F)).contiguous(),
+            nnf.pad(w2, (0, 0, 0, Fp - F)).contiguous())
+
+
+def unpad_grads(grads, D: int, F: int):
+    """The gradients (dz, dW1, db1, dW2, db2) of a head padded by
+    ``pad_head``, cut back to widths D and F."""
+    dz, dw1, db1, dw2, db2 = grads
+    if (dw1.shape[1], dw1.shape[2]) == (D, F):
+        return grads
+    return (dz[..., :D].contiguous(), dw1[:, :D, :F].contiguous(),
+            db1[:, :F].contiguous(), dw2[:, :F].contiguous(), db2)
 
 
 def gmm_head_fwd_plain(z, w1, b1, w2, b2):
@@ -71,18 +127,12 @@ def _weight_shapes(z, w1, b1, w2):
             "w2": (w2, (C, F, 3))}
 
 
-def _kernel_device(z, D, F):
+def _kernel_device(z):
     """True for a CUDA tensor (launch the kernel), False for a CPU one."""
     if z.device.type == "cpu":
         return False
     if z.device.type != "cuda":
         raise ValueError(f"no GMM-head kernel for device {z.device}")
-    if D not in D_SUPPORTED:
-        raise ValueError(f"the GMM-head kernels take D in {D_SUPPORTED}, "
-                         f"got {D}")
-    if F % 8 or not 0 < F <= F_MAX:
-        raise ValueError(f"the GMM-head kernels take F a multiple of 8 up "
-                         f"to {F_MAX}, got {F}")
     return True
 
 
@@ -105,12 +155,13 @@ def gmm_head_fwd(z, w1, b1, w2, b2):
     C = w1.shape[0]
     _check(z, {**_weight_shapes(z, w1, b1, w2), "b2": (b2, (C, 3))})
     B, T, D = z.shape
-    F = w1.shape[2]
-    if not _kernel_device(z, D, F):
+    if not _kernel_device(z):
         return gmm_head_fwd_plain(z, w1, b1, w2, b2)
     out = torch.empty(B, T, C, 3, dtype=torch.float32, device=z.device)
     if out.numel() == 0:
         return out                      # nothing to compute, no launch
+    D, F = kernel_widths(D, w1.shape[2])
+    z, w1, b1, w2 = pad_head(z, w1, b1, w2, D, F)
     _aligned(z=z, w1=w1, b1=b1, w2=w2)
     lib = _build.load("gmm_head_fwd")
     with torch.cuda.device(z.device):
@@ -135,11 +186,13 @@ def gmm_head_bwd(z, w1, b1, w2, g):
     per-CTA partials in a fixed order: the same inputs give bitwise the
     same gradients on every call.
     """
-    B, T, D = z.shape
-    C, _, F = w1.shape
+    B, T, D0 = z.shape
+    C, _, F0 = w1.shape
     _check(z, {**_weight_shapes(z, w1, b1, w2), "g": (g, (B, T, C, 3))})
-    if not _kernel_device(z, D, F):
+    if not _kernel_device(z):
         return gmm_head_bwd_plain(z, w1, b1, w2, g)
+    D, F = kernel_widths(D0, F0)
+    z, w1, b1, w2 = pad_head(z, w1, b1, w2, D, F)
     dev = z.device
     dz = torch.empty(B, T, D, dtype=torch.float32, device=dev)
     sizes = (C * D * F, C * F, C * F * 3, C * 3)
@@ -151,14 +204,14 @@ def gmm_head_bwd(z, w1, b1, w2, g):
         _aligned(z=z, w1=w1, b1=b1, w2=w2)
         lib = _build.load("gmm_head_bwd")
         with torch.cuda.device(dev):
-            # one partial copy of the gradients per CTA, each padded to a
-            # multiple of 4 floats; the grid depends on the rows and the card
-            n_ctas = lib.gmm_head_bwd_grid(rows, D, F)
-            if n_ctas < 0:
-                raise RuntimeError(f"gmm_head_bwd cannot size its grid: "
-                                   f"cudaError {-n_ctas}")
-            part = torch.empty(n_ctas * (-(-sum(sizes) // 4) * 4),
-                               dtype=torch.float32, device=dev)
+            # the narrow kernel's per-CTA partial copies of the gradients
+            # (their count depends on the rows and the card), or the tiled
+            # form's dh of one component and its row-tile partials
+            n_part = lib.gmm_head_bwd_scratch(rows, D, C, F)
+            if n_part < 0:
+                raise RuntimeError(f"gmm_head_bwd cannot size its scratch: "
+                                   f"cudaError {-n_part}")
+            part = torch.empty(n_part, dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.gmm_head_bwd(z.data_ptr(), w1.data_ptr(),
                                    b1.data_ptr(), w2.data_ptr(),
@@ -171,8 +224,8 @@ def gmm_head_bwd(z, w1, b1, w2, g):
         LAUNCHES["gmm_head_bwd"] += 1
         check_kernel_outputs("gmm_head_bwd", dz, grads)
     dw1, db1, dw2, db2 = grads.split(sizes)
-    return (dz, dw1.view(C, D, F), db1.view(C, F), dw2.view(C, F, 3),
-            db2.view(C, 3))
+    return unpad_grads((dz, dw1.view(C, D, F), db1.view(C, F),
+                        dw2.view(C, F, 3), db2.view(C, 3)), D0, F0)
 
 
 class _GMMHead(torch.autograd.Function):

@@ -91,6 +91,12 @@ def _inputs(B, T, D, F, C, seed=0, grid=False):
     # (2112 tasks, one a warp), and just above
     (1, 67583, 32, 128, 10),
     (1, 67585, 32, 128, 10),
+    # widths past the narrow kernel: the tiled one (D, F multiples of
+    # 128), and widths zero-padded to either (kernel_widths)
+    (2, 45, 128, 256, 4),
+    (3, 37, 96, 200, 10),       # tiled at D=128, F=256
+    (2, 37, 48, 100, 4),        # narrow at D=64, F=104
+    (1, 300, 1024, 4096, 2),    # al1d_wide128's head
 ])
 def test_gmm_head_kernel_matches_plain(cuda, B, T, D, F, C):
     args = _inputs(B, T, D, F, C)
@@ -115,8 +121,8 @@ def test_gmm_head_kernel_rejects_what_it_does_not_take(cuda):
         ghk.gmm_head_fwd(z.double(), w1, b1, w2, b2)
     with pytest.raises(ValueError):
         ghk.gmm_head_fwd(z.cpu(), w1, b1, w2, b2)
-    with pytest.raises(ValueError):
-        ghk.gmm_head_fwd(*_inputs(2, 9, 48, 128, 4))          # D=48
+    with pytest.raises(ValueError):                          # D=0
+        ghk.gmm_head_fwd(*_inputs(2, 9, 0, 128, 4, grid=True))
     shifted = torch.empty(z.numel() + 1, device="cuda")[1:].view_as(z)
     shifted.copy_(z)
     with pytest.raises(ValueError, match="aligned"):
@@ -152,6 +158,11 @@ BWD_SHAPES = [
     (1, 4223, 32, 128, 10),
     (33, 128, 32, 128, 10),
     (1, 4225, 32, 128, 10),
+    # the tiled form and padded widths, as in the forward's list
+    (2, 45, 128, 256, 4),
+    (3, 37, 96, 200, 10),
+    (2, 37, 48, 100, 4),
+    (2, 130, 256, 512, 3),      # two row tiles, the last ragged
 ]
 
 
@@ -194,10 +205,25 @@ def test_gmm_head_autograd_runs_both_kernels(cuda):
 
 @pytest.mark.parametrize("F", [36, 264])
 def test_gmm_head_kernels_refuse_an_f_they_do_not_take(cuda, F):
-    """F must be a multiple of 8 (the mma tile) and at most 256; the
-    wrappers raise rather than fall back."""
-    z, w1, b1, w2, b2 = _inputs(2, 9, 32, F, 4)
+    """Every F ≥ 1 is taken, as the Pallas kernels take it: 36 and 264
+    run zero-padded (to 40 on the narrow kernel; to D=128, F=384 on the
+    tiled one) and launch the kernels; F=0 is refused, with no launch and
+    no fallback."""
+    z, w1, b1, w2, b2 = _inputs(2, 9, 32, F, 4, grid=True)
     g = torch.randn(2, 9, 4, 3, device="cuda")
+    before = dict(ghk.LAUNCHES)
+    torch.testing.assert_close(ghk.gmm_head_fwd(z, w1, b1, w2, b2),
+                               ghk.gmm_head_fwd_plain(z, w1, b1, w2, b2),
+                               rtol=TOL, atol=TOL)
+    for name, a, b in zip(("dz", "dw1", "db1", "dw2", "db2"),
+                          ghk.gmm_head_bwd(z, w1, b1, w2, g),
+                          ghk.gmm_head_bwd_plain(z, w1, b1, w2, g)):
+        assert a.shape == b.shape, name
+        _assert_grad_close(a, b, name)
+    assert ghk.LAUNCHES["gmm_head_fwd"] == before["gmm_head_fwd"] + 1
+    assert ghk.LAUNCHES["gmm_head_bwd"] == before["gmm_head_bwd"] + 1
+    w1, b1, w2 = (torch.empty(*shape, device="cuda")      # F=0
+                  for shape in ((4, 32, 0), (4, 0), (4, 0, 3)))
     before = dict(ghk.LAUNCHES)
     with pytest.raises(ValueError, match="F"):
         ghk.gmm_head_fwd(z, w1, b1, w2, b2)
@@ -249,7 +275,15 @@ FLASH_SHAPES = [
     (2, 3, 40, 9, 16, True, False),       # dh = 16
     (2, 2, 300, 11, 32, False, True),     # dh = 32
     (2, 8, 2000, 47, 64, True, False),    # dh = 64, N = 2048
+    (2, 2, 40, 9, 128, True, False),      # dh = 128 (al1d_wide128's)
+    (2, 8, 300, 11, 128, False, True),    # dh = 128, blind rows
+    (2, 2, 40, 9, 24, True, False),       # dh = 24, run padded to 32
 ]
+# The bf16 backward at dh = 128: each row's D = bf16(sum dO·O) sums 128
+# products, in another order in the kernel than in the plain version, and
+# one ulp of D moves dQ by up to two: chip_smoke.py phase wide holds it
+# with that allowance (``delta_rounding``); here dh <= 64.
+BF16_BWD_SHAPES = [s for s in FLASH_SHAPES if s[4] <= 64]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -311,7 +345,7 @@ def test_bf16_flash_forward_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(lse, want_lse, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("shape", BF16_BWD_SHAPES)
 def test_bf16_flash_backward_kernel_matches_plain(cuda, shape):
     q, k, v, kcode, qrow, do = _flash_inputs(*shape, seed=1)
     q, k, v, do = _bf16(q, k, v, do)
@@ -380,7 +414,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         fa.flash_attn_fwd(q.bfloat16(), k, v, kcode, qrow)
     with pytest.raises(ValueError, match="dh"):
-        fa.flash_attn_fwd(*_flash_inputs(2, 2, 20, 5, 24, False, False)[:5])
+        fa.flash_attn_fwd(*_flash_inputs(2, 2, 20, 5, 136, False, False)[:5])
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attn_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v, kcode, qrow)
