@@ -50,6 +50,7 @@ from aline_tpu_torch.parallel.collectives import (
     lse_value,
 )
 from aline_tpu_torch.parallel.mesh import Mesh, replicate
+from aline_tpu_torch.utils.metrics import span
 
 _MASK64 = (1 << 64) - 1
 
@@ -104,10 +105,11 @@ def _fold(state: LogSumExpState, task, x, y, thetas,
           n_valid: int) -> LogSumExpState:
     """Fold one chunk of thetas whose first ``n_valid`` rows count (the
     rest, the padding past L, are set to -inf)."""
-    S = _seq_cum_loglik(task, x, y, thetas)
-    if n_valid < S.shape[0]:
-        S[max(n_valid, 0):] = -torch.inf
-    return lse_update(state, S, axis=0)
+    with span("eig.chunk"):
+        S = _seq_cum_loglik(task, x, y, thetas)
+        if n_valid < S.shape[0]:
+            S[max(n_valid, 0):] = -torch.inf
+        return lse_update(state, S, axis=0)
 
 
 def accumulate_chunks(task, x, y, seed: int, L: int, Lc: int, i0: int,
@@ -163,37 +165,38 @@ def compute_eig_from_history(task, theta_0, x, y, L: int, seed: int,
         (pce, nmc), [B, Th] if stepwise else [B]; with ``L_checkpoints``
         a ``{L_eff: (pce, nmc)}`` dict keyed by the snapped L.
     """
-    x, y, theta_0 = (_as_f32(n, t) for n, t in
-                     (("x", x), ("y", y), ("theta_0", theta_0)))
-    B, Th = x.shape[0], x.shape[1]
-    if thetas is not None:
-        thetas = _as_f32("thetas", thetas)
-        L = int(thetas.shape[0])
-    # the chunk size of the GLOBAL batch: the draws depend on it
-    Lc = chunk_size(L, B, Th, L_chunk)
-    n_chunks = math.ceil(L / Lc)
-    if mesh is not None:
-        if L_checkpoints:
-            raise ValueError("L_checkpoints is computed without a mesh")
-        return _sharded_bounds(task, theta_0, x, y, L, seed, Lc, n_chunks,
-                               stepwise, thetas, mesh, axis_name)
-    ll0 = task.log_likelihood(y, x, theta_0.unsqueeze(1))
-    S0 = torch.cumsum(ll0[..., 0], dim=-1)                   # [B, Th]
-    state = lse_init((B, Th), device=x.device)
+    with span("eig.fold"):
+        x, y, theta_0 = (_as_f32(n, t) for n, t in
+                         (("x", x), ("y", y), ("theta_0", theta_0)))
+        B, Th = x.shape[0], x.shape[1]
+        if thetas is not None:
+            thetas = _as_f32("thetas", thetas)
+            L = int(thetas.shape[0])
+        # the chunk size of the GLOBAL batch: the draws depend on it
+        Lc = chunk_size(L, B, Th, L_chunk)
+        n_chunks = math.ceil(L / Lc)
+        if mesh is not None:
+            if L_checkpoints:
+                raise ValueError("L_checkpoints is computed without a mesh")
+            return _sharded_bounds(task, theta_0, x, y, L, seed, Lc, n_chunks,
+                                   stepwise, thetas, mesh, axis_name)
+        ll0 = task.log_likelihood(y, x, theta_0.unsqueeze(1))
+        S0 = torch.cumsum(ll0[..., 0], dim=-1)                   # [B, Th]
+        state = lse_init((B, Th), device=x.device)
 
-    def fold_chunks(state, i0, n):
-        return _fold_ids(state, task, x, y, range(i0, i0 + n), L, Lc, seed,
-                         thetas, slice(None), B)
+        def fold_chunks(state, i0, n):
+            return _fold_ids(state, task, x, y, range(i0, i0 + n), L, Lc, seed,
+                             thetas, slice(None), B)
 
-    marks = sorted({min(math.ceil(lc / Lc), n_chunks)
-                    for lc in L_checkpoints or ()} | {n_chunks})
-    results, done = {}, 0
-    for mark in marks:
-        state = fold_chunks(state, done, mark - done)
-        done = mark
-        L_eff = min(mark * Lc, L)
-        results[L_eff] = _finalize_bounds(state, S0, L_eff, stepwise)
-    return results if L_checkpoints else results[L]
+        marks = sorted({min(math.ceil(lc / Lc), n_chunks)
+                        for lc in L_checkpoints or ()} | {n_chunks})
+        results, done = {}, 0
+        for mark in marks:
+            state = fold_chunks(state, done, mark - done)
+            done = mark
+            L_eff = min(mark * Lc, L)
+            results[L_eff] = _finalize_bounds(state, S0, L_eff, stepwise)
+        return results if L_checkpoints else results[L]
 
 
 def _fold_ids(state, task, x, y, ids: range, L: int, Lc: int, seed: int,

@@ -45,6 +45,7 @@ from aline_tpu_torch.parallel.collectives import (all_reduce, all_reduce_lse,
 from aline_tpu_torch.parallel.mesh import Mesh, pool_bounds
 from aline_tpu_torch.tasks.base import Batch, init_ctx_idx, select_design
 from aline_tpu_torch.train.rollout import rollout
+from aline_tpu_torch.utils.metrics import span
 
 
 @torch.no_grad()
@@ -65,22 +66,23 @@ def get_traces(model, task, batch: Batch, T: int, time_token: bool = False,
     Both come from the batch's float32 tensors, whatever the model's
     compute dtype.
     """
-    n_ctx = task.n_context_init
-    # the compact attention reads the index buffer: its capacity must
-    # cover the whole rollout, or the attended key set stops growing
-    batch = init_ctx_idx(batch, min(n_ctx + T, batch.n_points))
-    if seq_mesh is not None:
-        xs, ys = sharded_greedy_rollout(model, batch, T, time_token,
-                                        seq_mesh, axis_name)[1:3]
-    else:
-        zero_w = torch.zeros(batch.n_target, device=batch.x.device)
-        ro = rollout(model, batch, T, zero_w, zero_w, None,
-                     time_token=time_token, time_forward=False,
-                     use_remat=False)
-        xs, ys = ro.xs, ro.ys
-    xs = torch.cat([batch.x[:, :n_ctx], xs.transpose(0, 1)], dim=1)
-    ys = torch.cat([batch.y[:, :n_ctx], ys.transpose(0, 1)], dim=1)
-    return batch.theta, task.unnormalise_design(xs), ys
+    with span("bed.traces"):
+        n_ctx = task.n_context_init
+        # the compact attention reads the index buffer: its capacity must
+        # cover the whole rollout, or the attended key set stops growing
+        batch = init_ctx_idx(batch, min(n_ctx + T, batch.n_points))
+        if seq_mesh is not None:
+            xs, ys = sharded_greedy_rollout(model, batch, T, time_token,
+                                            seq_mesh, axis_name)[1:3]
+        else:
+            zero_w = torch.zeros(batch.n_target, device=batch.x.device)
+            ro = rollout(model, batch, T, zero_w, zero_w, None,
+                         time_token=time_token, time_forward=False,
+                         use_remat=False)
+            xs, ys = ro.xs, ro.ys
+        xs = torch.cat([batch.x[:, :n_ctx], xs.transpose(0, 1)], dim=1)
+        ys = torch.cat([batch.y[:, :n_ctx], ys.transpose(0, 1)], dim=1)
+        return batch.theta, task.unnormalise_design(xs), ys
 
 
 def _context_order(batch: Batch, valid: torch.Tensor,

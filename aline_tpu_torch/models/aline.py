@@ -18,6 +18,7 @@ from aline_tpu_torch.models.heads import (
 from aline_tpu_torch.ops.attention import CompactKeys, context_indices
 from aline_tpu_torch.ops.roles import build_roles
 from aline_tpu_torch.tasks.base import Batch
+from aline_tpu_torch.utils.metrics import span
 
 
 class Aline(nn.Module):
@@ -42,29 +43,32 @@ class Aline(nn.Module):
         never-visible target key columns (exact).  ``query_posterior``:
         see ``OutputHead.forward``.  ``batch.t`` feeds the time token and
         the design head's time feature, where the config has them."""
-        tokens = self.embedder(batch)
-        t_off = int(self.encoder.with_time_token)
-        roles = build_roles(batch.ctx_mask, tokens.shape[1] - batch.n_points,
-                            batch.target_mask, self.encoder.with_time_token)
-        compact = None
-        if (self.encoder.impl in ("compact", "auto")
-                and batch.ctx_capacity > 0):
-            if batch.ctx_idx is not None:
-                # the incrementally kept index buffer: no per-step sort
-                count = batch.ctx_mask.sum(dim=1)
-                valid = (torch.arange(batch.ctx_capacity,
-                                      device=count.device)[None]
-                         < count[:, None])
-                idx = batch.ctx_idx + t_off
-            else:
-                idx, valid = context_indices(batch.ctx_mask,
-                                             batch.ctx_capacity, t_off)
-            compact = CompactKeys(idx, valid, batch.n_points, sel_targets,
-                                  t_off)
-        z = self.encoder(tokens, roles, batch.t, compact=compact)
-        return self.head(batch, z, training=training, generator=generator,
-                         noise=noise, query_posterior=query_posterior,
-                         time_offset=t_off)
+        with span("model.forward"):
+            tokens = self.embedder(batch)
+            t_off = int(self.encoder.with_time_token)
+            roles = build_roles(batch.ctx_mask,
+                                tokens.shape[1] - batch.n_points,
+                                batch.target_mask,
+                                self.encoder.with_time_token)
+            compact = None
+            if (self.encoder.impl in ("compact", "auto")
+                    and batch.ctx_capacity > 0):
+                if batch.ctx_idx is not None:
+                    # the incrementally kept index buffer: no per-step sort
+                    count = batch.ctx_mask.sum(dim=1)
+                    valid = (torch.arange(batch.ctx_capacity,
+                                          device=count.device)[None]
+                             < count[:, None])
+                    idx = batch.ctx_idx + t_off
+                else:
+                    idx, valid = context_indices(batch.ctx_mask,
+                                                 batch.ctx_capacity, t_off)
+                compact = CompactKeys(idx, valid, batch.n_points, sel_targets,
+                                      t_off)
+            z = self.encoder(tokens, roles, batch.t, compact=compact)
+            return self.head(batch, z, training=training, generator=generator,
+                             noise=noise, query_posterior=query_posterior,
+                             time_offset=t_off)
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -66,7 +66,12 @@ from aline_tpu_torch.train.rollout import rollout
 from aline_tpu_torch.utils.debug import guard_active, nan_guard
 from aline_tpu_torch.utils.device import resolve_device
 from aline_tpu_torch.utils.logging import create_logger
-from aline_tpu_torch.utils.metrics import Metrics, PhaseTimer, profiler_trace
+from aline_tpu_torch.utils.metrics import (
+    Metrics,
+    PhaseTimer,
+    profiler_trace,
+    span,
+)
 from aline_tpu_torch.utils.serialization import save_params_npz
 
 # the Batch fields with a leading batch axis, split over the data axis
@@ -106,26 +111,30 @@ def train_step(model, optimizer, scheduler, batch: Batch, T: int,
     means.  Returns the loss metrics with ``grad_norm`` (global L2, before
     the clip) and ``param_norm`` (after the update), as device scalars.
     """
-    ro = rollout(model, batch, T, w_query, w_pred, gumbel,
-                 time_token=time_token, use_remat=use_remat,
-                 remat_policy=remat_policy, sel_targets=sel_targets)
-    loss, m = total_loss(ro, gamma, alpha, group, n_ranks)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("train.rollout"):
+        ro = rollout(model, batch, T, w_query, w_pred, gumbel,
+                     time_token=time_token, use_remat=use_remat,
+                     remat_policy=remat_policy, sel_targets=sel_targets)
+    with span("train.loss"):
+        loss, m = total_loss(ro, gamma, alpha, group, n_ranks)
     params = list(model.parameters())
-    if group is not None:
-        mean_over_ranks([p.grad for p in params], group, n_ranks)
-        names = list(m)
-        means = all_reduce(torch.stack([m[k].detach() for k in names]),
-                           group=group) / n_ranks
-        m = dict(zip(names, means.unbind()))
-    m["grad_norm"] = global_norm([p.grad for p in params])
-    if clip_grads:
-        clip_by_inf_norm(params, 1.0)
-    optimizer.step()
-    scheduler.step()
-    with torch.no_grad():
-        m["param_norm"] = global_norm(params)
+    with span("train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if group is not None:
+            mean_over_ranks([p.grad for p in params], group, n_ranks)
+            names = list(m)
+            means = all_reduce(torch.stack([m[k].detach() for k in names]),
+                               group=group) / n_ranks
+            m = dict(zip(names, means.unbind()))
+    with span("train.optimizer"):
+        m["grad_norm"] = global_norm([p.grad for p in params])
+        if clip_grads:
+            clip_by_inf_norm(params, 1.0)
+        optimizer.step()
+        scheduler.step()
+        with torch.no_grad():
+            m["param_norm"] = global_norm(params)
     return {k: v.detach() for k, v in m.items()}
 
 
@@ -160,7 +169,7 @@ class Trainer:
             os.path.join(cfg.output_dir, "logs") if self.is_writer else None,
             name=cfg.task.name or "aline")
         self.metrics = Metrics()
-        self.timer = PhaseTimer(self.device)
+        self.timer = PhaseTimer(self.device, span_prefix="train.")
         self._init_data_axis()
         self.task = build_task(cfg.task)
         seed = cfg.seed if cfg.fix_seed else None
@@ -304,48 +313,52 @@ class Trainer:
 
     # -- training ----------------------------------------------------------
     def train_epoch(self, epoch: int) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        phase = phase_for_epoch(cfg, epoch)
-        if phase != self.phase:
-            if self.phase == "burning" and self.is_writer:
-                # burning→main: snapshot, then a fresh optimizer
-                path = save_params_npz(self.model_path("_burning"),
-                                       self.model)
-                self.logger.info(f"Burning snapshot saved at {path}")
-            self._ensure_phase(phase)
+        with span("train.epoch"):
+            cfg = self.cfg
+            phase = phase_for_epoch(cfg, epoch)
+            if phase != self.phase:
+                if self.phase == "burning" and self.is_writer:
+                    # burning→main: snapshot, then a fresh optimizer
+                    path = save_params_npz(self.model_path("_burning"),
+                                           self.model)
+                    self.logger.info(f"Burning snapshot saved at {path}")
+                self._ensure_phase(phase)
 
-        T = self.pyrng.randint(cfg.min_T, cfg.T)
-        # burning shrinks the query pool to T
-        n_query = cfg.T if phase == "burning" else cfg.task.n_query_init
-        with self.timer.phase("sample"):
-            # the whole batch on every rank, then this rank's rows
-            if isinstance(self.task, HPOTask):
-                batch = self.task.sample_batch(self.nprng, cfg.batch_size,
-                                               n_query, device=self.device)
-            else:
-                batch = self.task.sample_batch(self.gen, cfg.batch_size,
-                                               n_query)
-            mask, w_q, w_p = self._epoch_mask_and_weights()
-            batch = batch.replace(
-                target_mask=torch.from_numpy(mask).to(self.device))
-            batch = init_ctx_idx(
-                batch, min(self.task.n_context_init + T, batch.n_points))
-            gumbel = gumbel_noise((T, batch.batch_size, batch.n_points),
-                                  self.gen)
-            batch, gumbel = self._shard(batch, gumbel)
-        alpha = 0.0 if phase == "burning" else cfg.alpha
-        with self.timer.phase("step"):
-            m = train_step(
-                self.model, self.optimizer, self.scheduler, batch, T,
-                torch.from_numpy(w_q).to(self.device),
-                torch.from_numpy(w_p).to(self.device), alpha, gumbel,
-                gamma=cfg.gamma, clip_grads=cfg.clip_grads,
-                use_remat=cfg.rollout_remat, remat_policy=cfg.remat_policy,
-                sel_targets=self._static_sel(mask),
-                time_token=cfg.time_token, group=self.data_group,
-                n_ranks=self.n_data)
-        m["T"] = T
-        return m
+            T = self.pyrng.randint(cfg.min_T, cfg.T)
+            # burning shrinks the query pool to T
+            n_query = (cfg.T if phase == "burning"
+                       else cfg.task.n_query_init)
+            with self.timer.phase("sample"):
+                # the whole batch on every rank, then this rank's rows
+                if isinstance(self.task, HPOTask):
+                    batch = self.task.sample_batch(
+                        self.nprng, cfg.batch_size, n_query,
+                        device=self.device)
+                else:
+                    batch = self.task.sample_batch(self.gen, cfg.batch_size,
+                                                   n_query)
+                mask, w_q, w_p = self._epoch_mask_and_weights()
+                batch = batch.replace(
+                    target_mask=torch.from_numpy(mask).to(self.device))
+                batch = init_ctx_idx(batch, min(self.task.n_context_init + T,
+                                                 batch.n_points))
+                gumbel = gumbel_noise(
+                    (T, batch.batch_size, batch.n_points), self.gen)
+                batch, gumbel = self._shard(batch, gumbel)
+            alpha = 0.0 if phase == "burning" else cfg.alpha
+            with self.timer.phase("step"):
+                m = train_step(
+                    self.model, self.optimizer, self.scheduler, batch, T,
+                    torch.from_numpy(w_q).to(self.device),
+                    torch.from_numpy(w_p).to(self.device), alpha, gumbel,
+                    gamma=cfg.gamma, clip_grads=cfg.clip_grads,
+                    use_remat=cfg.rollout_remat,
+                    remat_policy=cfg.remat_policy,
+                    sel_targets=self._static_sel(mask),
+                    time_token=cfg.time_token, group=self.data_group,
+                    n_ranks=self.n_data)
+            m["T"] = T
+            return m
 
     def train(self, eval_hook=None, tracker=None):
         """The epochs from ``start_epoch`` to ``cfg.max_epoch``; returns
@@ -431,5 +444,10 @@ class Trainer:
         self.logger.info(
             f"Total training time: {total:.2f}s ({total / 3600:.2f}h), "
             f"average wall time per epoch: {total / n:.4f}s")
-        self.logger.info("Phase times:\n%s", self.timer.summary())
+        self.logger.info("Phase times (host time to queue each phase's "
+                         "work):\n%s", self.timer.summary())
+        stream = self.timer.stream_summary()
+        if stream:
+            self.logger.info("Phase times on the stream (the spans' CUDA "
+                             "events):\n%s", stream)
         return epoch_times

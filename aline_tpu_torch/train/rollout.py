@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (
 
 from aline_tpu_torch.distributions.gmm import gmm_log_prob
 from aline_tpu_torch.tasks.base import Batch, select_design
+from aline_tpu_torch.utils.metrics import span
 
 
 REMAT_POLICIES = ("full", "dots")
@@ -96,19 +97,24 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
     training = gumbel is not None
 
     def step(ctx_mask, ctx_idx, noise, t):
-        # ctx_idx is carried beside ctx_mask: the compact attention reads
-        # it, and leaving it out would freeze the attended key set
-        b = batch.replace(ctx_mask=ctx_mask, ctx_idx=ctx_idx, t=t)
-        out = model(b, training=training, noise=noise,
-                    sel_targets=sel_targets, query_posterior=False)
-        b2, x_sel, y_sel = select_design(b, out.design_out.idx)
-        po = out.posterior_out
-        ll = gmm_log_prob(target_vals, po.mixture_means, po.mixture_stds,
-                          po.mixture_weights)                # [B, n_target]
-        nll_q = -torch.sum(ll * w_query, dim=-1)
-        nll_p = -torch.sum(ll * w_pred, dim=-1)
-        return (out.design_out.log_prob, nll_q, nll_p, out.design_out.idx,
-                x_sel, y_sel, b2.ctx_mask, b2.ctx_idx)
+        # the span is inside the checkpointed function: a recomputed step
+        # is traced again, under the backward pass
+        with span("rollout.step"):
+            # ctx_idx is carried beside ctx_mask: the compact attention
+            # reads it, and leaving it out would freeze the attended keys
+            b = batch.replace(ctx_mask=ctx_mask, ctx_idx=ctx_idx, t=t)
+            out = model(b, training=training, noise=noise,
+                        sel_targets=sel_targets, query_posterior=False)
+            b2, x_sel, y_sel = select_design(b, out.design_out.idx)
+            po = out.posterior_out
+            ll = gmm_log_prob(target_vals, po.mixture_means,
+                              po.mixture_stds,
+                              po.mixture_weights)            # [B, n_target]
+            nll_q = -torch.sum(ll * w_query, dim=-1)
+            nll_p = -torch.sum(ll * w_pred, dim=-1)
+            return (out.design_out.log_prob, nll_q, nll_p,
+                    out.design_out.idx, x_sel, y_sel, b2.ctx_mask,
+                    b2.ctx_idx)
 
     ctx_mask, ctx_idx = batch.ctx_mask, batch.ctx_idx
     per_step = []

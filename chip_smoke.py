@@ -1838,7 +1838,7 @@ def device_busy(fn):
     ``BUSY_TOP_KERNELS`` kernels by their summed device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from aline_tpu_torch.utils.profiling import busy_us
+    from portbench.trace import busy_us
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1856,7 +1856,9 @@ def device_busy(fn):
                            + (e.time_range.end - e.time_range.start) / 1e3)
     ranked = sorted(by_name.items(),
                     key=lambda kv: -kv[1])[:BUSY_TOP_KERNELS]
-    return busy_us(kernels) / 1e3, wall * 1e3, dict(ranked)
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in kernels])
+    return busy / 1e3, wall * 1e3, dict(ranked)
 
 
 def design_forward(model, b):

@@ -52,7 +52,7 @@ def main():
 
     from aline_tpu_torch.eval.al_curves import compare_strategies
     from aline_tpu_torch.models.aline import compute_dtype
-    from aline_tpu_torch.utils.profiling import busy_us
+    from portbench.trace import busy_us
     from aline_tpu_torch.tasks import build_task
     from aline_tpu_torch.utils.serialization import (
         AL1D_200K_PARAMS, load_model)
@@ -95,7 +95,8 @@ def main():
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     device_us = sum(t for _, t in by_name.values())
-    busy = busy_us(kernels)
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in kernels])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -54,7 +54,7 @@ def main():
 
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.train.loop import Trainer
-    from aline_tpu_torch.utils.profiling import busy_us
+    from portbench.trace import busy_us
 
     n = args.warmup + args.epochs
     cfg = parse_overrides([
@@ -93,7 +93,8 @@ def main():
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
     device_us = sum(t for _, t in by_name.values())
-    busy = busy_us(kernels)
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in kernels])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
