@@ -55,6 +55,9 @@ SIGNATURES = {
     # q, k, v, the plan's six arrays, o, lse, do, dq, dk, dv, delta;
     # B, H, N, dh; scale; stream
     "flash_attn_bwd": ([_P] * 16 + [_I] * 4 + [_F, _P], _I),
+    # x, y, thetas, max_in, sumexp_in, max_out, sumexp_out, scratch;
+    # n_valid; B, Th, K, D; base_signal, max_signal, noise_scale; stream
+    "loc_eig_fold": ([_P] * 8 + [_LL] + [_I] * 4 + [_F] * 3 + [_P], _I),
 }
 # other entry points of a library: library name → {entry: (argtypes, restype)}
 HELPERS = {
@@ -64,6 +67,8 @@ HELPERS = {
     # do, dq, dk and dv pointing at bfloat16 arrays
     "flash_attn_fwd": {"flash_attn_fwd_bf16": SIGNATURES["flash_attn_fwd"]},
     "flash_attn_bwd": {"flash_attn_bwd_bf16": SIGNATURES["flash_attn_bwd"]},
+    # the scratch floats of a call with (n_valid, B, Th)
+    "loc_eig_fold": {"loc_eig_fold_scratch": ([_LL, _I, _I], _LL)},
 }
 
 

@@ -16,6 +16,26 @@ from aline_tpu_torch.distributions.gmm import normal_log_prob
 from aline_tpu_torch.tasks.base import Batch, Task
 
 
+def total_density(xi: torch.Tensor, theta: torch.Tensor, base_signal: float,
+                  max_signal: float) -> torch.Tensor:
+    """Signal strength: xi [..., D], theta [..., K, D] with broadcastable
+    leading dims → [..., 1]."""
+    diff = xi[..., None, :] - theta                         # [..., K, D]
+    sq = torch.sum(diff * diff, dim=-1)                     # [..., K]
+    inv = 1.0 / (max_signal + sq)
+    return torch.log(base_signal + torch.sum(inv, dim=-1, keepdim=True))
+
+
+def log_likelihood(y, xi, theta, base_signal: float, max_signal: float,
+                   noise_scale: float) -> torch.Tensor:
+    """Gaussian log-likelihood of outcomes y [..., 1] at designs xi
+    [..., D] under sources theta [..., K, D], all broadcast (e.g. y
+    [1, B, Th, 1], xi [1, B, Th, D], theta [Lc, B, 1, K, D] → [Lc, B, Th,
+    1])."""
+    return normal_log_prob(
+        y, total_density(xi, theta, base_signal, max_signal), noise_scale)
+
+
 class HiddenLocation(Task):
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -58,13 +78,9 @@ class HiddenLocation(Task):
     # -- physics -----------------------------------------------------------
     def total_density(self, xi: torch.Tensor,
                       theta: torch.Tensor) -> torch.Tensor:
-        """Signal strength: xi [..., D], theta [..., K, D] with
-        broadcastable leading dims → [..., 1]."""
-        diff = xi[..., None, :] - theta                     # [..., K, D]
-        sq = torch.sum(diff * diff, dim=-1)                 # [..., K]
-        inv = 1.0 / (self.max_signal + sq)
-        return torch.log(self.base_signal
-                         + torch.sum(inv, dim=-1, keepdim=True))
+        """Signal strength (``total_density``) under this task's
+        constants."""
+        return total_density(xi, theta, self.base_signal, self.max_signal)
 
     def simulate(self, gen: torch.Generator, xi: torch.Tensor,
                  theta: torch.Tensor) -> torch.Tensor:
@@ -82,11 +98,10 @@ class HiddenLocation(Task):
         return self.total_density(xi, theta) + self.noise_scale * eps
 
     def log_likelihood(self, y, xi, theta):
-        """Gaussian log-likelihood; y [..., 1], xi [..., D] and theta
-        [..., K, D] broadcast (e.g. y [1, B, Th, 1], xi [1, B, Th, D],
-        theta [Lc, B, 1, K, D] → [Lc, B, Th, 1])."""
-        return normal_log_prob(y, self.total_density(xi, theta),
-                               self.noise_scale)
+        """Gaussian log-likelihood (``log_likelihood``) under this task's
+        constants."""
+        return log_likelihood(y, xi, theta, self.base_signal,
+                              self.max_signal, self.noise_scale)
 
     # -- batch -------------------------------------------------------------
     def sample_batch(self, gen: torch.Generator, batch_size: int,

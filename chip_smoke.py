@@ -73,6 +73,15 @@ Phases, each printing its result lines; any failure exits non-zero:
              FMAs at 67 (``fma_bound_ms``) or as three bf16 products each
              at 989 (``tc_bound_ms``), as the kernels run them; library:
              SDPA in bf16.
+3e. fold kernel — ``loc_eig_fold`` (the EIG fold of location finding,
+             one chunk a launch) against its plain version at the BED
+             cell's chunk (B=200, Th=35, Lc=9,586 draws, and the last
+             chunk's 3,056): each logsumexp within 1e-5 plus (Th + 8)
+             float32 ulps of its size, two calls bitwise equal; kernel,
+             device and plain ms of a chunk against the chunk's share of
+             the bound (``eig_fold_bound``, special-function results);
+             a whole batch's fold at L=1e6 (the draws included, 105
+             launches) against the batch's bound.
 wide. al1d_wide128 (``aline_tpu_torch.config.WIDE128_RECIPE``,
              assets/al1d_wide128_config.json: d=1024, 8 heads of 128,
              F=4096, C=10, 3 layers, flash; PR 15), after phase 3d.
@@ -172,8 +181,9 @@ pinned), as before the port followed the run's dtype.
              final sPCE within BED_SIGMAS combined standard errors of the
              JAX package's bounds at the same protocol on a TPU
              (``benchmarks/artifacts``; bound values, not times); nmc >=
-             pce - 1e-5 in every row and step; no kernel launched (none
-             of the path's shapes takes one); wall time split into the
+             pce - 1e-5 in every row and step; one ``loc_eig_fold`` launch
+             a chunk of the bounds and no other kernel (no other of the
+             path's shapes takes one); wall time split into the
              rollout and the EIG stage, the EIG stage per batch against
              its bounds (``eig_fold_bound``), peak memory, and the device
              busy share and top kernels of one batch.
@@ -188,8 +198,9 @@ pinned), as before the port followed the run's dtype.
              init) and ``eval.EIG=true``: 2 burning and 3 main epochs; the
              in-training bounds once, at the config's eval.L=50000,
              M=2000, batch_size=1000, finite in metrics.jsonl; the final
-             per-step bounds at eval.*_final with M_final cut to 200; no
-             kernel launched; warm epoch, the hook's wall and peak memory.
+             per-step bounds at eval.*_final with M_final cut to 200; one
+             ``loc_eig_fold`` launch a chunk of the bounds and no other
+             kernel; warm epoch, the hook's wall and peak memory.
 
 Phases 10-13 run the remaining tasks of the paper on their banked
 checkpoints, in their bf16, through the entry points; no kernel lies on
@@ -233,7 +244,8 @@ these paths, and each phase checks that none was launched:
              epoch ms, peak memory.
 
 Phases 14-18 run the paper's baselines and the remaining design paths
-through their entry points; only 16 lies on a kernel:
+through their entry points; 16 lies on the GMM kernels, and the bounds of
+location finding in 16-18 on ``loc_eig_fold`` (one launch a chunk):
 
 14. gp      — ``eval_al --with-gp-baselines`` on al1d_200k at
              scripts/eval_al.py's protocol (n_query=500, T=30, 80 fit
@@ -255,16 +267,18 @@ through their entry points; only 16 lies on a kernel:
              REINFORCE and pathwise (``alpha=0 alpha_pce=1 pce_L=255``):
              exactly 60 GMM forwards and 30 backwards an epoch, T
              forwards a greedy batch; final bounds at L=1e7, M=200, nmc >=
-             pce - 1e-5; one step card vs CPU held at PARITY_T steps and
+             pce - 1e-5, one fold launch a chunk; one step card vs CPU held
+             at PARITY_T steps and
              at T=30, the card's REINFORCE reward the CPU's.
 17. dad     — ``train_dad``'s ``main`` at its DEFAULTS for DAD_EPOCHS
-             epochs: no kernel, epochs/s, peak memory, final bounds at
-             L=1e6, M=200; one step card vs CPU as in 16.
+             epochs: no kernel but the fold's, one launch a chunk of the
+             final bounds at L=1e6, M=200; epochs/s, peak memory; one step
+             card vs CPU as in 16.
 18. trend   — ``eval_bed_trend``'s ``main`` on loc_100k (bf16, M=200,
              batch 100, n_query=2000, L = 1e4, 1e5, 1e6): nmc >= pce -
              1e-5 at every L, the L=1e6 row bit for bit
              ``eval_eig_from_history``'s on the same traces and seed; no
-             kernel.
+             kernel but the fold's, one launch a chunk.
 
 Phases 19-21 run the multi-process paths: their ranks are processes of
 one spawn (DIST_WORLD gloo ranks that share cuda:0: NCCL cannot put two
@@ -295,7 +309,8 @@ rank; any rank's failure fails the phase.
              n_query=2000, T=34, L=1e6, bf16 traces): the per-step bounds
              on the 1-D contrastive mesh of 2 ranks and on the (2,1) and
              (1,2) eval meshes within 1e-5 of the single process's on the
-             same traces and seed; the fold's time per rank.
+             same traces and seed; the fold's time per rank; n_chunks
+             fold launches over the contrastive ranks, on each data rank.
 21. seq     — loc_100k's greedy traces (B=200, the full 2001-token pool
              over 3 ranks, T=34, bf16) against the unsharded rollout on
              the card: a row may leave its choices only where the
@@ -326,13 +341,14 @@ loader of HPO-B; no kernel lies on their paths:
              meta-train files the native arrays bit for bit the json
              path's; both timed.
 
-``--only ces psych hpo train_tasks bench cont dad trend gp demo demo_train
-hpob dp mesh seq`` runs phase 1 and the named ones of 10-24 alone (seq:
-21 and 21b; no kernels line); ``--only kernels`` runs phases 1-3d and
-prints the kernels line, its launches null (no main path ran); ``--only
-wide`` runs phase wide and prints its rows of the kernels line (with
-``wide_kernels``, (a) alone, launches null); with no arguments it runs
-every phase.
+``--only bed train_loc ces psych hpo train_tasks bench cont dad trend gp
+demo demo_train hpob dp mesh seq`` runs phase 1 and the named ones of 8-24
+alone (bed: 8 and 8b; train_loc: 9; seq: 21 and 21b; no kernels line);
+``--only kernels`` runs phases 1-3e and prints the kernels line, its
+launches null (no main path ran); ``--only fold`` runs 3e alone and
+prints its row; ``--only wide`` runs phase wide and prints its rows of
+the kernels line (with ``wide_kernels``, (a) alone, launches null); with
+no arguments it runs every phase.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  A fuller record goes to
@@ -822,9 +838,10 @@ def phase_wide_kernels():
 
 
 def _counters():
+    from aline_tpu_torch.ops import eig_fold_kernel as efk
     from aline_tpu_torch.ops import flash_attention as fa
     from aline_tpu_torch.ops import gmm_head_kernel as ghk
-    return ghk.LAUNCHES, fa.LAUNCHES
+    return ghk.LAUNCHES, fa.LAUNCHES, efk.LAUNCHES
 
 
 def reset_launches():
@@ -1196,12 +1213,13 @@ def batch_rows(batch, rows, device):
 
 
 def expected_launches(cfg, *, gmm_head_fwd=0, gmm_head_bwd=0, flash_plan=0,
-                      flash_attn_fwd=0, flash_attn_bwd=0):
+                      flash_attn_fwd=0, flash_attn_bwd=0, loc_eig_fold=0):
     """Every counter's expected launches on a path of ``cfg``: the flash
     counts go to the run's dtype's entries, and to none without flash."""
     from aline_tpu_torch.models.aline import compute_dtype
     want = {name: 0 for name in launches()}
-    want.update(gmm_head_fwd=gmm_head_fwd, gmm_head_bwd=gmm_head_bwd)
+    want.update(gmm_head_fwd=gmm_head_fwd, gmm_head_bwd=gmm_head_bwd,
+                loc_eig_fold=loc_eig_fold)
     if cfg.encoder.attention_impl == "flash":
         sfx = "" if compute_dtype(cfg) == torch.float32 else "_bf16"
         want.update({"flash_plan": flash_plan,
@@ -2274,6 +2292,98 @@ def eig_fold_bound(terms, K, D):
     return max(f32, mufu), eager
 
 
+# Phase 3e: the EIG fold of location finding at the BED cell's shape
+# (portbench's loc_100k.bed_L1e6: B=200, 34 steps after the context point,
+# L=1e6 draws of K=1 source in D=2)
+FOLD = dict(B=200, Th=35, L=1_000_000, K=1, D=2)
+
+
+def phase_fold_kernel():
+    """3e: ``loc_eig_fold`` against its plain version on the card at the
+    BED cell's chunk (Lc = ``chunk_size``'s 9,586 draws, and the last
+    chunk's 3,056, into a filled state): each (row, step)'s logsumexp
+    within 1e-5 plus (Th + 8) float32 ulps of its size (the reason is in
+    tests/test_torch_cuda.py), two calls bitwise equal; the chunk's kernel
+    ms (eager, the wrapper's host work included), device ms (a CUDA graph
+    of the calls) and the plain version's ms, against the chunk's share of
+    the bound (``eig_fold_bound``: the special-function results); and a
+    whole batch's fold (``compute_eig_from_history`` at L=1e6, stepwise,
+    the draws included: host clock between synchronises, 3 seeds) against
+    the batch's bound, with one launch a chunk."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.eval import eig
+    from aline_tpu_torch.ops import eig_fold_kernel as efk
+    from aline_tpu_torch.parallel.collectives import (
+        lse_init, lse_update, lse_value)
+    from aline_tpu_torch.tasks.location_finding import HiddenLocation
+
+    B, Th, L, K, D = (FOLD[k] for k in ("B", "Th", "L", "K", "D"))
+    task = HiddenLocation(parse_overrides(["task=location_finding"]).task)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    theta0 = task.sample_theta(g, (B,))
+    x = task.unnormalise_design(task.sample_data(g, B, Th))
+    y = task.simulate(g, x, theta0[:, None])
+    y2 = y[..., 0].contiguous()
+    Lc = eig.chunk_size(L, B, Th, 32_768)
+    n_chunks = math.ceil(L / Lc)
+    last = L - (n_chunks - 1) * Lc
+    thetas = task.sample_theta(g, (Lc, B))
+    state = lse_update(lse_init((B, Th), device="cuda"), -60.0 * torch.rand(
+        5, B, Th, generator=g, device="cuda"), axis=0)
+    consts = (task.base_signal, task.max_signal, task.noise_scale)
+    worst = 0.0
+    for n in (Lc, last):
+        got = efk.loc_eig_fold(state, x, y2, thetas, n, *consts)
+        again = efk.loc_eig_fold(state, x, y2, thetas, n, *consts)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.max, again.max)
+                and torch.equal(got.sumexp, again.sumexp)):
+            raise AssertionError(f"loc_eig_fold: two calls differ (n={n})")
+        want = lse_value(efk.loc_eig_fold_plain(state, x, y2, thetas, n,
+                                                *consts))
+        err = (lse_value(got) - want).abs()
+        if not (err <= 1e-5 + (Th + 8) * 2.0 ** -24 * want.abs()).all():
+            raise AssertionError(f"loc_eig_fold disagrees with its plain "
+                                 f"version (n={n}): max abs "
+                                 f"{err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+
+    def fold():
+        return efk.loc_eig_fold(state, x, y2, thetas, Lc, *consts)
+
+    bound_s = eig_fold_bound(Lc * B * Th, K, D)[0]
+    row = dict(
+        B=B, T=Th, shape=[Lc, B, Th, K, D], max_abs_err=worst,
+        ms=time_ms(fold), device_ms=device_ms(fold),
+        plain_ms=time_ms(lambda: efk.loc_eig_fold_plain(
+            state, x, y2, thetas, Lc, *consts), reps=3, iters=3),
+        library_ms=None, bound_ms=1e3 * bound_s, bound_by="operations")
+    eig.compute_eig_from_history(task, theta0, x, y, L, 1, stepwise=True)
+    reset_launches()
+    batch_s = []
+    for seed in (2, 3, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eig.compute_eig_from_history(task, theta0, x, y, L, seed,
+                                     stepwise=True)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    if launches()["loc_eig_fold"] != 3 * n_chunks:
+        raise AssertionError(f"fold: {launches()['loc_eig_fold']} launches "
+                             f"in 3 batches of {n_chunks} chunks")
+    row.update(Lc=Lc, last_chunk=last, chunks_per_batch=n_chunks,
+               batch_ms=1e3 * statistics.median(batch_s),
+               batch_bound_ms=1e3 * eig_fold_bound(L * B * Th, K, D)[0])
+    log("fold", f"loc_eig_fold B={B} Th={Th} K={K} D={D}, a chunk of "
+        f"{Lc} draws (the last of {n_chunks}: {last}): max abs err "
+        f"{worst:.3e}, bitwise over two calls; kernel {row['ms']:.4f} ms "
+        f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms,"
+        f" bound {row['bound_ms']:.4f} ms (operations); a batch's fold "
+        f"(L={L:g}, draws included) {row['batch_ms']:.3f} ms (median of 3,"
+        f" {n_chunks} launches each), bound {row['batch_bound_ms']:.3f} ms")
+    return row, worst
+
+
 def timed_calls(store, kind, fn):
     """``fn`` wrapped to append its host time, between two synchronises,
     to ``store`` (with the EIG calls' shapes and results)."""
@@ -2286,10 +2396,22 @@ def timed_calls(store, kind, fn):
         if kind == "eig":
             x = args[2]
             rec.update(B=x.shape[0], Th=x.shape[1], L=args[4],
-                       pce=out[0].cpu(), nmc=out[1].cpu())
+                       L_chunk=kw.get("L_chunk", 32_768))
+            if not kw.get("L_checkpoints"):
+                rec.update(pce=out[0].cpu(), nmc=out[1].cpu())
         store.append(rec)
         return out
     return wrapper
+
+
+def fold_chunks(calls):
+    """The chunks, one ``loc_eig_fold`` launch each, that the EIG calls in
+    ``calls`` (``timed_calls``' records, no mesh, no given thetas) fold:
+    ceil(L / Lc) a call."""
+    from aline_tpu_torch.eval.eig import chunk_size
+    return sum(math.ceil(c["L"] / chunk_size(c["L"], c["B"], c["Th"],
+                                             c["L_chunk"]))
+               for c in calls if c["kind"] == "eig")
 
 
 def patched(patches):
@@ -2311,9 +2433,10 @@ def phase_bed(smi):
     """8: ``python -m aline_tpu_torch.eval_bed`` on loc_100k at the full
     protocol with the random-design baseline, through its ``main``;
     per-step bounds, the final sPCE against the JAX package's, nmc >= pce
-    in every row and step, no kernel launched, wall time split into the
-    rollout and the EIG stage, the EIG stage per batch against its
-    bounds, peak memory, and the device busy share of one batch."""
+    in every row and step, one ``loc_eig_fold`` launch a chunk and no
+    other kernel, wall time split into the rollout and the EIG stage, the
+    EIG stage per batch against its bounds, peak memory, and the device
+    busy share of one batch."""
     from aline_tpu_torch import eval_bed
     from aline_tpu_torch.config import load_config
     from aline_tpu_torch.eval import eig
@@ -2340,8 +2463,10 @@ def phase_bed(smi):
         peak = torch.cuda.max_memory_allocated()
     finally:
         patched(undo)
-    if counts != expected_launches(cfg):
-        raise AssertionError(f"bed: kernel launches {counts}, expected none")
+    want = expected_launches(cfg, loc_eig_fold=fold_chunks(calls))
+    if counts != want:
+        raise AssertionError(f"bed: kernel launches {counts}, expected "
+                             f"{want}")
     n_batches = -(-BED["M"] // BED["batch_size"])
     rollouts = [c for c in calls if c["kind"] == "rollout"]
     eigs = [c for c in calls if c["kind"] == "eig"]
@@ -2493,9 +2618,11 @@ def phase_bed_witness():
 
 def phase_train_loc(smi):
     """9: ``python -m aline_tpu_torch.train`` with the loc recipe and
-    ``eval.EIG=true``, through its ``main``: no kernel launched; finite
-    in-training bounds in metrics.jsonl; warm ms per epoch, the hook's
-    wall time and peak memory."""
+    ``eval.EIG=true``, through its ``main``: one ``loc_eig_fold`` launch a
+    chunk of the bounds and no other kernel; finite in-training bounds in
+    metrics.jsonl; warm ms per epoch, the hook's wall time and peak
+    memory."""
+    from aline_tpu_torch.eval import eig
     from aline_tpu_torch.train import __main__ as entry
     from aline_tpu_torch.train.loop import Trainer
 
@@ -2515,7 +2642,9 @@ def phase_train_loc(smi):
 
     undo = patched([(Trainer, "train_epoch", timed_epoch),
                     (entry, "eval_boed", timed_calls(calls, "eval_boed",
-                                                     entry.eval_boed))])
+                                                     entry.eval_boed)),
+                    (eig, "compute_eig_from_history", timed_calls(
+                        calls, "eig", eig.compute_eig_from_history))])
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2526,8 +2655,10 @@ def phase_train_loc(smi):
         peak = torch.cuda.max_memory_allocated()
     finally:
         patched(undo)
-    if counts != expected_launches(trainer.cfg):
-        raise AssertionError(f"train loc: launches {counts}, expected none")
+    want = expected_launches(trainer.cfg, loc_eig_fold=fold_chunks(calls))
+    if counts != want:
+        raise AssertionError(f"train loc: launches {counts}, expected "
+                             f"{want}")
     recs = [json.loads(line) for line in
             (out_dir / "metrics.jsonl").read_text().splitlines()]
     bounds = [r for r in recs if "pce_mean" in r]
@@ -3571,6 +3702,8 @@ def phase_cont(smi):
                                                 f"output_dir={out_dir}"])
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
+            # since the greedy rollout's reset: it and the final bounds
+            after_greedy = launches()
         finally:
             patched(undo)
         cfg = run["trainer"].cfg
@@ -3588,6 +3721,11 @@ def phase_cont(smi):
         if greedy != expected_launches(
                 cfg, gmm_head_fwd=n_greedy * cfg.eval.T_final):
             raise AssertionError(f"cont {label}: greedy launches {greedy}")
+        folds = after_greedy["loc_eig_fold"]
+        if folds != fold_chunks(calls):
+            raise AssertionError(f"cont {label}: {folds} loc_eig_fold "
+                                 f"launches in the final bounds, expected "
+                                 f"{fold_chunks(calls)}")
         pce, nmc = check_final_bounds(f"cont {label}", run["bounds"])
         least = final_bounds_rows(calls)
         bounds_s = [c["s"] for c in calls if c["kind"] == "bounds"][0]
@@ -3595,6 +3733,7 @@ def phase_cont(smi):
             [e["s"] for e in epochs if e["phase"] == "main"][1:])
         totals = {k: sum(e["launches"][k] for e in epochs) + greedy[k]
                   for k in greedy}
+        totals["loc_eig_fold"] += folds
         rec[label] = dict(epochs=epochs, warm_ms=warm_ms, wall_s=wall,
                           peak_bytes=peak, final_pce=pce, final_nmc=nmc,
                           least_row_nmc_minus_pce=least,
@@ -3605,7 +3744,8 @@ def phase_cont(smi):
                         for e in epochs)
             + f"; {2 * T} GMM forwards and {T} backwards every epoch, "
             f"{greedy['gmm_head_fwd']} forwards in {n_greedy} greedy "
-            f"batches; warm epoch {warm_ms:.1f} ms; final bounds (L="
+            f"batches; warm epoch {warm_ms:.1f} ms; final bounds ({folds} "
+            f"fold launches, one a chunk; L="
             f"{cfg.eval.L_final:g}, M={cfg.eval.M_final}, batch "
             f"{cfg.eval.batch_size_final}, T={cfg.eval.T_final}) "
             f"{bounds_s:.3f} s: sPCE {pce:.4f}, sNMC {nmc:.4f} (least row "
@@ -3618,7 +3758,8 @@ def phase_cont(smi):
 
 def phase_dad(smi):
     """17: ``train_dad``'s ``main`` at its DEFAULTS for DAD_EPOCHS epochs:
-    no kernel launched, finite final bounds with nmc >= pce - 1e-5,
+    one ``loc_eig_fold`` launch a chunk of the bounds and no other
+    kernel, finite final bounds with nmc >= pce - 1e-5,
     epochs/s and peak memory; one step on the card against one on the
     CPU (B=PARITY_B)."""
     from aline_tpu_torch import train_dad
@@ -3644,8 +3785,10 @@ def phase_dad(smi):
     finally:
         patched(undo)
     cfg = run["trainer"].cfg
-    if any(counts.values()):
-        raise AssertionError(f"dad: launches {counts}")
+    want = {name: 0 for name in counts}
+    want["loc_eig_fold"] = fold_chunks(calls)
+    if counts != want:
+        raise AssertionError(f"dad: launches {counts}, expected {want}")
     pce, nmc = check_final_bounds("dad", run["bounds"])
     train_s = sum(run["epoch_s"])
     rate = len(run["epoch_s"]) / train_s
@@ -3658,8 +3801,9 @@ def phase_dad(smi):
         f"{len(run['epoch_s'])} epochs in {train_s:.3f} s ({rate:.1f} "
         f"epochs/s); final bounds (L={cfg.eval.L_final:g}, M="
         f"{cfg.eval.M_final}) {bounds_s:.3f} s: sPCE {pce:.4f}, sNMC "
-        f"{nmc:.4f}; peak memory {peak / 2**30:.3f} GiB; no kernel "
-        f"launched ({smi})")
+        f"{nmc:.4f}; peak memory {peak / 2**30:.3f} GiB; "
+        f"{counts['loc_eig_fold']} fold launches, one a chunk, no other "
+        f"kernel ({smi})")
     rec["parity"] = {}
     for T in (PARITY_T, cfg.T):
         cfg_p = parse_overrides(train_dad.DEFAULTS + [
@@ -3678,8 +3822,8 @@ def phase_dad(smi):
 def phase_trend(smi):
     """18: ``eval_bed_trend``'s ``main`` on loc_100k (bf16): nmc >= pce -
     1e-5 at every L; the row at the largest L equal bit for bit to
-    ``eval_eig_from_history`` at that L on the same traces and seed; no
-    kernel launched; wall time."""
+    ``eval_eig_from_history`` at that L on the same traces and seed; one
+    ``loc_eig_fold`` launch a chunk and no other kernel; wall time."""
     from aline_tpu_torch import eval_bed_trend as ebt
     from aline_tpu_torch.config import load_config
     from aline_tpu_torch.eval.eig import (
@@ -3696,7 +3840,10 @@ def phase_trend(smi):
         return out
 
     ebt_get_traces = ebt.get_traces
-    undo = patched([(ebt, "get_traces", recorded)])
+    calls = []
+    undo = patched([(ebt, "get_traces", recorded),
+                    (ebt, "compute_eig_from_history", timed_calls(
+                        calls, "eig", ebt.compute_eig_from_history))])
     Ls = TREND["L_checkpoints"]
     try:
         torch.cuda.synchronize()
@@ -3712,8 +3859,9 @@ def phase_trend(smi):
         counts = launches()
     finally:
         patched(undo)
-    if counts != expected_launches(cfg):
-        raise AssertionError(f"trend: launches {counts}, expected none")
+    want = expected_launches(cfg, loc_eig_fold=fold_chunks(calls))
+    if counts != want:
+        raise AssertionError(f"trend: launches {counts}, expected {want}")
     rows = {}
     for key in res:
         if key.endswith("_pce"):
@@ -3740,7 +3888,9 @@ def phase_trend(smi):
             rows.items())) + f"; the L={L} row equal bit for bit to "
         f"eval_eig_from_history ({direct_s:.3f} s); M={TREND['M']} batch "
         f"{TREND['batch_size']} n_query={TREND['n_query']} {cfg.dtype}: "
-        f"{wall:.3f} s; no kernel launched ({smi})")
+        f"{wall:.3f} s; {counts['loc_eig_fold']} fold launches, one a chunk"
+        f" (the checkpoints read as the fold passes), no other kernel "
+        f"({smi})")
     return dict(rows=rows, wall_s=wall, direct_s=direct_s, launches=counts)
 
 
@@ -4312,6 +4462,7 @@ MESHES = (("1d", 2), ("2d", (2, 1)), ("2d", (1, 2)))
 def _rank_mesh(rank, inp):
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.eval.eig import compute_eig_from_history
+    from aline_tpu_torch.ops import eig_fold_kernel as efk
     from aline_tpu_torch.parallel.mesh import get_eval_mesh, get_mesh
     from aline_tpu_torch.tasks import build_task
     task = build_task(parse_overrides(["task=location_finding"]).task)
@@ -4323,19 +4474,39 @@ def _rank_mesh(rank, inp):
         if not mesh.member:
             continue
         torch.cuda.synchronize()
+        before = efk.LAUNCHES["loc_eig_fold"]
         t0 = time.perf_counter()
         pce, nmc = compute_eig_from_history(task, *args, BED["L"], 20,
                                             stepwise=True, mesh=mesh)
         torch.cuda.synchronize()
-        res[(kind, shape)] = dict(s=time.perf_counter() - t0,
-                                  pce=pce.cpu(), nmc=nmc.cpu())
+        res[(kind, shape)] = dict(
+            s=time.perf_counter() - t0, pce=pce.cpu(), nmc=nmc.cpu(),
+            folds=efk.LAUNCHES["loc_eig_fold"] - before,
+            n_data=mesh.axis_size("data"))
     return res
 
 
 def check_mesh(smi, inp, ranks):
+    """The ranks' bounds against the single process's; the contrastive
+    ranks split the chunks, each data rank folds its block on its rows:
+    n_chunks × (data ranks) fold launches over the ranks of a mesh."""
+    from aline_tpu_torch.eval.eig import chunk_size
+    B, Th = BED["batch_size"], BED["T"] + 1
+    n_chunks = math.ceil(BED["L"] / chunk_size(BED["L"], B, Th, 32_768))
     rec = dict(single_s=inp["single_s"], meshes={})
+    folds = 0
     for kind, shape in MESHES:
         per = {}
+        # (the ranks' numbers come back as tensors)
+        by_rank = [int(ranks[r]["mesh"][(kind, shape)]["folds"])
+                   for r in range(2)]
+        want = n_chunks * int(ranks[0]["mesh"][(kind, shape)]["n_data"])
+        if sum(by_rank) != want:
+            raise AssertionError(f"mesh {kind} {shape}: fold launches "
+                                 f"{by_rank} by rank, expected {want} in "
+                                 f"all")
+        per["fold_launches"] = by_rank
+        folds += want
         for r in range(2):
             got = ranks[r]["mesh"][(kind, shape)]
             for name in ("pce", "nmc"):
@@ -4357,6 +4528,7 @@ def check_mesh(smi, inp, ranks):
         if ranks[r]["mesh"]:
             raise AssertionError("mesh: rank 2 folded outside the meshes")
     rec["launches"] = {k: 0 for k in launches()}
+    rec["launches"]["loc_eig_fold"] = folds
     return rec
 
 
@@ -4664,6 +4836,7 @@ def dist_phases(smi, only):
 NEW_PHASES = ("ces", "psych", "hpo", "train_tasks", "gp", "bench", "cont",
               "dad", "trend", "demo", "demo_train", "hpob")
 DIST_PHASES = ("dp", "mesh", "seq")
+LOC_PHASES = ("bed", "train_loc")
 
 
 def parse_args(argv=None):
@@ -4671,11 +4844,12 @@ def parse_args(argv=None):
         description="Smoke run of the port on one NVIDIA GPU; with no "
                     "arguments, every phase")
     ap.add_argument("--only", nargs="+",
-                    choices=("kernels", "wide", "wide_kernels") + NEW_PHASES
-                    + DIST_PHASES,
-                    help="run only these of phases 10-24 (after phase 1) "
-                         "and print no kernels line; kernels: phases 2-3d "
-                         "and the kernels line")
+                    choices=("kernels", "fold", "wide", "wide_kernels")
+                    + LOC_PHASES + NEW_PHASES + DIST_PHASES,
+                    help="run only these of phases 8-24 (after phase 1) "
+                         "and print no kernels line; kernels: phases 2-3e "
+                         "and the kernels line; fold: phase 3e and its "
+                         "row of it")
     ap.add_argument("--ces-M", type=int, default=CES_SMOKE_M,
                     help="phase 10's rows (2000: the JAX run's protocol)")
     return ap.parse_args(argv)
@@ -5082,13 +5256,15 @@ def phase_wide(smi, paths=True):
 
 
 def kernel_phases():
-    """Phases 2-3d: {record name: rows} and {kernel: worst error}."""
+    """Phases 2-3e: {record name: rows} and {kernel: worst error}."""
     rec = {"build_s": phase_build()}
     rec["gmm_head_fwd"], gmm_err = phase_kernels()
     rec["gmm_head_bwd"], bwd_err = phase_kernels_bwd()
     rec["flash"], flash_err = phase_flash_kernels()
     rec["flash_bf16"], bf16_err = phase_flash_kernels_bf16()
+    rec["fold"], fold_err = phase_fold_kernel()
     errs = {"gmm_head_fwd": gmm_err, "gmm_head_bwd": bwd_err,
+            "loc_eig_fold": fold_err,
             "flash_attn_fwd": flash_err["fwd"],
             "flash_attn_bwd": flash_err["bwd"],
             "flash_attn_fwd_bf16": bf16_err["fwd"],
@@ -5122,8 +5298,16 @@ def kernel_records(rec, errs, paths, wide=None):
                 "shape": row.get("shape", [row.get("B"), row.get("T")])}
 
     rows = []
-    if rec is not None:
+    if rec is not None and "gmm_head_fwd" in rec:
         rows += narrow_records(rec, record)
+    if rec is not None and "fold" in rec:
+        f = rec["fold"]
+        # no Pallas kernel: it stands where XLA fuses the chunk fold
+        rows.append(record(
+            "loc_eig_fold", None, f,
+            fuses="aline_tpu/eval/eig.py:79 _accumulate_chunks",
+            **{k: f[k] for k in ("Lc", "last_chunk", "chunks_per_batch",
+                                 "batch_ms", "batch_bound_ms")}))
     if wide is None:
         return rows
     k = wide["kernels"]
@@ -5185,6 +5369,15 @@ def main(argv=None):
         if "kernels" in args.only:
             rec, errs = kernel_phases()
             kernels = kernel_records(rec, errs, None)
+        elif "fold" in args.only:
+            rec["fold"], fold_err = timed("3e", phase_fold_kernel)
+            errs = {"loc_eig_fold": fold_err}
+            kernels = kernel_records(rec, errs, None)
+        if "bed" in args.only:
+            rec["bed"] = timed("8", phase_bed, smi)
+            rec["bed_witness"] = timed("8b", phase_bed_witness)
+        if "train_loc" in args.only:
+            rec["train_loc"] = timed("9", phase_train_loc, smi)
         if "wide" in args.only or "wide_kernels" in args.only:
             rec["wide"] = phase_wide(smi, "wide" in args.only)
             kernels = kernel_records(rec if kernels else None,
@@ -5204,7 +5397,7 @@ def main(argv=None):
         print(json.dumps({"ok": True, "device": device}))
         return
     t_run = time.perf_counter()
-    kernel_rec, errs = timed("kernels 2-3d", kernel_phases)
+    kernel_rec, errs = timed("kernels 2-3e", kernel_phases)
     wide_rec = timed("wide", phase_wide, smi)
     torch.cuda.empty_cache()
     slice_rec, batch, curves = timed("4", phase_slice)

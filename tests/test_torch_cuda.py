@@ -25,13 +25,35 @@ partial sum, where the kernels sum in float32 and round once: within
 the plain version summed as the kernels sum them (``per_block=False``),
 dK and dV lie within 2^-7 of each element plus 1e-4 of the largest.  lse
 is float32: 1e-4.
+
+The EIG fold of location finding against its plain version on the card:
+the logsumexp (max + log sumexp) of each (row, step) within 1e-5 plus
+(Th + 8) float32 ulps of its size.  Each step's term rounds otherwise in
+the kernel (products contracted into FMAs, its own logf), and so does
+the running sum over the Th steps, up to about an ulp of S each; S, a
+sum of negative terms, reaches hundreds of nats, and the largest S set
+the logsumexp's size.  The sum of exponentials runs in another order
+(per thread, per block, over blocks), which moves it by about 1e-6.
 """
+import math
+
+
 import pytest
 import torch
 
+from aline_tpu_torch import config as tcfg
+from aline_tpu_torch.eval import eig
+from aline_tpu_torch.ops import eig_fold_kernel as efk
 from aline_tpu_torch.ops import flash_attention as fa
 from aline_tpu_torch.ops import gmm_head_kernel as ghk
 from aline_tpu_torch.ops.roles import build_roles, roles_to_codes
+from aline_tpu_torch.parallel.collectives import (
+    LogSumExpState,
+    lse_init,
+    lse_update,
+    lse_value,
+)
+from aline_tpu_torch.tasks.location_finding import HiddenLocation
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -454,3 +476,150 @@ def test_flash_kernels_take_a_given_plan(cuda):
     with pytest.raises(ValueError, match="plan"):
         fa.flash_attn_fwd(q, k, v, kcode, qrow, plan._replace(
             key_perm=plan.key_perm[:-1]))
+
+
+# -- the EIG fold of location finding -----------------------------------------
+
+# the BED cell's chunk (B=200, Th=35: chunk_size caps Lc at 9,586 draws; the
+# last of L=1e6's 105 chunks holds 3,056)
+CELL_LC, CELL_LAST = 9586, 3056
+# (B, Th, Lc, K, prior, n_valid, filled state)
+FOLD_CASES = {
+    "cell": (200, 35, CELL_LC, 1, "uniform", CELL_LC, False),
+    "cell, filled": (200, 35, CELL_LC, 1, "uniform", CELL_LC, True),
+    "cell, last chunk": (200, 35, CELL_LC, 1, "uniform", CELL_LAST, True),
+    "cell, n_valid 0": (200, 35, CELL_LC, 1, "uniform", 0, True),
+    "cell, n_valid 0, empty": (200, 35, CELL_LC, 1, "uniform", 0, False),
+    "cell, n_valid 1": (200, 35, CELL_LC, 1, "uniform", 1, False),
+    "cell, normal prior": (200, 35, CELL_LC, 1, "normal", CELL_LC, True),
+    "K=2 (thetas through L1)": (64, 35, 3000, 2, "uniform", 3000, True),
+    "K=3": (32, 12, 2000, 3, "uniform", 1500, True),
+    "Th=1": (200, 1, CELL_LC, 1, "uniform", CELL_LC, False),
+    "Th=65": (100, 65, 4000, 1, "uniform", 4000, True),
+    "Th=200": (50, 200, 3000, 1, "normal", 2000, True),
+}
+
+
+def _loc_task(K=1, prior="uniform"):
+    return HiddenLocation(tcfg.parse_overrides(
+        ["task=location_finding", f"task.K={K}",
+         f"task.n_target_theta={2 * K}", f"task.theta_dist={prior}"]).task)
+
+
+def _fold_inputs(B, Th, Lc, K=1, prior="uniform", filled=False, seed=0):
+    """A task, a state, designs x [B, Th, 2] and outcomes y [B, Th] of
+    rows simulated under their own sources, and Lc draws of the prior."""
+    task = _loc_task(K, prior)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    theta_0 = task.sample_theta(g, (B,))
+    x = task.unnormalise_design(task.sample_data(g, B, Th))
+    y = task.simulate(g, x, theta_0[:, None])[..., 0].contiguous()
+    state = lse_init((B, Th), device="cuda")
+    if filled:
+        state = lse_update(state, -60.0 * torch.rand(
+            5, B, Th, generator=g, device="cuda"), axis=0)
+    return task, state, x, y, task.sample_theta(g, (Lc, B))
+
+
+def _assert_lse_close(got, want, Th):
+    a, b = lse_value(got), lse_value(want)
+    inf = torch.isinf(b)
+    assert torch.equal(a[inf], b[inf])
+    tol = 1e-5 + (Th + 8) * 2.0 ** -24 * b[~inf].abs()
+    err = (a[~inf] - b[~inf]).abs()
+    assert (err <= tol).all(), f"max err {err.max():.3e}"
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_loc_eig_fold_kernel_matches_plain(cuda, case):
+    B, Th, Lc, K, prior, n, filled = FOLD_CASES[case]
+    task, state, x, y, thetas = _fold_inputs(B, Th, Lc, K, prior, filled)
+    consts = (task.base_signal, task.max_signal, task.noise_scale)
+    before = efk.LAUNCHES["loc_eig_fold"]
+    got = efk.loc_eig_fold(state, x, y, thetas, n, *consts)
+    torch.cuda.synchronize()
+    assert efk.LAUNCHES["loc_eig_fold"] == before + 1
+    want = efk.loc_eig_fold_plain(state, x, y, thetas, n, *consts)
+    _assert_lse_close(got, want, Th)
+    if n == 0:
+        # no valid draw: the state bit for bit
+        assert torch.equal(got.max, state.max)
+        assert torch.equal(got.sumexp, state.sumexp)
+
+
+def test_loc_eig_fold_kernel_is_deterministic(cuda):
+    task, state, x, y, thetas = _fold_inputs(200, 35, CELL_LC, filled=True)
+    consts = (task.base_signal, task.max_signal, task.noise_scale)
+    first = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, *consts)
+    second = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, *consts)
+    assert torch.equal(first.max, second.max)       # no atomics: bitwise
+    assert torch.equal(first.sumexp, second.sumexp)
+
+
+def test_loc_bounds_launch_one_kernel_a_chunk(cuda):
+    """The BED cell's batch (B=200, Th=35, L=1e6): 105 chunks, one launch
+    each."""
+    task, _, x, y, _ = _fold_inputs(200, 35, 1, seed=1)
+    theta_0 = task.sample_theta(torch.Generator(device="cuda").manual_seed(2),
+                                (200,))
+    L = 1_000_000
+    Lc = eig.chunk_size(L, 200, 35, 32_768)
+    assert (Lc, L - (math.ceil(L / Lc) - 1) * Lc) == (CELL_LC, CELL_LAST)
+    before = efk.LAUNCHES["loc_eig_fold"]
+    pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y[..., None],
+                                            L, 7, stepwise=True)
+    torch.cuda.synchronize()
+    assert efk.LAUNCHES["loc_eig_fold"] - before == 105 == math.ceil(L / Lc)
+    assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
+    assert (nmc - pce >= math.log(L / (L + 1)) - 1e-5).all()
+
+
+def test_loc_L_checkpoints_equal_separate_calls_on_the_card(cuda):
+    task, _, x, y, _ = _fold_inputs(40, 12, 1, seed=3)
+    theta_0 = task.sample_theta(torch.Generator(device="cuda").manual_seed(4),
+                                (40,))
+    args = (task, theta_0, x, y[..., None])
+    curve = eig.compute_eig_from_history(*args, 20_000, 5, L_chunk=3000,
+                                         stepwise=True,
+                                         L_checkpoints=[5000, 12_000])
+    assert sorted(curve) == [6000, 12_000, 20_000]
+    for L_eff, (pce_c, nmc_c) in curve.items():
+        pce, nmc = eig.compute_eig_from_history(*args, L_eff, 5,
+                                                L_chunk=3000, stepwise=True)
+        assert torch.equal(pce_c, pce) and torch.equal(nmc_c, nmc), L_eff
+
+
+def test_loc_bounds_never_wait_for_the_host(cuda):
+    task, _, x, y, _ = _fold_inputs(200, 35, 1, seed=5)
+    theta_0 = task.sample_theta(torch.Generator(device="cuda").manual_seed(6),
+                                (200,))
+    eig.compute_eig_from_history(task, theta_0, x, y[..., None], 20_000, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pce, nmc = eig.compute_eig_from_history(
+            task, theta_0, x, y[..., None], 100_000, 5, stepwise=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
+
+
+def test_loc_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
+    task, state, x, y, thetas = _fold_inputs(8, 5, 100)
+    consts = (task.base_signal, task.max_signal, task.noise_scale)
+
+    def fold(state=state, x=x, y=y, thetas=thetas):
+        return efk.loc_eig_fold(state, x, y, thetas, 100, *consts)
+
+    with pytest.raises(TypeError):
+        fold(thetas=thetas.double())
+    with pytest.raises(TypeError):
+        fold(x=x.bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        fold(state=LogSumExpState(state.max.cpu(), state.sumexp.cpu()))
+    with pytest.raises(ValueError, match="shape"):
+        fold(y=y[:, :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        fold(thetas=thetas[:, :7].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fold(thetas=thetas.transpose(0, 1).contiguous().transpose(0, 1))
