@@ -52,7 +52,7 @@ from aline_tpu_torch.parallel.collectives import (
 )
 from aline_tpu_torch.parallel.mesh import Mesh, replicate
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
-from aline_tpu_torch.utils.metrics import span
+from aline_tpu_torch.utils.metrics import count, span
 
 _MASK64 = (1 << 64) - 1
 
@@ -110,18 +110,23 @@ def _fold(state: LogSumExpState, task, x, y, thetas,
     """Fold one chunk of thetas whose first ``n_valid`` rows count (the
     rest, the padding past L, add nothing).  Location finding goes
     through its fused fold (``ops/eig_fold_kernel.py``: one kernel a
-    chunk on the card); every other task through S [Lc, B, Th] and
-    ``lse_update``."""
+    chunk on the card); every other task through S [Lc, B, Th]
+    (the span ``eig.loglik``) and ``lse_update`` (``eig.lse``).  Each
+    chunk counts the (draw, row, step) terms it folds, ``eig.terms``."""
     with span("eig.chunk"):
+        Lc = thetas.shape[0]
+        count("eig.terms", max(0, min(n_valid, Lc)) * x.shape[0] * x.shape[1])
         if isinstance(task, HiddenLocation):
             return loc_eig_fold(state, x.contiguous(),
                                 y[..., 0].contiguous(), thetas.contiguous(),
                                 n_valid, task.base_signal, task.max_signal,
                                 task.noise_scale)
-        S = _seq_cum_loglik(task, x, y, thetas)
-        if n_valid < S.shape[0]:
-            S[max(n_valid, 0):] = -torch.inf
-        return lse_update(state, S, axis=0)
+        with span("eig.loglik"):
+            S = _seq_cum_loglik(task, x, y, thetas)
+            if n_valid < Lc:
+                S[max(n_valid, 0):] = -torch.inf
+        with span("eig.lse"):
+            return lse_update(state, S, axis=0)
 
 
 def accumulate_chunks(task, x, y, seed: int, L: int, Lc: int, i0: int,

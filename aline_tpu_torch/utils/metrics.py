@@ -13,6 +13,11 @@ never synchronises; ``collect()`` hands over the spans closed so far,
 with their stream times read, after waiting for the device.  While a
 CUDA graph is being captured, spans do nothing.
 
+**Counters.** ``count(name, n)`` adds the host integer ``n`` to
+``counts[name]`` of the innermost open span (``eig.terms``: the
+contrastive terms a chunk folds).  Off, it is the same flag check as a
+span; it never reads a device value.
+
 **Phases.** The trainer times its "sample" and "step" phases with
 ``PhaseTimer``, whose totals are host time: the time to queue a phase's
 work, not to run it, unless ``sync=True``.  Each phase is also the span
@@ -61,21 +66,23 @@ def _stack() -> List["Span"]:
 class Span:
     """One traced block: ``name``, ``id``, ``parent`` (the ``id`` of the
     innermost span open where it began, or None), host ``start_ns`` and
-    ``end_ns`` (``time.perf_counter_ns``), and ``stream_s()``.
+    ``end_ns`` (``time.perf_counter_ns``), ``counts`` (``count``'s
+    sums inside it, not its children's), and ``stream_s()``.
 
     A span begun on a thread with no span open takes as parent the span
     entered last that is still open on another thread: autograd's device
     thread runs the recomputed steps of a backward pass, whose spans so
     belong to the span open where ``backward`` was called."""
 
-    __slots__ = ("name", "id", "parent", "start_ns", "end_ns", "_ev",
-                 "_stream", "_rf")
+    __slots__ = ("name", "id", "parent", "start_ns", "end_ns", "counts",
+                 "_ev", "_stream", "_rf")
 
     def __init__(self, name: str):
         self.name = name
         self.id = next(_ids)
         self.parent = None
         self.start_ns = self.end_ns = 0
+        self.counts = {}
         self._ev = None
         self._stream = None
         self._rf = None
@@ -122,6 +129,17 @@ def span(name: str):
     if _events and torch.cuda.is_current_stream_capturing():
         return _NULL
     return Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Add the host integer ``n`` to ``counts[name]`` of the innermost
+    span open on this thread (nothing where none is open)."""
+    if not _on:
+        return
+    stack = _stack()
+    if stack:
+        c = stack[-1].counts
+        c[name] = c.get(name, 0) + n
 
 
 def collect() -> List[Span]:

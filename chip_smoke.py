@@ -2776,16 +2776,13 @@ def within_sigmas(tag, what, got, want):
 
 def ces_fold_bound(terms):
     """The least time of the CES fold over ``terms`` (l, b, t) terms,
-    fused in registers, from the code of ``tasks/ces.py`` with everything
-    that does not depend on l hoisted: per basket three ex2 (x_i^rho from
-    a hoisted log2 x_i) and a lg2 and an ex2 for the outer power, so 10
-    special-function results, and one exp of the fold; 40 float32
-    instructions (the powers' products, the weighted sums, the difference,
-    the scale, the z-score and the Gaussian, the cumulative sum and the
-    fold's max, shift and sum).  The data's y lie at a limit or inside
-    per (b, t), so no term needs both branches; the limit's log_ndtr is
-    not counted.  Returns seconds (operations bound it)."""
-    return max(terms * 40 / PEAK_F32_INSTR, terms * 11 / PEAK_MUFU_INSTR)
+    fused in registers: the per-term count of
+    ``portbench/counts/ces_fold.py`` (11 special-function results, 40
+    float32 instructions) at this script's instruction rates.  Returns
+    seconds (operations bound it)."""
+    from portbench.counts.ces_fold import TERM_F32, TERM_SFU
+    return max(terms * TERM_F32 / PEAK_F32_INSTR,
+               terms * TERM_SFU / PEAK_MUFU_INSTR)
 
 
 def phase_ces_bed(smi, M):

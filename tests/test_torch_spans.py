@@ -25,6 +25,7 @@ from aline_tpu_torch.eval.eig import compute_eig_from_history
 from aline_tpu_torch.eval.traces import get_traces
 from aline_tpu_torch.models.aline import build_model
 from aline_tpu_torch.tasks import build_task
+from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 from aline_tpu_torch.train.loop import Trainer
 from aline_tpu_torch.utils import metrics
@@ -81,6 +82,16 @@ def _history():
     return tt, theta_0, x, y
 
 
+def _ces_history():
+    tt = build_task(tcfg.parse_overrides(["task=ces"]).task)
+    assert isinstance(tt, CESTask)
+    g = torch.Generator().manual_seed(3)
+    theta_0 = tt.sample_theta(g, (5,))
+    x = 100.0 * torch.rand(5, 6, 6, generator=g)
+    y = tt.simulate(g, x, theta_0[:, None])
+    return tt, theta_0, x, y
+
+
 def _run(case, tmp):
     """The case's outputs: an epoch's metrics and parameters, an AL
     rollout's curves, or the bounds of a fold."""
@@ -92,7 +103,7 @@ def _run(case, tmp):
     if case == "al":
         model, _, batch = _model_and_batch(tmp)
         return list(al_rollout_curves(model, batch, T).values())
-    tt, theta_0, x, y = _history()
+    tt, theta_0, x, y = _ces_history() if case == "ces" else _history()
     return list(compute_eig_from_history(tt, theta_0, x, y, L, 7,
                                          L_chunk=L_CHUNK, stepwise=True))
 
@@ -114,7 +125,7 @@ def _only(spans, name):
 
 # -- off --------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["train", "al", "eig"])
+@pytest.mark.parametrize("case", ["train", "al", "eig", "ces"])
 def test_spans_off_create_no_event_and_no_annotation(case, tmp_path,
                                                      monkeypatch):
     made = []
@@ -134,7 +145,7 @@ def test_spans_off_create_no_event_and_no_annotation(case, tmp_path,
     assert made == [] and metrics.collect() == []
 
 
-@pytest.mark.parametrize("case", ["train", "al", "eig"])
+@pytest.mark.parametrize("case", ["train", "al", "eig", "ces"])
 def test_outputs_bit_identical_with_tracing_on_and_off(case, tmp_path):
     off = _run(case, tmp_path / "off")
     metrics.set_tracing(True)
@@ -199,6 +210,56 @@ def test_bed_traces_and_fold_span_trees(tmp_path):
     assert kids[traces.id] == ["rollout.step"] * T
     fold = _only(spans, "eig.fold")
     assert kids[fold.id] == ["eig.chunk"] * math.ceil(L / L_CHUNK)
+
+
+def test_generic_fold_chunks_hold_loglik_and_lse():
+    tt, theta_0, x, y = _ces_history()
+    metrics.set_tracing(True)
+    compute_eig_from_history(tt, theta_0, x, y, L, 7, L_chunk=L_CHUNK)
+    spans = metrics.collect()
+    by_id, kids = _tree(spans)
+    fold = _only(spans, "eig.fold")
+    chunks = [s for s in spans if s.name == "eig.chunk"]
+    assert kids[fold.id] == ["eig.chunk"] * math.ceil(L / L_CHUNK)
+    for c in chunks:
+        assert kids[c.id] == ["eig.loglik", "eig.lse"]
+    for s in spans:
+        if s.name in ("eig.loglik", "eig.lse"):
+            up = by_id[s.parent]
+            assert up.name == "eig.chunk"
+            assert up.start_ns <= s.start_ns <= s.end_ns <= up.end_ns
+
+
+@pytest.mark.parametrize("case", ["ces", "eig"])
+def test_eig_terms_count_every_folded_term(case):
+    tt, theta_0, x, y = _ces_history() if case == "ces" else _history()
+    metrics.set_tracing(True)
+    compute_eig_from_history(tt, theta_0, x, y, L, 7, L_chunk=L_CHUNK)
+    spans = metrics.collect()
+    chunks = [s for s in spans if s.name == "eig.chunk"]
+    B, Th = x.shape[:2]
+    assert L % L_CHUNK and len(chunks) == math.ceil(L / L_CHUNK)
+    assert [c.counts["eig.terms"] for c in chunks] == (
+        [L_CHUNK * B * Th] * (len(chunks) - 1) + [(L % L_CHUNK) * B * Th])
+    assert sum(c.counts["eig.terms"] for c in chunks) == L * B * Th
+    # counted where the work is: no other span holds the counter
+    assert all(not s.counts for s in spans if s.name != "eig.chunk")
+
+
+def test_count_adds_to_the_innermost_span_and_nothing_when_off():
+    metrics.count("n", 5)                  # off: no span, nothing to do
+    metrics.set_tracing(True)
+    metrics.count("n", 5)                  # on, no span open: dropped
+    with metrics.span("outer") as outer:
+        metrics.count("n", 2)
+        with metrics.span("inner") as inner:
+            metrics.count("n", 3)
+            metrics.count("n", 4)
+            metrics.set_tracing(False)
+            metrics.count("n", 100)        # off again: not recorded
+            metrics.set_tracing(True)
+    assert outer.counts == {"n": 2} and inner.counts == {"n": 7}
+    assert [s.name for s in metrics.collect()] == ["inner", "outer"]
 
 
 # -- on: threads, capture, phases, collect ----------------------------------
