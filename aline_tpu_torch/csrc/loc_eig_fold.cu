@@ -40,19 +40,16 @@
 //    registers at K = 1, D = 2, the shape of every configuration of the
 //    task; other shapes read them through L1).  It walks t = 0 .. Th - 1, all threads of the block at
 //    the same t, so x_bt and y_bt are broadcast loads.
-//  * At each t the thread reduces its own kDraws sums to (m, s) = (max_j
-//    S_j, sum_j exp(S_j - m)), in j order, into shared memory: one slot
-//    per (t, thread) of a tile of at most kTileMax steps (Th runs in
-//    tiles of equal size, so any Th fits; the slots cost 1 KB a step).
-//    After each tile one warp per step combines the block's 128 slots:
-//    lane i takes slots i, i + 32, i + 64, i + 96 in that order, then a
-//    shuffle-down tree over 16, 8, 4, 2, 1; lane 0 writes the block's
-//    partial (m, s) for (g, b, t).
-//  * A second kernel, one thread per (b, t), combines the partials over g
-//    in order, then merges the result into the incoming state as
-//    lse_update does: new max = max(state, chunk); new sumexp = the two
-//    sums rescaled to it.  An empty side (max = -inf) adds exactly 0, so
-//    a chunk with no valid draw leaves the state bit for bit.
+//  * The streaming logsumexp over the draws is eig_fold_reduce.cuh's,
+//    shared with the CES fold: at each t each thread's (max, sumexp) of
+//    its kDraws sums goes to one slot per (t, thread) of a shared tile of
+//    at most kTileMax steps (Th runs in tiles of equal size, so any Th
+//    fits; the slots cost 1 KB a step); after each tile one warp per step
+//    combines the block's 128 slots in a fixed order into the block's
+//    partial (m, s) for (g, b, t); a second kernel combines the partials
+//    over g in order and merges them into the state as lse_update does.
+//    An empty side (max = -inf) adds exactly 0, so a chunk with no valid
+//    draw leaves the state bit for bit.
 //  * Every sum runs in a fixed order and no float is added atomically:
 //    the same inputs give the same bits on every call, and as each chunk
 //    is one call of the same shape, any grouping of the chunks into
@@ -68,23 +65,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "eig_fold_reduce.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;                 // a block's threads
 constexpr int kDraws = 4;                     // draws a thread folds
 constexpr int kBlockDraws = kThreads * kDraws;
 constexpr int kTileMax = 32;                  // steps of a shared tile
-constexpr int kMergeThreads = 256;
 constexpr float kLog2Pi = 1.8378770664093453f;
-
-// (max, sum of exp(v - max)) pairs combined as
-// parallel/collectives.py streaming_logsumexp_combine: both sums rescaled
-// to the larger max; an empty pair (max = -inf) adds 0.
-__device__ __forceinline__ float2 combine(float2 a, float2 b) {
-  const float m = fmaxf(a.x, b.x);
-  const float safe = m == -INFINITY ? 0.0f : m;
-  return make_float2(m, a.y * expf(a.x - safe) + b.y * expf(b.x - safe));
-}
 
 // log p(y | x, theta) of one term; theta is th[k * D + d], the design
 // xt[d]
@@ -151,7 +140,6 @@ __global__ void __launch_bounds__(kThreads)
       float xr[DC > 0 ? DC : 1];
 #pragma unroll
       for (int d = 0; d < DC; ++d) xr[d] = __ldg(xb + t * D + d);
-      float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kDraws; ++j) {
         if (j < nj) {
@@ -162,51 +150,14 @@ __global__ void __launch_bounds__(kThreads)
             S[j] += loglik<0, 0>(thp[j], xb + t * D, yt, K, D, base,
                                  max_signal, noise, log_noise);
           }
-          m = fmaxf(m, S[j]);
         }
       }
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kDraws; ++j)
-        if (j < nj) s += expf(S[j] - m);
-      slots[i * kThreads + tid] = make_float2(m, s);
+      slots[i * kThreads + tid] = eig_fold::thread_pair(S, nj);
     }
     __syncthreads();
-    const int lane = tid & 31;
-    for (int i = tid >> 5; i < nt; i += kThreads / 32) {
-      const float2* row = slots + i * kThreads;
-      float2 v = row[lane];
-#pragma unroll
-      for (int q = 1; q < kThreads / 32; ++q) v = combine(v, row[lane + 32 * q]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float2 o = make_float2(__shfl_down_sync(0xffffffffu, v.x, off),
-                                     __shfl_down_sync(0xffffffffu, v.y, off));
-        v = combine(v, o);
-      }
-      if (lane == 0) part[(g * B + b) * Th + t0 + i] = v;
-    }
+    eig_fold::tile_partials<kThreads>(slots, nt, part + (g * B + b) * Th + t0);
     __syncthreads();
   }
-}
-
-// The partials combined over g in order, then merged into the state
-__global__ void __launch_bounds__(kMergeThreads)
-    fold_merge(const float2* __restrict__ part, long long G, long long n,
-               const float* __restrict__ max_in,
-               const float* __restrict__ sumexp_in, float* __restrict__ max_out,
-               float* __restrict__ sumexp_out) {
-  const long long e = (long long)blockIdx.x * kMergeThreads + threadIdx.x;
-  if (e >= n) return;
-  float2 c = make_float2(-INFINITY, 0.0f);
-  for (long long g = 0; g < G; ++g) c = combine(c, part[g * n + e]);
-  const float2 st = combine(make_float2(max_in[e], sumexp_in[e]), c);
-  max_out[e] = st.x;
-  sumexp_out[e] = st.y;
-}
-
-long long n_groups(long long n_valid) {
-  return n_valid > 0 ? (n_valid + kBlockDraws - 1) / kBlockDraws : 0;
 }
 
 template <int KC, int DC>
@@ -226,7 +177,7 @@ cudaError_t launch_partials(dim3 grid, size_t smem, cudaStream_t s,
 // Floats of scratch (the blocks' partials) a call with n_valid valid
 // draws, B rows and Th steps needs.
 extern "C" long long loc_eig_fold_scratch(long long n_valid, int B, int Th) {
-  return 2 * n_groups(n_valid) * B * Th;
+  return 2 * eig_fold::n_groups(n_valid, kBlockDraws) * B * Th;
 }
 
 // One chunk folded into the state: x [B, Th, D] designs (real space), y
@@ -241,15 +192,14 @@ extern "C" int loc_eig_fold(const void* x, const void* y, const void* thetas,
   if (B <= 0 || Th <= 0) return 0;
   if (K <= 0 || D <= 0 || n_valid < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long G = n_groups(n_valid);
+  const long long G = eig_fold::n_groups(n_valid, kBlockDraws);
   const long long n = (long long)B * Th;
   float2* part = static_cast<float2*>(scratch);
   // -log(noise) as the plain version takes it: the double log rounded
   const float log_noise = (float)log((double)noise_scale);
   if (G > 0) {
     if (G * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int n_tiles = (Th + kTileMax - 1) / kTileMax;
-    const int tile = (Th + n_tiles - 1) / n_tiles;
+    const int tile = eig_fold::tile_steps(Th, kTileMax);
     const size_t smem = (size_t)tile * kThreads * sizeof(float2);
     const dim3 grid((unsigned)(G * B));
     const float* xf = static_cast<const float*>(x);
@@ -265,10 +215,8 @@ extern "C" int loc_eig_fold(const void* x, const void* y, const void* thetas,
                                     max_signal, noise_scale, log_noise);
     if (err != cudaSuccess) return (int)err;
   }
-  fold_merge<<<(unsigned)((n + kMergeThreads - 1) / kMergeThreads),
-               kMergeThreads, 0, s>>>(
+  return (int)eig_fold::launch_merge(
       part, G, n, static_cast<const float*>(max_in),
       static_cast<const float*>(sumexp_in), static_cast<float*>(max_out),
-      static_cast<float*>(sumexp_out));
-  return (int)cudaGetLastError();
+      static_cast<float*>(sumexp_out), s);
 }

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from aline_tpu_torch.eval.traces import get_traces
-from aline_tpu_torch.ops.eig_fold_kernel import loc_eig_fold
+from aline_tpu_torch.ops.eig_fold_kernel import ces_eig_fold, loc_eig_fold
 from aline_tpu_torch.parallel.collectives import (
     LogSumExpState,
     all_reduce,
@@ -51,6 +51,7 @@ from aline_tpu_torch.parallel.collectives import (
     lse_value,
 )
 from aline_tpu_torch.parallel.mesh import Mesh, replicate
+from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 from aline_tpu_torch.utils.metrics import count, span
 
@@ -81,11 +82,12 @@ def derive_seed(seed: int, *path: int) -> int:
 # a K=1, D=2 fold near 1.5 GiB of memory.  Its kernel on the card holds
 # none, but the rule stays: Lc decides which thetas chunk i draws, so it
 # is part of the bounds' definition (and of the benchmark's reference,
-# which draws them again by this rule).  CES holds about
+# which draws them again by this rule).  CES's plain fold holds about
 # eight blocks (the [Lc, B, Th, 3] basket powers and the censored
 # density's terms): one chunk at its BED shape (Lc=32768 at the L_chunk
 # cap, B=100, Th=16: 200 MiB blocks) took 1.624 GiB above the traces on
-# an H100 (chip_smoke.py phase 10b), so the rule fits both tasks.
+# an H100 before its kernel (chip_smoke.py phase 10b), so the rule fits
+# both tasks; its kernel holds none either.
 CHUNK_BLOCK_BYTES = 256 * 2**20
 
 
@@ -108,9 +110,10 @@ def _seq_cum_loglik(task, x, y, thetas) -> torch.Tensor:
 def _fold(state: LogSumExpState, task, x, y, thetas,
           n_valid: int) -> LogSumExpState:
     """Fold one chunk of thetas whose first ``n_valid`` rows count (the
-    rest, the padding past L, add nothing).  Location finding goes
-    through its fused fold (``ops/eig_fold_kernel.py``: one kernel a
-    chunk on the card); every other task through S [Lc, B, Th]
+    rest, the padding past L, add nothing).  Location finding and CES
+    (``tail_mode="log_ndtr"``) go through their fused folds
+    (``ops/eig_fold_kernel.py``: one kernel a chunk on the card); every
+    other task, and CES's ``"reference"`` tails, through S [Lc, B, Th]
     (the span ``eig.loglik``) and ``lse_update`` (``eig.lse``).  Each
     chunk counts the (draw, row, step) terms it folds, ``eig.terms``."""
     with span("eig.chunk"):
@@ -121,6 +124,10 @@ def _fold(state: LogSumExpState, task, x, y, thetas,
                                 y[..., 0].contiguous(), thetas.contiguous(),
                                 n_valid, task.base_signal, task.max_signal,
                                 task.noise_scale)
+        if isinstance(task, CESTask) and task.tail_mode == "log_ndtr":
+            return ces_eig_fold(state, task, x.contiguous(),
+                                y[..., 0].contiguous(), thetas.contiguous(),
+                                n_valid)
         with span("eig.loglik"):
             S = _seq_cum_loglik(task, x, y, thetas)
             if n_valid < Lc:

@@ -58,6 +58,9 @@ SIGNATURES = {
     # x, y, thetas, max_in, sumexp_in, max_out, sumexp_out, scratch;
     # n_valid; B, Th, K, D; base_signal, max_signal, noise_scale; stream
     "loc_eig_fold": ([_P] * 8 + [_LL] + [_I] * 4 + [_F] * 3 + [_P], _I),
+    # x, y, thetas, max_in, sumexp_in, max_out, sumexp_out, scratch;
+    # n_valid; B, Th; noise_scale, lower, upper; stream
+    "ces_eig_fold": ([_P] * 8 + [_LL] + [_I] * 2 + [_F] * 3 + [_P], _I),
 }
 # other entry points of a library: library name → {entry: (argtypes, restype)}
 HELPERS = {
@@ -69,6 +72,7 @@ HELPERS = {
     "flash_attn_bwd": {"flash_attn_bwd_bf16": SIGNATURES["flash_attn_bwd"]},
     # the scratch floats of a call with (n_valid, B, Th)
     "loc_eig_fold": {"loc_eig_fold_scratch": ([_LL, _I, _I], _LL)},
+    "ces_eig_fold": {"ces_eig_fold_scratch": ([_LL, _I, _I], _LL)},
 }
 
 

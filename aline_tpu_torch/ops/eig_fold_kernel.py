@@ -1,35 +1,42 @@
-"""The EIG fold of location finding as one kernel (no Pallas counterpart:
-``aline_tpu/eval/eig.py`` ``_accumulate_chunks`` is fused by XLA).
+"""The EIG folds of location finding and of CES as one kernel each (no
+Pallas counterpart: ``aline_tpu/eval/eig.py`` ``_accumulate_chunks`` is
+fused by XLA).
 
-``loc_eig_fold`` folds one chunk of contrastive draws into the running
-logsumexp of the sPCE/sNMC bounds (``eval/eig.py``): for every draw l,
-row b and step t the cumulative log-likelihood S[l, b, t] of the first
-t + 1 outcomes under the draw's sources, reduced over l into the
-(max, sumexp) state of each (b, t).
+``loc_eig_fold`` and ``ces_eig_fold`` fold one chunk of contrastive
+draws into the running logsumexp of the sPCE/sNMC bounds
+(``eval/eig.py``): for every draw l, row b and step t the cumulative
+log-likelihood S[l, b, t] of the first t + 1 outcomes under the draw,
+reduced over l into the (max, sumexp) state of each (b, t).
 
-* On CUDA tensors it launches ``csrc/loc_eig_fold.cu``, which computes
-  every term in registers and writes only [B, Th]-sized results.
-* On CPU tensors it runs ``loc_eig_fold_plain``: the likelihood of
-  ``tasks/location_finding.py``, ``torch.cumsum`` over the steps and
-  ``lse_update``, as the generic fold of ``eval/eig.py`` runs them.
+* On CUDA tensors they launch ``csrc/loc_eig_fold.cu`` and
+  ``csrc/ces_eig_fold.cu``, which compute every term in registers and
+  write only [B, Th]-sized results (their streaming logsumexp is one,
+  ``csrc/eig_fold_reduce.cuh``).
+* On CPU tensors they run ``loc_eig_fold_plain`` and
+  ``ces_eig_fold_plain``: the task's likelihood, ``torch.cumsum`` over
+  the steps and ``lse_update``, as the generic fold of ``eval/eig.py``
+  runs them.
 
-On a CUDA tensor the wrapper launches the kernel or raises; there is no
-other path.  The kernel sums in another order than the plain version
+On a CUDA tensor a wrapper launches its kernel or raises; there is no
+other path.  The kernels sum in another order than the plain versions
 (per thread, then over a block's threads, then over blocks; the source
-note says how), always the same one: repeated calls agree bitwise.
+notes say how), always the same one: repeated calls agree bitwise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.parallel.collectives import LogSumExpState, lse_update
+from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import log_likelihood
 from aline_tpu_torch.utils.debug import check_kernel_outputs
 
 # Kernel launches since the last reset; chip runs read it to show that the
 # bounds went through the kernel (one launch a chunk).
-LAUNCHES = {"loc_eig_fold": 0}
+LAUNCHES = {"loc_eig_fold": 0, "ces_eig_fold": 0}
 
 
 def loc_eig_fold_plain(state: LogSumExpState, x, y, thetas, n_valid: int,
@@ -45,9 +52,11 @@ def loc_eig_fold_plain(state: LogSumExpState, x, y, thetas, n_valid: int,
     return lse_update(state, S, axis=0)
 
 
-def _check(state, x, y, thetas):
-    """dtype, device and shapes of the fold's inputs; True when they are
-    CUDA tensors (launch the kernel), False for CPU ones."""
+def _check(state, x, y, thetas, draw, x_width=None):
+    """dtype, device and shapes of the fold's inputs (``draw``: the
+    trailing shape of one draw, ``x_width``: the designs' width where the
+    kernel fixes it); True when they are CUDA tensors (launch the
+    kernel), False for CPU ones."""
     named = {"x": x, "y": y, "thetas": thetas, "state.max": state.max,
              "state.sumexp": state.sumexp}
     for name, t in named.items():
@@ -59,13 +68,15 @@ def _check(state, x, y, thetas):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no EIG fold kernel for device {x.device}")
-    if x.dim() != 3 or thetas.dim() != 4:
-        raise ValueError(f"x must be [B, Th, D] and thetas [Lc, B, K, D], "
-                         f"not {tuple(x.shape)} and {tuple(thetas.shape)}")
+    if x.dim() != 3 or thetas.dim() != 2 + len(draw):
+        raise ValueError(f"x must be [B, Th, D] and thetas [Lc, B, "
+                         f"{', '.join(map(str, draw))}], not "
+                         f"{tuple(x.shape)} and {tuple(thetas.shape)}")
     B, Th, D = x.shape
     want = {"y": (y, (B, Th)), "state.max": (state.max, (B, Th)),
             "state.sumexp": (state.sumexp, (B, Th)),
-            "thetas": (thetas, (thetas.shape[0], B, thetas.shape[2], D))}
+            "thetas": (thetas, (thetas.shape[0], B) + tuple(draw)),
+            "x": (x, (B, Th, D if x_width is None else x_width))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
@@ -93,7 +104,8 @@ def loc_eig_fold(state: LogSumExpState, x, y, thetas, n_valid: int,
     Returns:
         the new state, new tensors (``state`` is left as it was).
     """
-    if not _check(state, x, y, thetas):
+    K = thetas.shape[2] if thetas.dim() == 4 else 0
+    if not _check(state, x, y, thetas, (K, x.shape[-1])):
         return loc_eig_fold_plain(state, x, y, thetas, n_valid, base_signal,
                                   max_signal, noise_scale)
     B, Th, D = x.shape
@@ -119,3 +131,170 @@ def loc_eig_fold(state: LogSumExpState, x, y, thetas, n_valid: int,
     LAUNCHES["loc_eig_fold"] += 1
     check_kernel_outputs("loc_eig_fold", new_max, new_sumexp)
     return LogSumExpState(new_max, new_sumexp)
+
+
+def ces_eig_fold_plain(state: LogSumExpState, task: CESTask, x, y, thetas,
+                       n_valid: int) -> LogSumExpState:
+    """The fold in plain PyTorch, the generic fold's operations for CES:
+    S [Lc, B, Th] from ``task.log_likelihood``, its rows from ``n_valid``
+    on set to -inf, folded over its first axis."""
+    ll = task.log_likelihood(y[None, ..., None], x[None], thetas.unsqueeze(2))
+    S = torch.cumsum(ll[..., 0], dim=-1)
+    if n_valid < S.shape[0]:
+        S[max(n_valid, 0):] = -torch.inf
+    return lse_update(state, S, axis=0)
+
+
+@torch.no_grad()
+def ces_eig_fold(state: LogSumExpState, task: CESTask, x, y, thetas,
+                 n_valid: int) -> LogSumExpState:
+    """Fold one chunk of CES draws into ``state``.
+
+    Args:
+        state: the running (max, sumexp), each [B, Th].
+        task: the CES task, ``tail_mode="log_ndtr"`` (its noise scale and
+            censoring limits; ``"reference"`` has no kernel: the generic
+            fold computes it).
+        x: [B, Th, 6] designs (two baskets); y: [B, Th] outcomes.
+        thetas: [Lc, B, 5] the chunk's draws (rho, alpha_1..3, log u), of
+            which the first ``n_valid`` count (the rest, padding past L,
+            add nothing).
+    Returns:
+        the new state, new tensors (``state`` is left as it was).
+    """
+    if not isinstance(task, CESTask) or task.tail_mode != "log_ndtr":
+        raise ValueError(f"ces_eig_fold folds CES with tail_mode "
+                         f"'log_ndtr', not {type(task).__name__} "
+                         f"{getattr(task, 'tail_mode', '')!r}")
+    if not _check(state, x, y, thetas, (5,), x_width=6):
+        return ces_eig_fold_plain(state, task, x, y, thetas, n_valid)
+    B, Th, _ = x.shape
+    n = min(max(int(n_valid), 0), thetas.shape[0])
+    new_max = torch.empty_like(state.max)
+    new_sumexp = torch.empty_like(state.sumexp)
+    if new_max.numel() == 0:
+        return LogSumExpState(new_max, new_sumexp)   # no launch
+    lib = _build.load("ces_eig_fold")
+    with torch.cuda.device(x.device):
+        part = torch.empty(lib.ces_eig_fold_scratch(n, B, Th),
+                           dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # the limits as the plain version takes them: Python numbers
+        # rounded to float32
+        err = lib.ces_eig_fold(
+            x.data_ptr(), y.data_ptr(), thetas.data_ptr(),
+            state.max.data_ptr(), state.sumexp.data_ptr(),
+            new_max.data_ptr(), new_sumexp.data_ptr(), part.data_ptr(), n,
+            B, Th, task.noise_scale, task.epsilon, 1.0 - task.epsilon,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"ces_eig_fold kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["ces_eig_fold"] += 1
+    check_kernel_outputs("ces_eig_fold", new_max, new_sumexp)
+    return LogSumExpState(new_max, new_sumexp)
+
+
+_F32_ULP = 2.0 ** -24
+_LOG_2PI = math.log(2 * math.pi)
+
+
+@torch.no_grad()
+def ces_fold_tolerance(state: LogSumExpState, task: CESTask, x, y, thetas,
+                       n_valid: int) -> torch.Tensor:
+    """[B, Th] how far the logsumexp (max + log sumexp) of two float32
+    folds of the same CES chunk may lie apart (``ces_eig_fold`` and
+    ``ces_eig_fold_plain``, or an emulation of either), in float64 from
+    the inputs (on their device, 4096 draws at a time).
+
+    Whatever two float32 implementations of the formula round
+    differently (the kernel: log_ndtr and the running sum's order; on
+    the CPU also the powers and the order of the utilities' sums), each
+    draw's S moves by up to what float32 rounding of its terms may move
+    it by, both sides:
+
+    * a utility U = w^(1/rho) by (12 / rho + 4 |log U| + 16) ulps of it:
+      the outer power multiplies the few ulps of the weighted sum w by
+      1 / rho, up to 100;
+    * z = (logit y - mu) / sigma by what U's and 4 ulps of |logit y| and
+      |mu| move it by, over sigma, plus 8 ulps of |z|;
+    * a term by its slope in z times z's error (|z| inside, phi(v) /
+      Phi(v) at a limit, v = -z at the upper one, z at the lower) plus 8
+      ulps of the sizes it is summed from (|ll| and 1; inside z^2 / 2,
+      |log sigma|, |log y|, |log(1 - y)|; at a limit v^2 / 2 where
+      v < -1, the erfcx form's);
+    * S_t by the sum of its terms' and (t + 1) ulps of the sum of their
+      sizes (the running sum's order).
+
+    The logsumexp moves by those weighted by each draw's share of it
+    (the state's mass has none), plus 1e-5 and (Th + 8) ulps of its size
+    for the sum of exponentials' order, as for location finding.
+    """
+    f64, e = torch.float64, _F32_ULP
+    lo, hi = (torch.tensor(v, dtype=torch.float32).item()
+              for v in (task.epsilon, 1.0 - task.epsilon))
+    xc = x.to(f64).clamp(0.01, 100.0)
+    b1, b2 = xc[..., :3], xc[..., 3:]
+    s0 = (1.0 + torch.linalg.vector_norm(b1 - b2, dim=-1)) * task.noise_scale
+    yd = y.to(f64)
+    log_y, log_1y = torch.log(yd), torch.log1p(-yd)
+    logit = log_y - log_1y
+    inside = (yd > lo) & (yd < hi)
+    at_hi, at_lo = yd == hi, yd == lo
+    Th = x.shape[1]
+    steps = torch.arange(1, Th + 1, dtype=f64, device=x.device)
+    m = torch.full(y.shape, -torch.inf, dtype=f64, device=x.device)
+    mass = torch.zeros(y.shape, dtype=f64, device=x.device)
+    moved = torch.zeros(y.shape, dtype=f64, device=x.device)
+    n = min(max(int(n_valid), 0), thetas.shape[0])
+    for l0 in range(0, n, 4096):
+        th = thetas[l0:min(l0 + 4096, n)].to(f64)[:, :, None]
+        rho, alpha, log_u = th[..., 0], th[..., 1:4], th[..., 4]
+        U = [torch.sum(alpha * b[None] ** rho[..., None], -1) ** (1 / rho)
+             for b in (b1, b2)]
+        u = torch.exp(log_u)
+        mu, sigma = (U[0] - U[1]) * u, s0 * u
+        z = (logit - mu) / sigma
+        e_U = sum(Uk * e * (12 / rho + 4 * torch.log(Uk).abs() + 16)
+                  for Uk in U)
+        e_z = ((u * e_U + 4 * e * (logit.abs() + mu.abs())) / sigma
+               + 8 * e * z.abs())
+        log_sigma = torch.log(sigma)
+        # at a limit the term is log_ndtr(v), v = -z at the upper one
+        v = torch.where(at_hi, -z, z)
+        tail = torch.special.log_ndtr(v)
+        ll = torch.where(at_hi | at_lo, tail, torch.where(
+            inside, -0.5 * (z * z + _LOG_2PI) - log_sigma - log_y - log_1y,
+            -torch.inf))
+        finite = torch.isfinite(ll)
+        size = torch.where(finite, ll.abs(), 0.0)
+        # the slope of the term in z, and the sizes it is summed from
+        # (phi / Phi(v) = sqrt(2 / pi) / erfcx(-v / sqrt 2): no exp of
+        # -v^2 / 2 less log Phi(v), which cancel to nothing in the tail)
+        slope = torch.where(inside, z.abs(), math.sqrt(2 / math.pi)
+                            / torch.special.erfcx(-v / math.sqrt(2)))
+        parts = torch.where(inside, 0.5 * z * z + log_sigma.abs()
+                            + log_y.abs() + log_1y.abs(),
+                            torch.where(v < -1, 0.5 * v * v, 0.0))
+        e_ll = torch.where(finite, slope * e_z + 8 * e * (size + parts + 1),
+                           0.0)
+        S = torch.cumsum(ll, -1)
+        e_S = torch.cumsum(e_ll, -1) + e * steps * torch.cumsum(size, -1)
+        # streaming (max, sum of exp(S - max), sum of exp(S - max) e_S)
+        new_m = torch.maximum(m, S.amax(0))
+        safe = torch.where(torch.isfinite(new_m), new_m, 0.0)
+        scale = torch.exp(torch.where(torch.isfinite(m), m - safe,
+                                      -torch.inf))
+        w = torch.exp(S - safe)
+        mass = mass * scale + w.sum(0)
+        moved = moved * scale + (w * e_S).sum(0)
+        m = new_m
+    lse = state.max.to(f64) + torch.log(state.sumexp.to(f64))
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    total = mass + torch.exp(torch.where(torch.isfinite(lse), lse - safe,
+                                         -torch.inf))
+    weighted = torch.where(total > 0, moved / total, 0.0)
+    lse = torch.logaddexp(lse, torch.where(mass > 0, m + torch.log(mass),
+                                           -torch.inf))
+    size = torch.where(torch.isfinite(lse), lse.abs(), 0.0)
+    return 1e-5 + (Th + 8) * e * size + weighted

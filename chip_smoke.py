@@ -81,7 +81,11 @@ Phases, each printing its result lines; any failure exits non-zero:
              device and plain ms of a chunk against the chunk's share of
              the bound (``eig_fold_bound``, special-function results);
              a whole batch's fold at L=1e6 (the draws included, 105
-             launches) against the batch's bound.
+             launches) against the batch's bound.  The same for
+             ``ces_eig_fold`` (the EIG fold of CES) at the CES cell's
+             chunk (B=100, Th=16, Lc=32,768, and the last chunk's 5,760),
+             each logsumexp within ``ces_fold_tolerance``, and a batch at
+             L=1e7 (306 launches) against ``ces_fold_bound``.
 wide. al1d_wide128 (``aline_tpu_torch.config.WIDE128_RECIPE``,
              assets/al1d_wide128_config.json: d=1024, 8 heads of 128,
              F=4096, C=10, 3 layers, flash; PR 15), after phase 3d.
@@ -204,7 +208,8 @@ pinned), as before the port followed the run's dtype.
 
 Phases 10-13 run the remaining tasks of the paper on their banked
 checkpoints, in their bf16, through the entry points; no kernel lies on
-these paths, and each phase checks that none was launched:
+these paths but CES's EIG fold (``ces_eig_fold``, one launch a chunk of
+the bounds), and each phase checks that no other was launched:
 
 10. ces bed — ``eval_bed``'s ``main`` on checkpoints/ces_200k at the JAX
              run's protocol (T=15, L=1e7, n_query=2000, batch 100, seed 0)
@@ -212,9 +217,10 @@ these paths, and each phase checks that none was launched:
              its log line; ``--ces-M 2000`` runs the full protocol): the
              final sPCE of both within SIGMAS combined standard errors of
              the JAX package's at M=2000 on a TPU (the port's SEs are its
-             own), nmc >= pce - 1e-5 in every row and step; the rollout
-             against the EIG stage, that stage per batch against its fused
-             bound (``ces_fold_bound``), peak memory.
+             own), nmc >= pce - 1e-5 in every row and step, one
+             ``ces_eig_fold`` launch a chunk; the rollout against the EIG
+             stage, that stage per batch against its fused bound
+             (``ces_fold_bound``), peak memory.
 10b. ces witness — the censored log-density card vs CPU in both tail
              modes on a grid of limits with |z| up to 200, values inside
              and outside (tolerance as tests/test_torch_ces.py holds the
@@ -222,7 +228,8 @@ these paths, and each phase checks that none was launched:
              CPU-drawn thetas card vs CPU within 1e-5 relative plus what
              float32 rounding may move the log-likelihoods by
              (``ces_loglik_rounding``); one chunk's peak memory; one bound
-             under ``torch.cuda.set_sync_debug_mode("error")``.
+             under ``torch.cuda.set_sync_debug_mode("error")``; one
+             ``ces_eig_fold`` launch a chunk of the card's bounds.
 11. psych   — ``eval_psychometric`` and ``eval_psi`` (``main``) on
              checkpoints/psych_100k (B=100, n_query=300, T=30, seeds 0, 1,
              2, three masks): each final mean LL and RMSE over the 300
@@ -241,7 +248,8 @@ these paths, and each phase checks that none was launched:
 13. train tasks — ``train``'s ``main`` on the ces (EIG hook once),
              psychometric (predefined masks) and hpo (rpart) recipes in
              bf16, B=200, 2 burning and 3 main epochs: finite losses, warm
-             epoch ms, peak memory.
+             epoch ms, peak memory; one ``ces_eig_fold`` launch a chunk of
+             CES's bounds.
 
 Phases 14-18 run the paper's baselines and the remaining design paths
 through their entry points; 16 lies on the GMM kernels, and the bounds of
@@ -1213,13 +1221,14 @@ def batch_rows(batch, rows, device):
 
 
 def expected_launches(cfg, *, gmm_head_fwd=0, gmm_head_bwd=0, flash_plan=0,
-                      flash_attn_fwd=0, flash_attn_bwd=0, loc_eig_fold=0):
+                      flash_attn_fwd=0, flash_attn_bwd=0, loc_eig_fold=0,
+                      ces_eig_fold=0):
     """Every counter's expected launches on a path of ``cfg``: the flash
     counts go to the run's dtype's entries, and to none without flash."""
     from aline_tpu_torch.models.aline import compute_dtype
     want = {name: 0 for name in launches()}
     want.update(gmm_head_fwd=gmm_head_fwd, gmm_head_bwd=gmm_head_bwd,
-                loc_eig_fold=loc_eig_fold)
+                loc_eig_fold=loc_eig_fold, ces_eig_fold=ces_eig_fold)
     if cfg.encoder.attention_impl == "flash":
         sfx = "" if compute_dtype(cfg) == torch.float32 else "_bf16"
         want.update({"flash_plan": flash_plan,
@@ -2384,6 +2393,101 @@ def phase_fold_kernel():
     return row, worst
 
 
+# Phase 3e, CES: the EIG fold at the CES cell's shape (portbench's
+# ces_200k.bed_L1e7: B=100, 15 steps after the context point, L=1e7 draws)
+CES_FOLD = dict(B=100, Th=16, L=10_000_000)
+
+
+def phase_ces_fold_kernel():
+    """3e, CES: ``ces_eig_fold`` against its plain version on the card at
+    the CES cell's chunk (Lc = ``chunk_size``'s 32,768 draws, and the last
+    chunk's 5,760, into a filled state): each (row, step)'s logsumexp
+    within ``ces_fold_tolerance``, two calls bitwise equal; the chunk's
+    kernel, device and plain ms against the chunk's share of the bound
+    (``ces_fold_bound``); and a whole batch's fold (L=1e7, stepwise, the
+    draws included: host clock between synchronises, 3 seeds) against the
+    batch's bound, with one launch a chunk.  Returns (row, max abs
+    error)."""
+    from aline_tpu_torch.config import parse_overrides
+    from aline_tpu_torch.eval import eig
+    from aline_tpu_torch.ops import eig_fold_kernel as efk
+    from aline_tpu_torch.parallel.collectives import (
+        lse_init, lse_update, lse_value)
+    from aline_tpu_torch.tasks.ces import CESTask
+
+    B, Th, L = (CES_FOLD[k] for k in ("B", "Th", "L"))
+    task = CESTask(parse_overrides(["task=ces"]).task)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    theta0 = task.sample_theta(g, (B,))
+    x = task.sample_data(g, B, Th)
+    y = task.simulate(g, x, theta0[:, None])
+    y2 = y[..., 0].contiguous()
+    Lc = eig.chunk_size(L, B, Th, 32_768)
+    n_chunks = math.ceil(L / Lc)
+    last = L - (n_chunks - 1) * Lc
+    thetas = task.sample_theta(g, (Lc, B))
+    state = lse_update(lse_init((B, Th), device="cuda"), -60.0 * torch.rand(
+        5, B, Th, generator=g, device="cuda"), axis=0)
+    worst, share = 0.0, 0.0
+    for n in (Lc, last):
+        got = efk.ces_eig_fold(state, task, x, y2, thetas, n)
+        again = efk.ces_eig_fold(state, task, x, y2, thetas, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.max, again.max)
+                and torch.equal(got.sumexp, again.sumexp)):
+            raise AssertionError(f"ces_eig_fold: two calls differ (n={n})")
+        want = lse_value(efk.ces_eig_fold_plain(state, task, x, y2, thetas,
+                                                n)).double()
+        tol = efk.ces_fold_tolerance(state, task, x, y2, thetas, n)
+        a = lse_value(got).double()
+        inf = torch.isinf(want)
+        err = (a[~inf] - want[~inf]).abs()
+        n_share = float((err / tol[~inf]).max())
+        if not torch.equal(a[inf], want[inf]) or n_share > 1:
+            raise AssertionError(f"ces_eig_fold disagrees with its plain "
+                                 f"version (n={n}): max abs "
+                                 f"{err.max().item():.3e}, {n_share:.3f} of "
+                                 f"the tolerance")
+        worst, share = max(worst, err.max().item()), max(share, n_share)
+
+    def fold():
+        return efk.ces_eig_fold(state, task, x, y2, thetas, Lc)
+
+    row = dict(
+        B=B, T=Th, shape=[Lc, B, Th, 6], max_abs_err=worst,
+        max_share_of_tolerance=share, ms=time_ms(fold),
+        device_ms=device_ms(fold),
+        plain_ms=time_ms(lambda: efk.ces_eig_fold_plain(
+            state, task, x, y2, thetas, Lc), reps=3, iters=3),
+        library_ms=None, bound_ms=1e3 * ces_fold_bound(Lc * B * Th),
+        bound_by="operations")
+    eig.compute_eig_from_history(task, theta0, x, y, L, 1, stepwise=True)
+    reset_launches()
+    batch_s = []
+    for seed in (2, 3, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eig.compute_eig_from_history(task, theta0, x, y, L, seed,
+                                     stepwise=True)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    if launches()["ces_eig_fold"] != 3 * n_chunks:
+        raise AssertionError(f"ces fold: {launches()['ces_eig_fold']} "
+                             f"launches in 3 batches of {n_chunks} chunks")
+    row.update(Lc=Lc, last_chunk=last, chunks_per_batch=n_chunks,
+               batch_ms=1e3 * statistics.median(batch_s),
+               batch_bound_ms=1e3 * ces_fold_bound(L * B * Th))
+    log("fold", f"ces_eig_fold B={B} Th={Th}, a chunk of {Lc} draws (the "
+        f"last of {n_chunks}: {last}): max abs err {worst:.3e}, "
+        f"{share:.3f} of the tolerance, bitwise over two calls; kernel "
+        f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"(operations); a batch's fold (L={L:g}, draws included) "
+        f"{row['batch_ms']:.3f} ms (median of 3, {n_chunks} launches "
+        f"each), bound {row['batch_bound_ms']:.3f} ms")
+    return row, worst
+
+
 def timed_calls(store, kind, fn):
     """``fn`` wrapped to append its host time, between two synchronises,
     to ``store`` (with the EIG calls' shapes and results)."""
@@ -2405,7 +2509,7 @@ def timed_calls(store, kind, fn):
 
 
 def fold_chunks(calls):
-    """The chunks, one ``loc_eig_fold`` launch each, that the EIG calls in
+    """The chunks, one fold kernel launch each, that the EIG calls in
     ``calls`` (``timed_calls``' records, no mesh, no given thetas) fold:
     ceil(L / Lc) a call."""
     from aline_tpu_torch.eval.eig import chunk_size
@@ -2687,8 +2791,9 @@ def phase_train_loc(smi):
 # Phases 10-13: the CES, psychometric and HPO-B tasks on their banked
 # checkpoints (weights from the committed npz files, through the weights
 # table of utils/serialization.py), in their own dtype, bfloat16.  No
-# kernel runs on these paths: the GMM kernel takes token sets of 1024 or
-# more in bf16 (the BED traces read the 5 theta tokens only; the
+# kernel runs on these paths but CES's EIG fold (``ces_eig_fold``, one
+# launch a chunk of the bounds): the GMM kernel takes token sets of 1024
+# or more in bf16 (the BED traces read the 5 theta tokens only; the
 # psychometric pool has 301 tokens, HPO's 105), and ``auto`` attention is
 # the compact core.
 CES_RUN = ROOT / "checkpoints" / "ces_200k"
@@ -2790,8 +2895,9 @@ def phase_ces_bed(smi, M):
     run's protocol (T=15, L=1e7, n_query=2000, batch 100) with M rows,
     through its ``main``: final sPCE of the policy and of random designs
     within SIGMAS combined standard errors of the JAX package's on a TPU
-    (M=2000 there), nmc >= pce - BED_NMC_SLACK in every row and step, no
-    kernel launched; wall time split into the rollout and the EIG stage,
+    (M=2000 there), nmc >= pce - BED_NMC_SLACK in every row and step, one
+    ``ces_eig_fold`` launch a chunk and no other kernel; wall time split
+    into the rollout and the EIG stage,
     the EIG stage per batch against ``ces_fold_bound``, peak memory."""
     from aline_tpu_torch import eval_bed
     from aline_tpu_torch.config import load_config
@@ -2823,9 +2929,10 @@ def phase_ces_bed(smi, M):
         peak = torch.cuda.max_memory_allocated()
     finally:
         patched(undo)
-    if counts != expected_launches(cfg):
+    want = expected_launches(cfg, ces_eig_fold=fold_chunks(calls))
+    if counts != want:
         raise AssertionError(f"ces bed: kernel launches {counts}, "
-                             f"expected none")
+                             f"expected {want}")
     n_batches = -(-M // CES_BED["batch_size"])
     rollouts = [c for c in calls if c["kind"] == "rollout"]
     eigs = [c for c in calls if c["kind"] == "eig"]
@@ -2872,7 +2979,8 @@ def phase_ces_bed(smi, M):
                eig_bound_ms=1e3 * bound_s, eig_bound_by="operations",
                eig_terms_per_batch=terms)
     log("ces bed", f"nmc - pce over every row and step: least {gap:.3e} "
-        f"(limit -{BED_NMC_SLACK}); no kernel launched")
+        f"(limit -{BED_NMC_SLACK}); {counts['ces_eig_fold']} ces_eig_fold "
+        f"launches, one a chunk, and no other kernel")
     log("ces bed", f"M={M} B={CES_BED['batch_size']} n_query="
         f"{CES_BED['n_query']} T={CES_BED['T']} L={CES_BED['L']}: "
         f"{wall:.3f} s wall; rollout {rollout_s:.3f} s ({n_batches} "
@@ -2954,8 +3062,9 @@ def phase_ces_witness():
     (to 200) and values outside the limits, in both tail modes; the CES
     bounds of card traces on CPU-drawn thetas within CES_BOUND_RTOL plus
     the log-likelihoods' rounding (``ces_loglik_rounding``); the
-    peak memory of one chunk of the fold at the BED shape; and one bound
-    with any host synchronisation an error."""
+    peak memory of one chunk of the fold at the BED shape; one bound
+    with any host synchronisation an error; one ``ces_eig_fold`` launch a
+    chunk of the card's bounds."""
     from aline_tpu_torch.distributions.censored_sigmoid_normal import (
         CensoredSigmoidNormal)
     from aline_tpu_torch.eval.eig import chunk_size, compute_eig_from_history
@@ -3060,6 +3169,18 @@ def phase_ces_witness():
         raise AssertionError("ces witness: non-finite bounds")
     log("ces witness", "compute_eig_from_history at L=100000 on the card's "
         "draws under set_sync_debug_mode('error'): no host synchronisation")
+    # one ces_eig_fold launch a chunk of the card's bounds (the two on
+    # given thetas, the chunk's, the one under the sync check), no other
+    want = (2 * math.ceil(CES_WITNESS_L / chunk_size(
+        CES_WITNESS_L, rows, x.shape[1], 32_768)) + 1
+        + math.ceil(100_000 / Lc))
+    counts = launches()
+    if counts != dict({k: 0 for k in counts}, ces_eig_fold=want):
+        raise AssertionError(f"ces witness: launches {counts}, expected "
+                             f"{want} of ces_eig_fold")
+    rec["launches"] = counts
+    log("ces witness", f"{want} ces_eig_fold launches, one a chunk of the "
+        f"card's bounds, and no other kernel")
     return rec
 
 
@@ -3203,8 +3324,10 @@ def phase_hpo(smi):
 def phase_train_tasks(smi):
     """13: ``python -m aline_tpu_torch.train`` through its ``main`` on
     each new task's recipe (TASK_TRAIN_ARGS, bf16, B=200): finite losses,
-    no kernel launched, warm epoch ms and peak memory; CES's EIG hook
-    once, finite, and its final bounds."""
+    no kernel launched but CES's fold (one ``ces_eig_fold`` launch a chunk
+    of its bounds), warm epoch ms and peak memory; CES's EIG hook once,
+    finite, and its final bounds."""
+    from aline_tpu_torch.eval import eig
     from aline_tpu_torch.train import __main__ as entry
     from aline_tpu_torch.train.loop import Trainer
 
@@ -3227,7 +3350,9 @@ def phase_train_tasks(smi):
 
         undo = patched([(Trainer, "train_epoch", timed_epoch),
                         (entry, "eval_boed", timed_calls(
-                            calls, "eval_boed", entry.eval_boed))])
+                            calls, "eval_boed", entry.eval_boed)),
+                        (eig, "compute_eig_from_history", timed_calls(
+                            calls, "eig", eig.compute_eig_from_history))])
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3238,14 +3363,18 @@ def phase_train_tasks(smi):
             peak = torch.cuda.max_memory_allocated()
         finally:
             patched(undo)
-        if any(counts.values()):
-            raise AssertionError(f"train {task}: launches {counts}")
+        want = expected_launches(trainer.cfg,
+                                 ces_eig_fold=fold_chunks(calls))
+        if counts != want:
+            raise AssertionError(f"train {task}: launches {counts}, "
+                                 f"expected {want}")
         epochs = [c for c in calls if c["kind"] == "epoch"]
         if not all(math.isfinite(e["loss"]) for e in epochs):
             raise AssertionError(f"train {task}: losses {epochs}")
         warm_ms = 1e3 * statistics.median(
             [e["s"] for e in epochs if e["phase"] == "main"][1:])
-        r = dict(epochs=epochs, warm_ms=warm_ms, peak_bytes=peak)
+        r = dict(epochs=epochs, warm_ms=warm_ms, peak_bytes=peak,
+                 launches=counts)
         cfg = trainer.cfg
         msg = (f"B={cfg.batch_size} T={cfg.T} n_query_init="
                f"{cfg.task.n_query_init} {cfg.dtype}: epochs " + ", ".join(
@@ -3268,7 +3397,7 @@ def phase_train_tasks(smi):
                     f"(M={cfg.eval.M_final}, L={cfg.eval.L_final}) "
                     f"{final_s:.3f} s")
         log(f"train {task}", msg + f"; peak memory {peak / 2**30:.3f} GiB; "
-            f"no kernel launched ({smi})")
+            f"kernel launches {counts} ({smi})")
         rec[task] = r
     return rec
 
@@ -5260,8 +5389,9 @@ def kernel_phases():
     rec["flash"], flash_err = phase_flash_kernels()
     rec["flash_bf16"], bf16_err = phase_flash_kernels_bf16()
     rec["fold"], fold_err = phase_fold_kernel()
+    rec["ces_fold"], ces_fold_err = phase_ces_fold_kernel()
     errs = {"gmm_head_fwd": gmm_err, "gmm_head_bwd": bwd_err,
-            "loc_eig_fold": fold_err,
+            "loc_eig_fold": fold_err, "ces_eig_fold": ces_fold_err,
             "flash_attn_fwd": flash_err["fwd"],
             "flash_attn_bwd": flash_err["bwd"],
             "flash_attn_fwd_bf16": bf16_err["fwd"],
@@ -5305,6 +5435,14 @@ def kernel_records(rec, errs, paths, wide=None):
             fuses="aline_tpu/eval/eig.py:79 _accumulate_chunks",
             **{k: f[k] for k in ("Lc", "last_chunk", "chunks_per_batch",
                                  "batch_ms", "batch_bound_ms")}))
+    if rec is not None and "ces_fold" in rec:
+        f = rec["ces_fold"]
+        rows.append(record(
+            "ces_eig_fold", None, f,
+            fuses="aline_tpu/eval/eig.py:79 _accumulate_chunks",
+            **{k: f[k] for k in ("Lc", "last_chunk", "chunks_per_batch",
+                                 "batch_ms", "batch_bound_ms",
+                                 "max_share_of_tolerance")}))
     if wide is None:
         return rows
     k = wide["kernels"]
@@ -5368,7 +5506,9 @@ def main(argv=None):
             kernels = kernel_records(rec, errs, None)
         elif "fold" in args.only:
             rec["fold"], fold_err = timed("3e", phase_fold_kernel)
-            errs = {"loc_eig_fold": fold_err}
+            rec["ces_fold"], ces_fold_err = timed("3e ces",
+                                                  phase_ces_fold_kernel)
+            errs = {"loc_eig_fold": fold_err, "ces_eig_fold": ces_fold_err}
             kernels = kernel_records(rec, errs, None)
         if "bed" in args.only:
             rec["bed"] = timed("8", phase_bed, smi)
@@ -5429,7 +5569,9 @@ def main(argv=None):
              "eval_bf16": bf16_slice_rec, "train_bf16": bf16_train_rec,
              "flash_eval_bf16": bf16_flash_slice_rec,
              "flash_train_bf16": bf16_flash_train_rec, "bed": bed_rec,
-             "train_loc": loc_train_rec, "gp": task_recs["gp"],
+             "train_loc": loc_train_rec, "ces_bed": task_recs["ces_bed"],
+             "train_ces": task_recs["train_tasks"]["ces"],
+             "gp": task_recs["gp"],
              "bench": task_recs["bench"],
              "train_continuous": task_recs["cont"]["reinforce"],
              "train_continuous_pathwise": task_recs["cont"]["pathwise"],

@@ -16,10 +16,11 @@ reference (``portbench/reference/ces.py``) on the CPU, at tiny sizes.
   with the model in float32 and in bfloat16 under the committed limits;
   the kind's control (the reference one precision lower in the program's
   place) and a run whose bounds are broken underneath are not.
-* A traced run reads all six of the cell's per-layer metrics; on a
-  program without the fold's inner spans and counter (as before they
-  were added) it leaves out the two that read them and reads the other
-  four.
+* A traced run reads the cell's per-layer metrics that the program
+  allows: all six where CES folds through the generic fold (the
+  reference's tails); five through its kernel (no ``eig.loglik`` span:
+  the likelihood's share is left out); on a program without the fold's
+  inner spans and counter (as before they were added) the other four.
 """
 import contextlib
 import copy
@@ -74,8 +75,10 @@ def _parts(f32: bool = False):
     return cf, tr
 
 
-def _run(f32: bool = False, trace: bool = False):
+def _run(f32: bool = False, trace: bool = False, tail_mode: str = None):
     cf, tr = _parts(f32)
+    if tail_mode is not None:
+        cf["run"]["task"]["tail_mode"] = tail_mode
     return R.execute(CELL, SEED, 0.3, trace, "cpu", config=cf, traffic=tr)
 
 
@@ -174,10 +177,16 @@ def _without_new_spans(monkeypatch):
     monkeypatch.setattr(eig, "count", lambda name, n: None)
 
 
-@pytest.mark.parametrize("program_has_them", [True, False],
-                         ids=["with_new_spans", "without_new_spans"])
+@pytest.mark.parametrize("program_has_them", [True, False, "generic_fold"],
+                         ids=["with_new_spans", "without_new_spans",
+                              "generic_fold"])
 def test_traced_run_reads_the_metrics_the_program_allows(program_has_them,
                                                          monkeypatch):
+    """The program as it is folds CES through its kernel, whose chunks
+    count ``eig.terms`` and hold no ``eig.loglik``: the likelihood's share
+    is left out.  With the reference's tails (the generic fold) it is
+    read too; without the chunk's counter the throughput is left out as
+    well."""
     load = harness.load_kind
 
     def load_kind_profiled(name, base=harness.HERE):
@@ -188,15 +197,18 @@ def test_traced_run_reads_the_metrics_the_program_allows(program_has_them,
     monkeypatch.setattr(R, "load_kind", load_kind_profiled)
     if not program_has_them:
         _without_new_spans(monkeypatch)
+    generic = program_has_them == "generic_fold"
     try:
-        res, _ = _run(f32=True, trace=True)
+        res, _ = _run(f32=True, trace=True,
+                      tail_mode="reference" if generic else None)
     finally:
         metrics.set_tracing(False)
         metrics.collect()
-    want = set(METRICS) - (set() if program_has_them
-                           else set(NEW_SPAN_METRICS))
+    want = set(METRICS) - ({"loglik.share.ces"} if not generic else set())
+    if not program_has_them:
+        want -= set(NEW_SPAN_METRICS)
     assert set(res["metrics"]) == want
     for name in want:
         assert res["metrics"][name]["value"] > 0, name
-    if program_has_them:
+    if generic:
         assert 0 < res["metrics"]["loglik.share.ces"]["value"] <= 100

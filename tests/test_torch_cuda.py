@@ -34,6 +34,13 @@ the running sum over the Th steps, up to about an ulp of S each; S, a
 sum of negative terms, reaches hundreds of nats, and the largest S set
 the logsumexp's size.  The sum of exponentials runs in another order
 (per thread, per block, over blocks), which moves it by about 1e-6.
+
+The EIG fold of CES against its plain version on the card: each
+logsumexp within ``ces_fold_tolerance`` (ops/eig_fold_kernel.py), what
+float32 rounding of each draw's terms may move it by on both sides,
+weighted by the draw's share of the logsumexp: the outer power 1 / rho
+multiplies the rounding of the weighted sum by up to 100, so a fixed
+number of ulps holds at rho = 1 and not at rho = 0.01.
 """
 import math
 
@@ -53,6 +60,7 @@ from aline_tpu_torch.parallel.collectives import (
     lse_update,
     lse_value,
 )
+from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 
 pytestmark = pytest.mark.cuda
@@ -623,3 +631,252 @@ def test_loc_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
         fold(thetas=thetas[:, :7].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         fold(thetas=thetas.transpose(0, 1).contiguous().transpose(0, 1))
+
+
+# the kernel's bits on fixed inputs (``_loc_fixed_inputs``) as
+# loc_eig_fold.cu gave them on an H100 (CUDA 12.8) while it held its own
+# streaming logsumexp, before that moved to eig_fold_reduce.cuh, shared with
+# the CES fold: SHA-256 of the new max then sumexp, float32 bytes
+LOC_FIXED_DIGEST = ("3c07ca40ec2a207fedf3fd6afdadafa2"
+                    "e7e2fcdd1f2ed244e8a7831a4dfa6989")
+
+
+def _loc_fixed_inputs():
+    """A state, x, y and draws of the BED cell's chunk shape drawn with
+    numpy (the same on every machine), on the card."""
+    import numpy as np
+    rng = np.random.default_rng(2024)
+    B, Th, Lc = 200, 35, CELL_LC
+    f32 = np.float32
+    x = rng.uniform(-4, 4, size=(B, Th, 2)).astype(f32)
+    y = rng.normal(1.0, 1.0, size=(B, Th)).astype(f32)
+    thetas = rng.uniform(-4, 4, size=(Lc, B, 1, 2)).astype(f32)
+    state = lse_update(lse_init((B, Th)), torch.from_numpy(
+        -60.0 * rng.uniform(size=(5, B, Th)).astype(f32)), axis=0)
+    cuda = [torch.from_numpy(a).cuda() for a in (x, y, thetas)]
+    return (LogSumExpState(state.max.cuda(), state.sumexp.cuda()),
+            *cuda)
+
+
+def loc_fixed_digest():
+    """SHA-256 of ``loc_eig_fold``'s result on ``_loc_fixed_inputs``."""
+    import hashlib
+    task = _loc_task()
+    state, x, y, thetas = _loc_fixed_inputs()
+    got = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, task.base_signal,
+                           task.max_signal, task.noise_scale)
+    return hashlib.sha256(got.max.cpu().numpy().tobytes()
+                          + got.sumexp.cpu().numpy().tobytes()).hexdigest()
+
+
+def test_loc_eig_fold_bits_unchanged_by_the_shared_reduction(cuda):
+    assert loc_fixed_digest() == LOC_FIXED_DIGEST
+
+
+# -- the EIG fold of CES --------------------------------------------------------
+
+# the CES cell's chunk (B=100, Th=16: Lc at the L_chunk cap of 32,768; the
+# last of L=1e7's 306 chunks holds 5,760)
+CES_LC, CES_LAST, CES_CHUNKS = 32_768, 5_760, 306
+# (B, Th, Lc, y, rho, log u, n_valid, filled state); y and the draws as
+# tests/test_torch_eig_fold.py's _ces_case makes them
+CES_CASES = {
+    "cell": (100, 16, CES_LC, "sim", None, None, CES_LC, False),
+    "cell, filled": (100, 16, CES_LC, "sim", None, None, CES_LC, True),
+    "cell, last chunk": (100, 16, CES_LC, "sim", None, None, CES_LAST, True),
+    "cell, n_valid 0": (100, 16, CES_LC, "sim", None, None, 0, True),
+    "cell, n_valid 1": (100, 16, CES_LC, "sim", None, None, 1, False),
+    "inside": (50, 16, 8192, "inside", None, None, 8192, False),
+    "at the limits": (50, 16, 8192, "limits", None, None, 8192, True),
+    "outside": (50, 16, 8192, "outside", None, None, 8192, False),
+    "rho 0.01": (50, 16, 8192, "sim", 0.01, None, 8192, False),
+    "rho 0.01, inside": (50, 16, 8192, "inside", 0.01, None, 8192, False),
+    "rho 1": (50, 16, 8192, "sim", 1.0, None, 8192, True),
+    "log u in the tails": (50, 16, 8192, "sim", None, "tails", 8192, False),
+    "log u in the tails, inside": (50, 16, 8192, "inside", None, "tails",
+                                   8192, False),
+    "Th 1": (100, 1, CES_LC, "sim", None, None, CES_LC, False),
+    "Th 40": (40, 40, 8192, "inside", None, None, 6000, True),
+}
+
+
+def _ces_task(tail_mode="log_ndtr"):
+    return CESTask(tcfg.parse_overrides(
+        ["task=ces", f"task.tail_mode={tail_mode}"]).task)
+
+
+def _ces_fold_inputs(B, Th, Lc, ys="sim", rho=None, log_u=None,
+                     filled=False, seed=0):
+    """The task, a state, designs x [B, Th, 6], outcomes y [B, Th] and
+    Lc draws [Lc, B, 5], on the card (see ``CES_CASES``)."""
+    task = _ces_task()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    theta_0 = task.sample_theta(g, (B,))
+    x = task.sample_data(g, B, Th)
+    y = task.simulate(g, x, theta_0[:, None])[..., 0]
+    lo, hi = (torch.tensor(v, dtype=torch.float32).item()
+              for v in (task.epsilon, 1.0 - task.epsilon))
+    if ys == "inside":
+        y = 0.01 + 0.98 * torch.rand(B, Th, generator=g, device="cuda")
+    elif ys == "limits":
+        y = torch.where(torch.arange(B * Th, device="cuda").view(B, Th) % 2
+                        == 0, hi, lo)
+    elif ys == "outside":
+        y = y.clone()
+        y[:, Th // 2] = torch.where(torch.arange(B, device="cuda") % 2 == 0,
+                                    torch.nextafter(torch.tensor(hi),
+                                                    torch.tensor(1.0)).item(),
+                                    torch.nextafter(torch.tensor(lo),
+                                                    torch.tensor(0.0)).item())
+    thetas = task.sample_theta(g, (Lc, B))
+    if rho is not None:
+        thetas[..., 0] = rho
+    if log_u == "tails":
+        thetas[..., 4] = 1.0 + 3.0 * 5.5 * torch.where(
+            torch.rand(Lc, B, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+    state = lse_init((B, Th), device="cuda")
+    if filled:
+        state = lse_update(state, -60.0 * torch.rand(
+            5, B, Th, generator=g, device="cuda"), axis=0)
+    return task, state, x, y.contiguous(), thetas
+
+
+def _assert_ces_close(got, want, tol):
+    a, b = lse_value(got).double(), lse_value(want).double()
+    inf = torch.isinf(b)
+    assert torch.equal(a[inf], b[inf])
+    err = (a[~inf] - b[~inf]).abs()
+    assert (err <= tol[~inf]).all(), (
+        f"max err {err.max():.3e}, worst share of the tolerance "
+        f"{(err / tol[~inf]).max():.3f}")
+
+
+@pytest.mark.parametrize("case", list(CES_CASES))
+def test_ces_eig_fold_kernel_matches_plain(cuda, case):
+    B, Th, Lc, ys, rho, log_u, n, filled = CES_CASES[case]
+    task, state, x, y, thetas = _ces_fold_inputs(B, Th, Lc, ys, rho, log_u,
+                                                 filled)
+    before = efk.LAUNCHES["ces_eig_fold"]
+    got = efk.ces_eig_fold(state, task, x, y, thetas, n)
+    torch.cuda.synchronize()
+    assert efk.LAUNCHES["ces_eig_fold"] == before + 1
+    want = efk.ces_eig_fold_plain(state, task, x, y, thetas, n)
+    _assert_ces_close(got, want, efk.ces_fold_tolerance(
+        state, task, x, y, thetas, n))
+    if n == 0:
+        assert torch.equal(got.max, state.max)
+        assert torch.equal(got.sumexp, state.sumexp)
+
+
+def test_ces_eig_fold_kernel_is_deterministic(cuda):
+    task, state, x, y, thetas = _ces_fold_inputs(100, 16, CES_LC,
+                                                 filled=True)
+    first = efk.ces_eig_fold(state, task, x, y, thetas, CES_LAST)
+    second = efk.ces_eig_fold(state, task, x, y, thetas, CES_LAST)
+    assert torch.equal(first.max, second.max)       # no atomics: bitwise
+    assert torch.equal(first.sumexp, second.sumexp)
+
+
+def _ces_history(B, Th, seed):
+    task, _, x, y, _ = _ces_fold_inputs(B, Th, 1, seed=seed)
+    theta_0 = task.sample_theta(torch.Generator(device="cuda").manual_seed(
+        seed + 1), (B,))
+    return task, theta_0, x, y[..., None]
+
+
+def test_ces_bounds_launch_one_kernel_a_chunk(cuda, monkeypatch):
+    """The CES cell's batch (B=100, Th=16, L=1e7): 306 chunks, one launch
+    each, and nothing of the generic fold."""
+    task, theta_0, x, y = _ces_history(100, 16, 1)
+    L = 10_000_000
+    Lc = eig.chunk_size(L, 100, 16, 32_768)
+    assert (Lc, L - (math.ceil(L / Lc) - 1) * Lc) == (CES_LC, CES_LAST)
+    before = efk.LAUNCHES["ces_eig_fold"]
+    generic = []
+    monkeypatch.setattr(eig, "_seq_cum_loglik",
+                        lambda *a: generic.append("loglik"))
+    monkeypatch.setattr(eig, "lse_update",
+                        lambda *a, **k: generic.append("lse"))
+    pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y, L, 7,
+                                            stepwise=True)
+    torch.cuda.synchronize()
+    assert generic == []
+    assert efk.LAUNCHES["ces_eig_fold"] - before == CES_CHUNKS
+    assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
+    assert (nmc - pce >= math.log(L / (L + 1)) - 1e-5).all()
+
+
+def test_ces_bounds_match_the_plain_fold_on_the_card(cuda, monkeypatch):
+    """The bounds of a batch at the CES cell's shape (B=100, Th=16,
+    L=1e6: 31 chunks) through the kernel and through the plain fold on
+    the card: within 2e-4 plus 32 float32 ulps of the bound's size.  The
+    kernel rounds the utilities and the z-score as the plain fold does;
+    what is left, its log_ndtr and its running sum's order, moves the
+    terms by ulps of their size, which a row whose contrastive draws all
+    explain its outcomes badly carries into a bound of thousands.  An ulp
+    of a utility, over sigma (down to 1e-4 of it), moved the bounds by up
+    to 4e-3 on the benchmark's traces where the kernel rounded the
+    utilities otherwise (bounds of 18 and 37)."""
+    task, theta_0, x, y = _ces_history(100, 16, 9)
+    args = (task, theta_0, x, y, 1_000_000, 11)
+    got = eig.compute_eig_from_history(*args, stepwise=True)
+    monkeypatch.setattr(eig, "ces_eig_fold", efk.ces_eig_fold_plain)
+    want = eig.compute_eig_from_history(*args, stepwise=True)
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        tol = 2e-4 + 32 * 2.0 ** -24 * w.abs()
+        worst = int((err / tol).argmax())
+        assert (err <= tol).all(), (
+            f"max err {err.max():.3e}; worst against the tolerance "
+            f"{err.flatten()[worst]:.3e} at a bound of "
+            f"{w.flatten()[worst]:.3f}")
+
+
+def test_ces_L_checkpoints_equal_separate_calls_on_the_card(cuda):
+    task, theta_0, x, y = _ces_history(40, 16, 3)
+    args = (task, theta_0, x, y)
+    curve = eig.compute_eig_from_history(*args, 20_000, 5, L_chunk=3000,
+                                         stepwise=True,
+                                         L_checkpoints=[5000, 12_000])
+    assert sorted(curve) == [6000, 12_000, 20_000]
+    for L_eff, (pce_c, nmc_c) in curve.items():
+        pce, nmc = eig.compute_eig_from_history(*args, L_eff, 5,
+                                                L_chunk=3000, stepwise=True)
+        assert torch.equal(pce_c, pce) and torch.equal(nmc_c, nmc), L_eff
+
+
+def test_ces_bounds_never_wait_for_the_host(cuda):
+    task, theta_0, x, y = _ces_history(100, 16, 5)
+    eig.compute_eig_from_history(task, theta_0, x, y, 40_000, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y,
+                                                200_000, 5, stepwise=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
+
+
+def test_ces_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
+    task, state, x, y, thetas = _ces_fold_inputs(8, 5, 100)
+
+    def fold(state=state, task=task, x=x, y=y, thetas=thetas):
+        return efk.ces_eig_fold(state, task, x, y, thetas, 100)
+
+    with pytest.raises(TypeError):
+        fold(thetas=thetas.double())
+    with pytest.raises(TypeError):
+        fold(x=x.bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        fold(state=LogSumExpState(state.max.cpu(), state.sumexp.cpu()))
+    with pytest.raises(ValueError, match="shape"):
+        fold(y=y[:, :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        fold(thetas=thetas[..., :4].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        fold(x=x[..., :5].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fold(thetas=thetas.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="tail_mode"):
+        fold(task=_ces_task("reference"))

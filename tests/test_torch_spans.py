@@ -82,8 +82,9 @@ def _history():
     return tt, theta_0, x, y
 
 
-def _ces_history():
-    tt = build_task(tcfg.parse_overrides(["task=ces"]).task)
+def _ces_history(tail_mode="log_ndtr"):
+    tt = build_task(tcfg.parse_overrides(
+        ["task=ces", f"task.tail_mode={tail_mode}"]).task)
     assert isinstance(tt, CESTask)
     g = torch.Generator().manual_seed(3)
     theta_0 = tt.sample_theta(g, (5,))
@@ -213,7 +214,9 @@ def test_bed_traces_and_fold_span_trees(tmp_path):
 
 
 def test_generic_fold_chunks_hold_loglik_and_lse():
-    tt, theta_0, x, y = _ces_history()
+    """The generic fold (CES with the reference's tails; with log_ndtr
+    tails CES has its own fold, whose chunks hold no inner span)."""
+    tt, theta_0, x, y = _ces_history("reference")
     metrics.set_tracing(True)
     compute_eig_from_history(tt, theta_0, x, y, L, 7, L_chunk=L_CHUNK)
     spans = metrics.collect()
@@ -228,6 +231,23 @@ def test_generic_fold_chunks_hold_loglik_and_lse():
             up = by_id[s.parent]
             assert up.name == "eig.chunk"
             assert up.start_ns <= s.start_ns <= s.end_ns <= up.end_ns
+
+
+@pytest.mark.parametrize("tail_mode", ["log_ndtr", "reference"])
+def test_ces_chunks_hold_inner_spans_on_the_generic_fold_only(tail_mode):
+    """CES with log_ndtr tails folds each chunk through ``ces_eig_fold``
+    (one kernel a chunk on the card): its chunk spans hold no
+    ``eig.loglik`` or ``eig.lse``; with the reference's tails the generic
+    fold's two."""
+    tt, theta_0, x, y = _ces_history(tail_mode)
+    metrics.set_tracing(True)
+    compute_eig_from_history(tt, theta_0, x, y, L, 7, L_chunk=L_CHUNK)
+    spans = metrics.collect()
+    _, kids = _tree(spans)
+    chunks = [s for s in spans if s.name == "eig.chunk"]
+    assert len(chunks) == math.ceil(L / L_CHUNK)
+    want = [] if tail_mode == "log_ndtr" else ["eig.loglik", "eig.lse"]
+    assert all(kids.get(c.id, []) == want for c in chunks)
 
 
 @pytest.mark.parametrize("case", ["ces", "eig"])
