@@ -41,18 +41,14 @@ import numpy as np
 import torch
 
 from aline_tpu_torch.eval.traces import get_traces
-from aline_tpu_torch.ops.eig_fold_kernel import ces_eig_fold, loc_eig_fold
 from aline_tpu_torch.parallel.collectives import (
     LogSumExpState,
     all_reduce,
     all_reduce_lse,
     lse_init,
-    lse_update,
     lse_value,
 )
 from aline_tpu_torch.parallel.mesh import Mesh, replicate
-from aline_tpu_torch.tasks.ces import CESTask
-from aline_tpu_torch.tasks.location_finding import HiddenLocation
 from aline_tpu_torch.utils.metrics import count, span
 
 _MASK64 = (1 << 64) - 1
@@ -99,41 +95,20 @@ def chunk_size(L: int, B: int, Th: int, L_chunk: int) -> int:
     return int(min(L_chunk, cap, max(L, 1)))
 
 
-def _seq_cum_loglik(task, x, y, thetas) -> torch.Tensor:
-    """S [Lc, B, Th] with S[l, b, t] = sum_{s<=t} log p(y_s | x_s, th_l),
-    for designs x [B, Th, D] (real space), outcomes y [B, Th, 1] and
-    thetas [Lc, B, ...]."""
-    ll = task.log_likelihood(y[None], x[None], thetas.unsqueeze(2))
-    return torch.cumsum(ll[..., 0], dim=-1)
-
-
 def _fold(state: LogSumExpState, task, x, y, thetas,
           n_valid: int) -> LogSumExpState:
     """Fold one chunk of thetas whose first ``n_valid`` rows count (the
-    rest, the padding past L, add nothing).  Location finding and CES
-    (``tail_mode="log_ndtr"``) go through their fused folds
-    (``ops/eig_fold_kernel.py``: one kernel a chunk on the card); every
-    other task, and CES's ``"reference"`` tails, through S [Lc, B, Th]
-    (the span ``eig.loglik``) and ``lse_update`` (``eig.lse``).  Each
-    chunk counts the (draw, row, step) terms it folds, ``eig.terms``."""
+    rest, the padding past L, add nothing) by the task's
+    ``fold_eig_chunk``: its fold kernel where its likelihood has one
+    (``ops/eig_fold_kernel.py``: one launch a chunk on the card), else the
+    generic fold (spans ``eig.loglik`` and ``eig.lse``).  Each chunk counts
+    the (draw, row, step) terms it folds, ``eig.terms``."""
     with span("eig.chunk"):
-        Lc = thetas.shape[0]
-        count("eig.terms", max(0, min(n_valid, Lc)) * x.shape[0] * x.shape[1])
-        if isinstance(task, HiddenLocation):
-            return loc_eig_fold(state, x.contiguous(),
-                                y[..., 0].contiguous(), thetas.contiguous(),
-                                n_valid, task.base_signal, task.max_signal,
-                                task.noise_scale)
-        if isinstance(task, CESTask) and task.tail_mode == "log_ndtr":
-            return ces_eig_fold(state, task, x.contiguous(),
-                                y[..., 0].contiguous(), thetas.contiguous(),
-                                n_valid)
-        with span("eig.loglik"):
-            S = _seq_cum_loglik(task, x, y, thetas)
-            if n_valid < Lc:
-                S[max(n_valid, 0):] = -torch.inf
-        with span("eig.lse"):
-            return lse_update(state, S, axis=0)
+        count("eig.terms", max(0, min(n_valid, thetas.shape[0]))
+              * x.shape[0] * x.shape[1])
+        return task.fold_eig_chunk(state, x.contiguous(),
+                                   y[..., 0].contiguous(),
+                                   thetas.contiguous(), n_valid)
 
 
 def accumulate_chunks(task, x, y, seed: int, L: int, Lc: int, i0: int,

@@ -19,9 +19,13 @@ Python's headers (``sysconfig``)::
 
     g++ -O3 -shared -fPIC -std=c++17 -I<python include> \
         -o build/<name>-<hash><EXT_SUFFIX> csrc/<name>.cpp
+
+Every kernel call goes through ``launch``, which counts it in
+``LAUNCHES``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -30,7 +34,9 @@ import shutil
 import subprocess
 import sysconfig
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -74,6 +80,13 @@ HELPERS = {
     "loc_eig_fold": {"loc_eig_fold_scratch": ([_LL, _I, _I], _LL)},
     "ces_eig_fold": {"ces_eig_fold_scratch": ([_LL, _I, _I], _LL)},
 }
+
+# Kernel launches since the last reset, by entry point (every entry but the
+# scratch sizes); chip runs and tests read it to show that a path went
+# through the kernels.
+LAUNCHES = {entry: 0 for name in SIGNATURES
+            for entry in (name, *HELPERS.get(name, ()))
+            if not entry.endswith("_scratch")}
 
 
 def _nvcc() -> str:
@@ -134,6 +147,39 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or nothing where ``device`` is
+    current already (the check costs less than entering the guard)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(name: str, tensors, *numbers, entry: Optional[str] = None,
+           aligned: bool = False) -> None:
+    """Launch entry point ``entry`` (default ``name``) of kernel library
+    ``name`` on the device of ``tensors``: the tensors as device pointers,
+    then ``numbers``, then the device's current stream.  Raise naming the
+    entry on a nonzero cudaError; else count the launch under ``entry``.
+    ``aligned``: first refuse a tensor that is not 16-byte aligned."""
+    entry = entry or name
+    ptrs = [t.data_ptr() for t in tensors]
+    if aligned and any(p % 16 for p in ptrs):
+        raise ValueError(f"a tensor argument of {entry} is not 16-byte "
+                         f"aligned")
+    fn = getattr(load(name), entry)
+    device = tensors[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*ptrs, *numbers, stream)
+    else:                               # the stream's device must be current
+        with torch.cuda.device(device):
+            err = fn(*ptrs, *numbers, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    LAUNCHES[entry] += 1
 
 
 def host_library_path(name: str) -> Path:

@@ -1,26 +1,27 @@
-"""The EIG folds of location finding and of CES as one kernel each (no
-Pallas counterpart: ``aline_tpu/eval/eig.py`` ``_accumulate_chunks`` is
-fused by XLA).
+"""The EIG fold kernels (no Pallas counterpart: ``aline_tpu/eval/eig.py``
+``_accumulate_chunks`` is fused by XLA).
 
-``loc_eig_fold`` and ``ces_eig_fold`` fold one chunk of contrastive
-draws into the running logsumexp of the sPCE/sNMC bounds
-(``eval/eig.py``): for every draw l, row b and step t the cumulative
-log-likelihood S[l, b, t] of the first t + 1 outcomes under the draw,
-reduced over l into the (max, sumexp) state of each (b, t).
+A fold folds one chunk of contrastive draws into the running logsumexp of
+the sPCE/sNMC bounds (``eval/eig.py``): for every draw l, row b and step t
+the cumulative log-likelihood S[l, b, t] of the first t + 1 outcomes under
+the draw, reduced over l into the (max, sumexp) state of each (b, t).  A
+task whose likelihood has a kernel calls ``eig_fold`` with the kernel's
+name from its ``fold_eig_chunk`` (``tasks/base.py``); every other task
+folds generically there, through ``cum_loglik`` and ``lse_update``.
 
-* On CUDA tensors they launch ``csrc/loc_eig_fold.cu`` and
-  ``csrc/ces_eig_fold.cu``, which compute every term in registers and
-  write only [B, Th]-sized results (their streaming logsumexp is one,
+* On CUDA tensors ``eig_fold`` launches ``csrc/<kernel>.cu``:
+  ``loc_eig_fold`` (location finding) and ``ces_eig_fold`` (CES with
+  log_ndtr tails) compute every term in registers and write only
+  [B, Th]-sized results (their streaming logsumexp is one,
   ``csrc/eig_fold_reduce.cuh``).
-* On CPU tensors they run ``loc_eig_fold_plain`` and
-  ``ces_eig_fold_plain``: the task's likelihood, ``torch.cumsum`` over
-  the steps and ``lse_update``, as the generic fold of ``eval/eig.py``
-  runs them.
+* On CPU tensors it runs ``eig_fold_plain``: the task's likelihood,
+  ``torch.cumsum`` over the steps and ``lse_update``, the generic fold's
+  operations without its spans.
 
-On a CUDA tensor a wrapper launches its kernel or raises; there is no
-other path.  The kernels sum in another order than the plain versions
-(per thread, then over a block's threads, then over blocks; the source
-notes say how), always the same one: repeated calls agree bitwise.
+On a CUDA tensor ``eig_fold`` launches its kernel or raises; there is no
+other path.  The kernels sum in another order than the plain fold (per
+thread, then over a block's threads, then over blocks; the source notes
+say how), always the same one: repeated calls agree bitwise.
 """
 from __future__ import annotations
 
@@ -30,33 +31,34 @@ import torch
 
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.parallel.collectives import LogSumExpState, lse_update
-from aline_tpu_torch.tasks.ces import CESTask
-from aline_tpu_torch.tasks.location_finding import log_likelihood
 from aline_tpu_torch.utils.debug import check_kernel_outputs
 
-# Kernel launches since the last reset; chip runs read it to show that the
-# bounds went through the kernel (one launch a chunk).
-LAUNCHES = {"loc_eig_fold": 0, "ces_eig_fold": 0}
 
-
-def loc_eig_fold_plain(state: LogSumExpState, x, y, thetas, n_valid: int,
-                       base_signal: float, max_signal: float,
-                       noise_scale: float) -> LogSumExpState:
-    """The fold in plain PyTorch: S [Lc, B, Th], its rows from ``n_valid``
-    on set to -inf, folded over its first axis."""
-    ll = log_likelihood(y[None, ..., None], x[None], thetas.unsqueeze(2),
-                        base_signal, max_signal, noise_scale)
+def cum_loglik(loglik, x, y, thetas, n_valid: int) -> torch.Tensor:
+    """S [Lc, B, Th] with S[l, b, t] = sum_{s<=t} log p(y_s | x_s, th_l)
+    under ``loglik`` (a task's ``log_likelihood``), for designs x
+    [B, Th, D] (real space), outcomes y [B, Th] and thetas [Lc, B, ...];
+    its rows from ``n_valid`` on set to -inf (the padding past L adds
+    nothing)."""
+    ll = loglik(y[None, ..., None], x[None], thetas.unsqueeze(2))
     S = torch.cumsum(ll[..., 0], dim=-1)
     if n_valid < S.shape[0]:
         S[max(n_valid, 0):] = -torch.inf
-    return lse_update(state, S, axis=0)
+    return S
 
 
-def _check(state, x, y, thetas, draw, x_width=None):
+def eig_fold_plain(state: LogSumExpState, x, y, thetas, n_valid: int,
+                   loglik) -> LogSumExpState:
+    """The fold in plain PyTorch: ``cum_loglik`` folded over its first
+    axis."""
+    return lse_update(state, cum_loglik(loglik, x, y, thetas, n_valid),
+                      axis=0)
+
+
+def _check(state, x, y, thetas, draw, width):
     """dtype, device and shapes of the fold's inputs (``draw``: the
-    trailing shape of one draw, ``x_width``: the designs' width where the
-    kernel fixes it); True when they are CUDA tensors (launch the
-    kernel), False for CPU ones."""
+    trailing shape of one draw, ``width``: the designs'); True when they
+    are CUDA tensors (launch the kernel), False for CPU ones."""
     named = {"x": x, "y": y, "thetas": thetas, "state.max": state.max,
              "state.sumexp": state.sumexp}
     for name, t in named.items():
@@ -72,11 +74,11 @@ def _check(state, x, y, thetas, draw, x_width=None):
         raise ValueError(f"x must be [B, Th, D] and thetas [Lc, B, "
                          f"{', '.join(map(str, draw))}], not "
                          f"{tuple(x.shape)} and {tuple(thetas.shape)}")
-    B, Th, D = x.shape
+    B, Th, _ = x.shape
     want = {"y": (y, (B, Th)), "state.max": (state.max, (B, Th)),
             "state.sumexp": (state.sumexp, (B, Th)),
             "thetas": (thetas, (thetas.shape[0], B) + tuple(draw)),
-            "x": (x, (B, Th, D if x_width is None else x_width))}
+            "x": (x, (B, Th, width))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
@@ -90,108 +92,38 @@ def _check(state, x, y, thetas, draw, x_width=None):
 
 
 @torch.no_grad()
-def loc_eig_fold(state: LogSumExpState, x, y, thetas, n_valid: int,
-                 base_signal: float, max_signal: float,
-                 noise_scale: float) -> LogSumExpState:
-    """Fold one chunk of location-finding draws into ``state``.
+def eig_fold(kernel: str, state: LogSumExpState, x, y, thetas, n_valid: int,
+             *, loglik, draw, width: int, numbers) -> LogSumExpState:
+    """Fold one chunk of draws into ``state`` with fold kernel ``kernel``.
 
     Args:
+        kernel: the kernel's library (``_build.SIGNATURES``); its entry
+            takes x, y, thetas, the state in and out, the scratch of
+            ``<kernel>_scratch(n_valid, B, Th)`` floats, n_valid, B, Th,
+            then ``numbers``.
         state: the running (max, sumexp), each [B, Th].
-        x: [B, Th, D] designs in real space; y: [B, Th] outcomes.
-        thetas: [Lc, B, K, D] the chunk's draws, of which the first
+        x: [B, Th, width] designs in real space; y: [B, Th] outcomes.
+        thetas: [Lc, B, *draw] the chunk's draws, of which the first
             ``n_valid`` count (the rest, padding past L, add nothing).
-        base_signal, max_signal, noise_scale: the task's constants.
+        loglik: the task's ``log_likelihood``, which the plain fold
+            (CPU tensors) computes.
+        numbers: the task's constants the kernel takes.
     Returns:
         the new state, new tensors (``state`` is left as it was).
     """
-    K = thetas.shape[2] if thetas.dim() == 4 else 0
-    if not _check(state, x, y, thetas, (K, x.shape[-1])):
-        return loc_eig_fold_plain(state, x, y, thetas, n_valid, base_signal,
-                                  max_signal, noise_scale)
-    B, Th, D = x.shape
-    n = min(max(int(n_valid), 0), thetas.shape[0])
-    new_max = torch.empty_like(state.max)
-    new_sumexp = torch.empty_like(state.sumexp)
-    if new_max.numel() == 0:
-        return LogSumExpState(new_max, new_sumexp)   # no launch
-    lib = _build.load("loc_eig_fold")
-    with torch.cuda.device(x.device):
-        part = torch.empty(lib.loc_eig_fold_scratch(n, B, Th),
-                           dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.loc_eig_fold(
-            x.data_ptr(), y.data_ptr(), thetas.data_ptr(),
-            state.max.data_ptr(), state.sumexp.data_ptr(),
-            new_max.data_ptr(), new_sumexp.data_ptr(), part.data_ptr(), n,
-            B, Th, thetas.shape[2], D, base_signal, max_signal, noise_scale,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"loc_eig_fold kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["loc_eig_fold"] += 1
-    check_kernel_outputs("loc_eig_fold", new_max, new_sumexp)
-    return LogSumExpState(new_max, new_sumexp)
-
-
-def ces_eig_fold_plain(state: LogSumExpState, task: CESTask, x, y, thetas,
-                       n_valid: int) -> LogSumExpState:
-    """The fold in plain PyTorch, the generic fold's operations for CES:
-    S [Lc, B, Th] from ``task.log_likelihood``, its rows from ``n_valid``
-    on set to -inf, folded over its first axis."""
-    ll = task.log_likelihood(y[None, ..., None], x[None], thetas.unsqueeze(2))
-    S = torch.cumsum(ll[..., 0], dim=-1)
-    if n_valid < S.shape[0]:
-        S[max(n_valid, 0):] = -torch.inf
-    return lse_update(state, S, axis=0)
-
-
-@torch.no_grad()
-def ces_eig_fold(state: LogSumExpState, task: CESTask, x, y, thetas,
-                 n_valid: int) -> LogSumExpState:
-    """Fold one chunk of CES draws into ``state``.
-
-    Args:
-        state: the running (max, sumexp), each [B, Th].
-        task: the CES task, ``tail_mode="log_ndtr"`` (its noise scale and
-            censoring limits; ``"reference"`` has no kernel: the generic
-            fold computes it).
-        x: [B, Th, 6] designs (two baskets); y: [B, Th] outcomes.
-        thetas: [Lc, B, 5] the chunk's draws (rho, alpha_1..3, log u), of
-            which the first ``n_valid`` count (the rest, padding past L,
-            add nothing).
-    Returns:
-        the new state, new tensors (``state`` is left as it was).
-    """
-    if not isinstance(task, CESTask) or task.tail_mode != "log_ndtr":
-        raise ValueError(f"ces_eig_fold folds CES with tail_mode "
-                         f"'log_ndtr', not {type(task).__name__} "
-                         f"{getattr(task, 'tail_mode', '')!r}")
-    if not _check(state, x, y, thetas, (5,), x_width=6):
-        return ces_eig_fold_plain(state, task, x, y, thetas, n_valid)
+    if not _check(state, x, y, thetas, draw, width):
+        return eig_fold_plain(state, x, y, thetas, n_valid, loglik)
     B, Th, _ = x.shape
     n = min(max(int(n_valid), 0), thetas.shape[0])
     new_max = torch.empty_like(state.max)
     new_sumexp = torch.empty_like(state.sumexp)
     if new_max.numel() == 0:
         return LogSumExpState(new_max, new_sumexp)   # no launch
-    lib = _build.load("ces_eig_fold")
-    with torch.cuda.device(x.device):
-        part = torch.empty(lib.ces_eig_fold_scratch(n, B, Th),
-                           dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the limits as the plain version takes them: Python numbers
-        # rounded to float32
-        err = lib.ces_eig_fold(
-            x.data_ptr(), y.data_ptr(), thetas.data_ptr(),
-            state.max.data_ptr(), state.sumexp.data_ptr(),
-            new_max.data_ptr(), new_sumexp.data_ptr(), part.data_ptr(), n,
-            B, Th, task.noise_scale, task.epsilon, 1.0 - task.epsilon,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"ces_eig_fold kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["ces_eig_fold"] += 1
-    check_kernel_outputs("ces_eig_fold", new_max, new_sumexp)
+    scratch = getattr(_build.load(kernel), f"{kernel}_scratch")(n, B, Th)
+    part = torch.empty(scratch, dtype=torch.float32, device=x.device)
+    _build.launch(kernel, (x, y, thetas, state.max, state.sumexp, new_max,
+                           new_sumexp, part), n, B, Th, *numbers)
+    check_kernel_outputs(kernel, new_max, new_sumexp)
     return LogSumExpState(new_max, new_sumexp)
 
 
@@ -200,11 +132,12 @@ _LOG_2PI = math.log(2 * math.pi)
 
 
 @torch.no_grad()
-def ces_fold_tolerance(state: LogSumExpState, task: CESTask, x, y, thetas,
+def ces_fold_tolerance(state: LogSumExpState, task, x, y, thetas,
                        n_valid: int) -> torch.Tensor:
     """[B, Th] how far the logsumexp (max + log sumexp) of two float32
-    folds of the same CES chunk may lie apart (``ces_eig_fold`` and
-    ``ces_eig_fold_plain``, or an emulation of either), in float64 from
+    folds of the same chunk of CES (``task``) may lie apart (the kernel
+    ``ces_eig_fold`` and ``eig_fold_plain``, or an emulation of either),
+    in float64 from
     the inputs (on their device, 4096 draws at a time).
 
     Whatever two float32 implementations of the formula round

@@ -38,7 +38,8 @@ row sums Δ are float32 in both.  In bfloat16 the TPU kernel scores in
 float32 from the bfloat16 operands, accumulates P·V in float32 and rounds
 O and dQ once; it sums dK and dV into bfloat16 outputs, one rounding per
 block of ``block_q(N)`` rows.  The plain versions do the same.  The CUDA
-kernels (separate ``*_bf16`` entry points, counted apart in ``LAUNCHES``)
+kernels (separate ``*_bf16`` entry points, counted apart in
+``_build.LAUNCHES``)
 run on the bf16 tensor cores (``csrc/flash_attn_mma.cuh``): q·kᵀ and
 dO·vᵀ are float32 sums of exact bfloat16 products, P and dS are cut into
 three bfloat16 pieces whose products sum to the float32 product (P·V, dS·K,
@@ -67,11 +68,6 @@ import torch.nn.functional as F
 
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.utils.debug import check_kernel_outputs
-
-# Kernel launches since the last reset, by kernel; chip runs read them to
-# show that a path went through the kernels.
-LAUNCHES = {"flash_plan": 0, "flash_attn_fwd": 0, "flash_attn_bwd": 0,
-            "flash_attn_fwd_bf16": 0, "flash_attn_bwd_bf16": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -160,7 +156,7 @@ def flash_plan(kcode, qrow) -> FlashPlan:
                        for _ in range(2)),
                      *(torch.empty(B, dtype=torch.int32, device=dev)
                        for _ in range(4)))
-    _launch("flash_plan", (kcode, qrow, *plan), B, N)
+    _build.launch("flash_plan", (kcode, qrow, *plan), B, N, aligned=True)
     return plan
 
 
@@ -280,28 +276,6 @@ def _kernel_device(q) -> bool:
     return True
 
 
-def _launch(name, tensors, *numbers, entry=None):
-    """Launch entry point ``entry`` (default ``name``) of kernel library
-    ``name`` on the device of ``tensors`` (passed as device pointers, each
-    16-byte aligned), then ``numbers``; count it under ``entry``."""
-    entry = entry or name
-    ptrs = [t.data_ptr() for t in tensors]
-    if any(p % 16 for p in ptrs):
-        raise ValueError(f"a tensor argument of {entry} is not 16-byte "
-                         f"aligned")
-    launch = getattr(_build.load(name), entry)
-    device = tensors[0].device
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
-        err = launch(*ptrs, *numbers, stream)
-    else:                               # the stream's device must be current
-        with torch.cuda.device(device):
-            err = launch(*ptrs, *numbers, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-    LAUNCHES[entry] += 1
-
-
 def _entry(name, q):
     """The entry point of kernel ``name`` for q's dtype."""
     return name if q.dtype == torch.float32 else f"{name}_bf16"
@@ -348,9 +322,9 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     width = kernel_dh(dh)
     q, k, v = (pad_dh(t, width) for t in (q, k, v))
     o = torch.empty_like(q)
-    _launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
-            padded_len(N) - N, width, 1.0 / math.sqrt(dh),
-            entry=_entry("flash_attn_fwd", q))
+    _build.launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
+                  padded_len(N) - N, width, 1.0 / math.sqrt(dh),
+                  entry=_entry("flash_attn_fwd", q), aligned=True)
     check_kernel_outputs(_entry("flash_attn_fwd", q), o, lse)
     return (o if width == dh else o[..., :dh].contiguous()), lse
 
@@ -375,9 +349,10 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
     q, k, v, o, do = (pad_dh(t, width) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(B, H, N, dtype=torch.float32, device=q.device)
-    _launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk, dv,
-                               delta), B, H, N, width, 1.0 / math.sqrt(dh),
-            entry=_entry("flash_attn_bwd", q))
+    _build.launch("flash_attn_bwd", (q, k, v, *plan, o, lse, do, dq, dk,
+                                     dv, delta), B, H, N, width,
+                  1.0 / math.sqrt(dh), entry=_entry("flash_attn_bwd", q),
+                  aligned=True)
     check_kernel_outputs(_entry("flash_attn_bwd", q), dq, dk, dv)
     if width == dh:
         return dq, dk, dv

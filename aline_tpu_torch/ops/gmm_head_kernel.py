@@ -34,10 +34,6 @@ import torch.nn.functional as nnf
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.utils.debug import check_kernel_outputs
 
-# Kernel launches since the last reset, by kernel; chip runs read them to
-# show that a path went through the kernels.
-LAUNCHES = {"gmm_head_fwd": 0, "gmm_head_bwd": 0}
-
 NARROW_D = (16, 32, 64)   # the narrow kernel's D
 NARROW_F_MAX = 256        # and its widest F (a multiple of 8, the mma width)
 TILED_STEP = 128          # the tiled kernel's D and F are multiples of this
@@ -163,16 +159,7 @@ def gmm_head_fwd(z, w1, b1, w2, b2):
     D, F = kernel_widths(D, w1.shape[2])
     z, w1, b1, w2 = pad_head(z, w1, b1, w2, D, F)
     _aligned(z=z, w1=w1, b1=b1, w2=w2)
-    lib = _build.load("gmm_head_fwd")
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.gmm_head_fwd(z.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                               w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                               B * T, D, C, F, stream)
-    if err != 0:
-        raise RuntimeError(f"gmm_head_fwd kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["gmm_head_fwd"] += 1
+    _build.launch("gmm_head_fwd", (z, w1, b1, w2, b2, out), B * T, D, C, F)
     check_kernel_outputs("gmm_head_fwd", out)
     return out
 
@@ -202,26 +189,18 @@ def gmm_head_bwd(z, w1, b1, w2, g):
         sum(sizes), dtype=torch.float32, device=dev)
     if rows > 0:
         _aligned(z=z, w1=w1, b1=b1, w2=w2)
-        lib = _build.load("gmm_head_bwd")
-        with torch.cuda.device(dev):
-            # the narrow kernel's per-CTA partial copies of the gradients
-            # (their count depends on the rows and the card), or the tiled
-            # form's dh of one component and its row-tile partials
-            n_part = lib.gmm_head_bwd_scratch(rows, D, C, F)
-            if n_part < 0:
-                raise RuntimeError(f"gmm_head_bwd cannot size its scratch: "
-                                   f"cudaError {-n_part}")
-            part = torch.empty(n_part, dtype=torch.float32, device=dev)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.gmm_head_bwd(z.data_ptr(), w1.data_ptr(),
-                                   b1.data_ptr(), w2.data_ptr(),
-                                   g.data_ptr(), dz.data_ptr(),
-                                   part.data_ptr(), grads.data_ptr(),
-                                   rows, D, C, F, stream)
-        if err != 0:
-            raise RuntimeError(f"gmm_head_bwd kernel launch failed: "
-                               f"cudaError {err}")
-        LAUNCHES["gmm_head_bwd"] += 1
+        # the narrow kernel's per-CTA partial copies of the gradients
+        # (their count depends on the rows and the card), or the tiled
+        # form's dh of one component and its row-tile partials
+        with _build.on_device(dev):
+            n_part = _build.load("gmm_head_bwd").gmm_head_bwd_scratch(
+                rows, D, C, F)
+        if n_part < 0:
+            raise RuntimeError(f"gmm_head_bwd cannot size its scratch: "
+                               f"cudaError {-n_part}")
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+        _build.launch("gmm_head_bwd", (z, w1, b1, w2, g, dz, part, grads),
+                      rows, D, C, F)
         check_kernel_outputs("gmm_head_bwd", dz, grads)
     dw1, db1, dw2, db2 = grads.split(sizes)
     return unpad_grads((dz, dw1.view(C, D, F), db1.view(C, F),

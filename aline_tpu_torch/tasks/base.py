@@ -16,6 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from aline_tpu_torch.ops.eig_fold_kernel import cum_loglik
+from aline_tpu_torch.parallel.collectives import lse_update
+from aline_tpu_torch.utils.metrics import span
+
 
 @dataclass(frozen=True)
 class Batch:
@@ -141,7 +145,9 @@ class Task:
     real design space), ``log_likelihood(y, xi, theta)`` (pointwise
     log p(y | xi, theta), broadcasting over a leading contrastive axis)
     and ``sample_batch(gen, batch_size, n_query=None)``.  Every draw comes
-    from the explicit ``torch.Generator`` ``gen``, on its device.
+    from the explicit ``torch.Generator`` ``gen``, on its device.  A task
+    whose likelihood has an EIG fold kernel overrides
+    ``fold_eig_chunk``.
     """
 
     def __init__(self, cfg):
@@ -186,6 +192,19 @@ class Task:
     def sample_batch(self, gen: torch.Generator, batch_size: int,
                      n_query: Optional[int] = None) -> Batch:
         raise NotImplementedError
+
+    # -- EIG bounds --------------------------------------------------------
+    def fold_eig_chunk(self, state, x, y, thetas, n_valid: int):
+        """Fold one chunk of contrastive draws into the running logsumexp
+        ``state`` of the sPCE/sNMC bounds (``eval/eig.py``): designs x
+        [B, Th, D] (real space), outcomes y [B, Th], draws thetas
+        [Lc, B, ...] of which the first ``n_valid`` count.  The generic
+        fold: S [Lc, B, Th] (``cum_loglik``, the span ``eig.loglik``)
+        folded by ``lse_update`` (``eig.lse``)."""
+        with span("eig.loglik"):
+            S = cum_loglik(self.log_likelihood, x, y, thetas, n_valid)
+        with span("eig.lse"):
+            return lse_update(state, S, axis=0)
 
     def _initial_ctx_mask(self, batch_size: int, n_points: int,
                           device) -> torch.Tensor:

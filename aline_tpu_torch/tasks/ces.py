@@ -16,6 +16,7 @@ import torch
 from aline_tpu_torch.distributions.censored_sigmoid_normal import (
     CensoredSigmoidNormal,
 )
+from aline_tpu_torch.ops import eig_fold_kernel
 from aline_tpu_torch.tasks.base import Batch, Task
 
 
@@ -99,6 +100,19 @@ class CESTask(Task):
         """y [..., 1], xi [..., 6], theta [..., 5] (broadcasting, e.g. y
         [1, B, Th, 1], xi [1, B, Th, 6], theta [Lc, B, 1, 5])."""
         return self._response(xi, theta).log_prob(y)
+
+    def fold_eig_chunk(self, state, x, y, thetas, n_valid: int):
+        """With log_ndtr tails the fold kernel ``ces_eig_fold`` (thetas
+        [Lc, B, 5], designs of two baskets) with the noise scale and the
+        censoring limits, Python numbers rounded to float32 as the plain
+        fold takes them; the reference's tails fold generically."""
+        if self.tail_mode != "log_ndtr":
+            return super().fold_eig_chunk(state, x, y, thetas, n_valid)
+        return eig_fold_kernel.eig_fold(
+            "ces_eig_fold", state, x, y, thetas, n_valid,
+            loglik=self.log_likelihood, draw=(self.BASKET_DIM + 2,),
+            width=2 * self.BASKET_DIM,
+            numbers=(self.noise_scale, self.epsilon, 1.0 - self.epsilon))
 
     # -- batch -------------------------------------------------------------
     def sample_batch(self, gen: torch.Generator, batch_size: int,

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from aline_tpu_torch.distributions.gmm import normal_log_prob
+from aline_tpu_torch.ops import eig_fold_kernel
 from aline_tpu_torch.tasks.base import Batch, Task
 
 
@@ -102,6 +103,16 @@ class HiddenLocation(Task):
         constants."""
         return log_likelihood(y, xi, theta, self.base_signal,
                               self.max_signal, self.noise_scale)
+
+    def fold_eig_chunk(self, state, x, y, thetas, n_valid: int):
+        """The fold kernel ``loc_eig_fold`` (thetas [Lc, B, K, D]) with
+        this task's constants."""
+        K, D = self.K, self.dim_x
+        return eig_fold_kernel.eig_fold(
+            "loc_eig_fold", state, x, y, thetas, n_valid,
+            loglik=self.log_likelihood, draw=(K, D), width=D,
+            numbers=(K, D, self.base_signal, self.max_signal,
+                     self.noise_scale))
 
     # -- batch -------------------------------------------------------------
     def sample_batch(self, gen: torch.Generator, batch_size: int,

@@ -552,7 +552,6 @@ def phase_kernels():
         worst = max(worst, abs_err)
         z, w1, b1, w2, b2 = args
         C, D, F = w1.shape
-        nbytes = 4 * sum(t.numel() for t in args) + 4 * got.numel()
         row = dict(
             B=B, T=T, max_abs_err=abs_err, max_rel_err=rel_err,
             ms=time_ms(lambda: ghk.gmm_head_fwd(*args)),
@@ -562,7 +561,7 @@ def phase_kernels():
             library_ms=time_ms(lambda: torch.einsum(
                 "btcf,cfo->btco", torch.relu(
                     torch.einsum("btd,cdf->btcf", z, w1) + b1), w2) + b2),
-            **gmm_bound(2 * B * T * C * D * F, 2 * B * T * C * 3 * F, nbytes))
+            **gmm_fwd_bound(B, T, D, F, C))
         rows[what] = row
         log("kernels", f"gmm_head_fwd {what} B={B} T={T}: max abs err "
             f"{abs_err:.3e}, max rel err {rel_err:.3e}; kernel "
@@ -595,6 +594,16 @@ def gmm_bound(mma_flops, other_flops, nbytes):
     return split_bound(mma_flops / PEAK_F32_FLOPS + t_other,
                        3 * mma_flops / PEAK_TF32_FLOPS + t_other,
                        mma_flops + other_flops, nbytes)
+
+
+def gmm_fwd_bound(B, T, D, F, C):
+    """The forward's ``gmm_bound``: its FLOPs and bytes as
+    ``portbench/counts/gmm_head.py`` counts them, of which the D x F
+    products are 2·B·T·C·D·F."""
+    from portbench.counts.gmm_head import fwd_bytes, fwd_flops
+    mma = 2 * B * T * C * D * F
+    return gmm_bound(mma, fwd_flops(B, T, D, F, C) - mma,
+                     fwd_bytes(B, T, D, F, C))
 
 
 def bf16_flash_bound(bf16_flops, f32_flops, nbytes):
@@ -760,7 +769,6 @@ def phase_wide_gmm():
             largest = {"out": ref.abs().max().item()}
             del got, ref
             args = (z, w1, b1, w2, b2)
-            nbytes = 4 * (sum(t.numel() for t in args) + n * C * 3)
             row = dict(
                 B=B, T=T, D=D, F=Fw, errors=errs,
                 ms=time_ms(lambda: ghk.gmm_head_fwd(*args), **WIDE_REPS),
@@ -770,7 +778,7 @@ def phase_wide_gmm():
                                                  *args), **WIDE_REPS),
                 library_ms=time_ms(lambda: chunked(two_einsum, *args),
                                    **WIDE_REPS),
-                **gmm_bound(2 * n * C * D * Fw, 2 * n * C * 3 * Fw, nbytes))
+                **gmm_fwd_bound(B, T, D, Fw, C))
         else:
             g = torch.randn(B, T, C, 3, device="cuda",
                             generator=torch.Generator(device="cuda")
@@ -845,22 +853,16 @@ def phase_wide_kernels():
     return rec, errs
 
 
-def _counters():
-    from aline_tpu_torch.ops import eig_fold_kernel as efk
-    from aline_tpu_torch.ops import flash_attention as fa
-    from aline_tpu_torch.ops import gmm_head_kernel as ghk
-    return ghk.LAUNCHES, fa.LAUNCHES, efk.LAUNCHES
-
-
 def reset_launches():
-    for counter in _counters():
-        for name in counter:
-            counter[name] = 0
+    from aline_tpu_torch.ops import _build
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
 
 
 def launches():
     """Every kernel's launches since the last reset."""
-    return {name: n for counter in _counters() for name, n in counter.items()}
+    from aline_tpu_torch.ops import _build
+    return dict(_build.LAUNCHES)
 
 
 def flash_inputs(B, H, n_points, n_target, dh, with_time, blind, n_ctx,
@@ -2278,27 +2280,26 @@ PEAK_F32_INSTR = 132 * 128 * 1.98e9
 PEAK_MUFU_INSTR = 132 * 16 * 1.98e9
 
 
-def eig_fold_bound(terms, K, D):
-    """Bounds of the EIG chunk fold over ``terms`` (l, b, t) terms of
-    location finding with K sources in D dimensions, from the code of
-    ``tasks/location_finding.py`` and ``eval/eig.py``:
+def eig_fold_bound(L, B, Th, K, D):
+    """Bounds of the EIG fold of location finding with K sources in D
+    dimensions over L draws of B rows of Th steps:
 
-    * fused, in registers: per term 2KD + 2K + 8 float32 instructions
-      (differences, squares, the sums, the offsets, the Gaussian's
-      centring, scaling and square, the cumulative sum, the shift and the
-      sum of the fold) and K + 2 special-function ones (K reciprocals, a
-      log, an exp); its bytes (the thetas' draws, the [B, Th] inputs and
-      outputs) are negligible beside them, so operations bound it.
+    * fused, in registers: ``portbench/counts/eig_fold.py``'s counts (per
+      term 3KD + 2K + 9 FMA-pipe FLOPs and K + 2 special-function
+      results, the draws, the bytes) at this script's rates; the
+      special-function results bound it.
     * eager, as PyTorch runs it: 4KD + 6K + 25 float32 passes (reads plus
       writes) over the [Lc, B, Th] block per term: the [.., K, D]
       differences and squares, 12 elementwise passes, the cumulative sum
       and the fold's max, shift, exp and sum, at the HBM rate.
 
     Returns (fused seconds, eager seconds)."""
-    f32 = terms * (2 * K * D + 2 * K + 8) / PEAK_F32_INSTR
-    mufu = terms * (K + 2) / PEAK_MUFU_INSTR
-    eager = terms * 4 * (4 * K * D + 6 * K + 25) / PEAK_HBM_BYTES
-    return max(f32, mufu), eager
+    from portbench.counts.eig_fold import loc_counts
+    c = loc_counts(L, B, Th, K, D)
+    eager = L * B * Th * 4 * (4 * K * D + 6 * K + 25) / PEAK_HBM_BYTES
+    return max(c["fma_flops"] / PEAK_F32_FLOPS,
+               c["sfu_ops"] / PEAK_MUFU_INSTR,
+               c["bytes"] / PEAK_HBM_BYTES), eager
 
 
 # Phase 3e: the EIG fold of location finding at the BED cell's shape
@@ -2339,17 +2340,16 @@ def phase_fold_kernel():
     thetas = task.sample_theta(g, (Lc, B))
     state = lse_update(lse_init((B, Th), device="cuda"), -60.0 * torch.rand(
         5, B, Th, generator=g, device="cuda"), axis=0)
-    consts = (task.base_signal, task.max_signal, task.noise_scale)
     worst = 0.0
     for n in (Lc, last):
-        got = efk.loc_eig_fold(state, x, y2, thetas, n, *consts)
-        again = efk.loc_eig_fold(state, x, y2, thetas, n, *consts)
+        got = task.fold_eig_chunk(state, x, y2, thetas, n)
+        again = task.fold_eig_chunk(state, x, y2, thetas, n)
         torch.cuda.synchronize()
         if not (torch.equal(got.max, again.max)
                 and torch.equal(got.sumexp, again.sumexp)):
             raise AssertionError(f"loc_eig_fold: two calls differ (n={n})")
-        want = lse_value(efk.loc_eig_fold_plain(state, x, y2, thetas, n,
-                                                *consts))
+        want = lse_value(efk.eig_fold_plain(state, x, y2, thetas, n,
+                                            task.log_likelihood))
         err = (lse_value(got) - want).abs()
         if not (err <= 1e-5 + (Th + 8) * 2.0 ** -24 * want.abs()).all():
             raise AssertionError(f"loc_eig_fold disagrees with its plain "
@@ -2358,14 +2358,14 @@ def phase_fold_kernel():
         worst = max(worst, err.max().item())
 
     def fold():
-        return efk.loc_eig_fold(state, x, y2, thetas, Lc, *consts)
+        return task.fold_eig_chunk(state, x, y2, thetas, Lc)
 
-    bound_s = eig_fold_bound(Lc * B * Th, K, D)[0]
+    bound_s = eig_fold_bound(Lc, B, Th, K, D)[0]
     row = dict(
         B=B, T=Th, shape=[Lc, B, Th, K, D], max_abs_err=worst,
         ms=time_ms(fold), device_ms=device_ms(fold),
-        plain_ms=time_ms(lambda: efk.loc_eig_fold_plain(
-            state, x, y2, thetas, Lc, *consts), reps=3, iters=3),
+        plain_ms=time_ms(lambda: efk.eig_fold_plain(
+            state, x, y2, thetas, Lc, task.log_likelihood), reps=3, iters=3),
         library_ms=None, bound_ms=1e3 * bound_s, bound_by="operations")
     eig.compute_eig_from_history(task, theta0, x, y, L, 1, stepwise=True)
     reset_launches()
@@ -2382,7 +2382,7 @@ def phase_fold_kernel():
                              f"in 3 batches of {n_chunks} chunks")
     row.update(Lc=Lc, last_chunk=last, chunks_per_batch=n_chunks,
                batch_ms=1e3 * statistics.median(batch_s),
-               batch_bound_ms=1e3 * eig_fold_bound(L * B * Th, K, D)[0])
+               batch_bound_ms=1e3 * eig_fold_bound(L, B, Th, K, D)[0])
     log("fold", f"loc_eig_fold B={B} Th={Th} K={K} D={D}, a chunk of "
         f"{Lc} draws (the last of {n_chunks}: {last}): max abs err "
         f"{worst:.3e}, bitwise over two calls; kernel {row['ms']:.4f} ms "
@@ -2430,14 +2430,14 @@ def phase_ces_fold_kernel():
         5, B, Th, generator=g, device="cuda"), axis=0)
     worst, share = 0.0, 0.0
     for n in (Lc, last):
-        got = efk.ces_eig_fold(state, task, x, y2, thetas, n)
-        again = efk.ces_eig_fold(state, task, x, y2, thetas, n)
+        got = task.fold_eig_chunk(state, x, y2, thetas, n)
+        again = task.fold_eig_chunk(state, x, y2, thetas, n)
         torch.cuda.synchronize()
         if not (torch.equal(got.max, again.max)
                 and torch.equal(got.sumexp, again.sumexp)):
             raise AssertionError(f"ces_eig_fold: two calls differ (n={n})")
-        want = lse_value(efk.ces_eig_fold_plain(state, task, x, y2, thetas,
-                                                n)).double()
+        want = lse_value(efk.eig_fold_plain(state, x, y2, thetas, n,
+                                            task.log_likelihood)).double()
         tol = efk.ces_fold_tolerance(state, task, x, y2, thetas, n)
         a = lse_value(got).double()
         inf = torch.isinf(want)
@@ -2451,14 +2451,14 @@ def phase_ces_fold_kernel():
         worst, share = max(worst, err.max().item()), max(share, n_share)
 
     def fold():
-        return efk.ces_eig_fold(state, task, x, y2, thetas, Lc)
+        return task.fold_eig_chunk(state, x, y2, thetas, Lc)
 
     row = dict(
         B=B, T=Th, shape=[Lc, B, Th, 6], max_abs_err=worst,
         max_share_of_tolerance=share, ms=time_ms(fold),
         device_ms=device_ms(fold),
-        plain_ms=time_ms(lambda: efk.ces_eig_fold_plain(
-            state, task, x, y2, thetas, Lc), reps=3, iters=3),
+        plain_ms=time_ms(lambda: efk.eig_fold_plain(
+            state, x, y2, thetas, Lc, task.log_likelihood), reps=3, iters=3),
         library_ms=None, bound_ms=1e3 * ces_fold_bound(Lc * B * Th),
         bound_by="operations")
     eig.compute_eig_from_history(task, theta0, x, y, L, 1, stepwise=True)
@@ -2617,7 +2617,8 @@ def phase_bed(smi):
     eig_s = [c["s"] for c in eigs]
     c0 = eigs[0]
     terms = c0["L"] * c0["B"] * c0["Th"]
-    bound_s, eager_s = eig_fold_bound(terms, cfg.task.K, cfg.task.dim_x)
+    bound_s, eager_s = eig_fold_bound(c0["L"], c0["B"], c0["Th"],
+                                      cfg.task.K, cfg.task.dim_x)
     eig_ms = 1e3 * statistics.median(eig_s)
     rec.update(rollout_s=rollout_s, eig_s=sum(eig_s),
                eig_ms_per_batch=eig_ms, eig_ms_by_batch=[1e3 * s
@@ -3069,6 +3070,7 @@ def phase_ces_witness():
         CensoredSigmoidNormal)
     from aline_tpu_torch.eval.eig import chunk_size, compute_eig_from_history
     from aline_tpu_torch.eval.traces import get_traces
+    from aline_tpu_torch.ops.eig_fold_kernel import cum_loglik
     from aline_tpu_torch.tasks import build_task
     from aline_tpu_torch.utils.serialization import load_model, weights_path
 
@@ -3119,8 +3121,8 @@ def phase_ces_witness():
     # what float32 rounding may move the bounds by: theta_0's cumulative
     # log-likelihood's, twice, and the contrastive draws' weighted by
     # their share of the logsumexp
-    S = torch.cumsum(task.log_likelihood(cpu_in[2][None], cpu_in[1][None],
-                                         thetas[:, :, None])[..., 0], -1)
+    S = cum_loglik(task.log_likelihood, cpu_in[1], cpu_in[2][..., 0], thetas,
+                   CES_WITNESS_L)
     slack = (2 * ces_loglik_rounding(task, *cpu_in[1:], cpu_in[0])
              + (torch.softmax(S.double(), dim=0)
                 * ces_loglik_rounding(task, *cpu_in[1:], thetas)).sum(0))
@@ -4588,7 +4590,7 @@ MESHES = (("1d", 2), ("2d", (2, 1)), ("2d", (1, 2)))
 def _rank_mesh(rank, inp):
     from aline_tpu_torch.config import parse_overrides
     from aline_tpu_torch.eval.eig import compute_eig_from_history
-    from aline_tpu_torch.ops import eig_fold_kernel as efk
+    from aline_tpu_torch.ops import _build
     from aline_tpu_torch.parallel.mesh import get_eval_mesh, get_mesh
     from aline_tpu_torch.tasks import build_task
     task = build_task(parse_overrides(["task=location_finding"]).task)
@@ -4600,14 +4602,14 @@ def _rank_mesh(rank, inp):
         if not mesh.member:
             continue
         torch.cuda.synchronize()
-        before = efk.LAUNCHES["loc_eig_fold"]
+        before = _build.LAUNCHES["loc_eig_fold"]
         t0 = time.perf_counter()
         pce, nmc = compute_eig_from_history(task, *args, BED["L"], 20,
                                             stepwise=True, mesh=mesh)
         torch.cuda.synchronize()
         res[(kind, shape)] = dict(
             s=time.perf_counter() - t0, pce=pce.cpu(), nmc=nmc.cpu(),
-            folds=efk.LAUNCHES["loc_eig_fold"] - before,
+            folds=_build.LAUNCHES["loc_eig_fold"] - before,
             n_data=mesh.axis_size("data"))
     return res
 

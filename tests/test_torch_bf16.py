@@ -53,9 +53,9 @@ from aline_tpu_torch.config import config_from_dict
 from aline_tpu_torch.models.aline import build_model
 from aline_tpu_torch.models.dense import Dense
 from aline_tpu_torch.models.heads import FUSED_MIN_TOKENS, GMMTargetHead
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import attention as tatt
 from aline_tpu_torch.ops import flash_attention as tfa
-from aline_tpu_torch.ops import gmm_head_kernel as ghk
 from aline_tpu_torch.ops import roles as troles
 from aline_tpu_torch.tasks.base import batch_from_numpy
 from aline_tpu_torch.utils.serialization import (
@@ -384,10 +384,10 @@ def test_gmm_einsum_path_matches_flax(flagship, fused):
     want = jheads.GMMTargetHead(1, 32, 128, 10, dtype=jnp.bfloat16,
                                 fused=False).apply({"params": w},
                                                    jnp.asarray(z))
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     with torch.no_grad():
         got = head(_t(z.astype(np.float32)).to(BF16))
-    assert ghk.LAUNCHES == before
+    assert _build.LAUNCHES == before
     for name in ("mixture_means", "mixture_stds", "mixture_weights"):
         np.testing.assert_allclose(
             getattr(got, name).numpy(), np.asarray(getattr(want, name)),
@@ -538,10 +538,10 @@ def test_flash_wrappers_take_bf16_and_refuse_mixed_types():
         tfa.flash_attn_bwd(bq, bk, bv, tk, tq, o, lse.to(BF16), _bt(w))
     with pytest.raises(TypeError):
         tfa.flash_attn_bwd(bq, bk, bv, tk, tq, o.float(), lse, _bt(w))
-    before = dict(tfa.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     leaves = [t.clone().requires_grad_() for t in (bq, bk, bv)]
     out = tfa.flash_role_attention(*leaves, tk, tq)
     out.backward(_bt(w))
     assert out.dtype == BF16
     assert all(t.grad.dtype == BF16 for t in leaves)
-    assert tfa.LAUNCHES == before        # CPU tensors launch no kernel
+    assert _build.LAUNCHES == before     # CPU tensors launch no kernel

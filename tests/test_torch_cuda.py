@@ -26,7 +26,8 @@ the plain version summed as the kernels sum them (``per_block=False``),
 dK and dV lie within 2^-7 of each element plus 1e-4 of the largest.  lse
 is float32: 1e-4.
 
-The EIG fold of location finding against its plain version on the card:
+The EIG fold of location finding (``HiddenLocation.fold_eig_chunk``)
+against the plain fold (``eig_fold_plain``) on the card:
 the logsumexp (max + log sumexp) of each (row, step) within 1e-5 plus
 (Th + 8) float32 ulps of its size.  Each step's term rounds otherwise in
 the kernel (products contracted into FMAs, its own logf), and so does
@@ -35,8 +36,9 @@ sum of negative terms, reaches hundreds of nats, and the largest S set
 the logsumexp's size.  The sum of exponentials runs in another order
 (per thread, per block, over blocks), which moves it by about 1e-6.
 
-The EIG fold of CES against its plain version on the card: each
-logsumexp within ``ces_fold_tolerance`` (ops/eig_fold_kernel.py), what
+The EIG fold of CES (``CESTask.fold_eig_chunk``) against the plain fold
+on the card: each logsumexp within ``ces_fold_tolerance``
+(ops/eig_fold_kernel.py), what
 float32 rounding of each draw's terms may move it by on both sides,
 weighted by the draw's share of the logsumexp: the outer power 1 / rho
 multiplies the rounding of the weighted sum by up to 100, so a fixed
@@ -50,6 +52,7 @@ import torch
 
 from aline_tpu_torch import config as tcfg
 from aline_tpu_torch.eval import eig
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import eig_fold_kernel as efk
 from aline_tpu_torch.ops import flash_attention as fa
 from aline_tpu_torch.ops import gmm_head_kernel as ghk
@@ -60,6 +63,7 @@ from aline_tpu_torch.parallel.collectives import (
     lse_update,
     lse_value,
 )
+from aline_tpu_torch.tasks.base import Task
 from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 
@@ -130,19 +134,19 @@ def _inputs(B, T, D, F, C, seed=0, grid=False):
 ])
 def test_gmm_head_kernel_matches_plain(cuda, B, T, D, F, C):
     args = _inputs(B, T, D, F, C)
-    before = ghk.LAUNCHES["gmm_head_fwd"]
+    before = _build.LAUNCHES["gmm_head_fwd"]
     got = ghk.gmm_head_fwd(*args)
     torch.cuda.synchronize()
-    assert ghk.LAUNCHES["gmm_head_fwd"] == before + 1
+    assert _build.LAUNCHES["gmm_head_fwd"] == before + 1
     torch.testing.assert_close(got, ghk.gmm_head_fwd_plain(*args),
                                rtol=TOL, atol=TOL)
 
 
 def test_gmm_head_kernel_empty_input_launches_nothing(cuda):
     args = _inputs(2, 0, 32, 128, 10)
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     assert ghk.gmm_head_fwd(*args).shape == (2, 0, 10, 3)
-    assert ghk.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_gmm_head_kernel_rejects_what_it_does_not_take(cuda):
@@ -201,10 +205,10 @@ def test_gmm_head_backward_kernel_matches_plain(cuda, B, T, D, F, C):
     z, w1, b1, w2, _ = _inputs(B, T, D, F, C, grid=True)
     g = torch.randn(B, T, C, 3, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(9))
-    before = ghk.LAUNCHES["gmm_head_bwd"]
+    before = _build.LAUNCHES["gmm_head_bwd"]
     got = ghk.gmm_head_bwd(z, w1, b1, w2, g)
     torch.cuda.synchronize()
-    assert ghk.LAUNCHES["gmm_head_bwd"] == before + 1
+    assert _build.LAUNCHES["gmm_head_bwd"] == before + 1
     want = ghk.gmm_head_bwd_plain(z, w1, b1, w2, g)
     for name, a, b in zip(("dz", "dw1", "db1", "dw2", "db2"), got, want):
         _assert_grad_close(a, b, name)
@@ -222,11 +226,11 @@ def test_gmm_head_backward_kernel_is_deterministic(cuda):
 def test_gmm_head_autograd_runs_both_kernels(cuda):
     args = [t.requires_grad_() for t in _inputs(4, 50, 32, 128, 10,
                                                 grid=True)]
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     ghk.gmm_head(*args).square().sum().backward()
     torch.cuda.synchronize()
-    assert ghk.LAUNCHES["gmm_head_fwd"] == before["gmm_head_fwd"] + 1
-    assert ghk.LAUNCHES["gmm_head_bwd"] == before["gmm_head_bwd"] + 1
+    assert _build.LAUNCHES["gmm_head_fwd"] == before["gmm_head_fwd"] + 1
+    assert _build.LAUNCHES["gmm_head_bwd"] == before["gmm_head_bwd"] + 1
     ref = [t.detach().clone().requires_grad_() for t in args]
     ghk.gmm_head_fwd_plain(*ref).square().sum().backward()
     for a, b in zip(args, ref):
@@ -241,7 +245,7 @@ def test_gmm_head_kernels_refuse_an_f_they_do_not_take(cuda, F):
     no fallback."""
     z, w1, b1, w2, b2 = _inputs(2, 9, 32, F, 4, grid=True)
     g = torch.randn(2, 9, 4, 3, device="cuda")
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     torch.testing.assert_close(ghk.gmm_head_fwd(z, w1, b1, w2, b2),
                                ghk.gmm_head_fwd_plain(z, w1, b1, w2, b2),
                                rtol=TOL, atol=TOL)
@@ -250,16 +254,16 @@ def test_gmm_head_kernels_refuse_an_f_they_do_not_take(cuda, F):
                           ghk.gmm_head_bwd_plain(z, w1, b1, w2, g)):
         assert a.shape == b.shape, name
         _assert_grad_close(a, b, name)
-    assert ghk.LAUNCHES["gmm_head_fwd"] == before["gmm_head_fwd"] + 1
-    assert ghk.LAUNCHES["gmm_head_bwd"] == before["gmm_head_bwd"] + 1
+    assert _build.LAUNCHES["gmm_head_fwd"] == before["gmm_head_fwd"] + 1
+    assert _build.LAUNCHES["gmm_head_bwd"] == before["gmm_head_bwd"] + 1
     w1, b1, w2 = (torch.empty(*shape, device="cuda")      # F=0
                   for shape in ((4, 32, 0), (4, 0), (4, 0, 3)))
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="F"):
         ghk.gmm_head_fwd(z, w1, b1, w2, b2)
     with pytest.raises(ValueError, match="F"):
         ghk.gmm_head_bwd(z, w1, b1, w2, g)
-    assert ghk.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_gmm_head_backward_kernel_rejects_what_it_does_not_take(cuda):
@@ -319,10 +323,10 @@ BF16_BWD_SHAPES = [s for s in FLASH_SHAPES if s[4] <= 64]
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_forward_kernel_matches_plain(cuda, shape):
     q, k, v, kcode, qrow, _ = _flash_inputs(*shape)
-    before = fa.LAUNCHES["flash_attn_fwd"]
+    before = _build.LAUNCHES["flash_attn_fwd"]
     o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attn_fwd"] == before + 1
+    assert _build.LAUNCHES["flash_attn_fwd"] == before + 1
     want_o, want_lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
     torch.testing.assert_close(o, want_o, rtol=TOL, atol=TOL)
     torch.testing.assert_close(lse, want_lse, rtol=TOL, atol=TOL)
@@ -332,10 +336,10 @@ def test_flash_forward_kernel_matches_plain(cuda, shape):
 def test_flash_backward_kernel_matches_plain(cuda, shape):
     q, k, v, kcode, qrow, do = _flash_inputs(*shape, seed=1)
     o, lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
-    before = fa.LAUNCHES["flash_attn_bwd"]
+    before = _build.LAUNCHES["flash_attn_bwd"]
     got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attn_bwd"] == before + 1
+    assert _build.LAUNCHES["flash_attn_bwd"] == before + 1
     want = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _assert_grad_close(a, b, name)
@@ -364,12 +368,12 @@ def _bf16(*tensors):
 def test_bf16_flash_forward_kernel_matches_plain(cuda, shape):
     q, k, v, kcode, qrow, _ = _flash_inputs(*shape)
     q, k, v = _bf16(q, k, v)
-    before = dict(fa.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attn_fwd_bf16"] == \
+    assert _build.LAUNCHES["flash_attn_fwd_bf16"] == \
         before["flash_attn_fwd_bf16"] + 1
-    assert fa.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
+    assert _build.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"]
     want_o, want_lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
     _assert_bf16_close(o, want_o, 1e-5, "O")
     torch.testing.assert_close(lse, want_lse, rtol=TOL, atol=TOL)
@@ -380,10 +384,10 @@ def test_bf16_flash_backward_kernel_matches_plain(cuda, shape):
     q, k, v, kcode, qrow, do = _flash_inputs(*shape, seed=1)
     q, k, v, do = _bf16(q, k, v, do)
     o, lse = fa.flash_attn_fwd_plain(q, k, v, kcode, qrow)
-    before = fa.LAUNCHES["flash_attn_bwd_bf16"]
+    before = _build.LAUNCHES["flash_attn_bwd_bf16"]
     got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attn_bwd_bf16"] == before + 1
+    assert _build.LAUNCHES["flash_attn_bwd_bf16"] == before + 1
     want = fa.flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     N = q.shape[2]
     blocks = -(-N // fa.block_q(N))
@@ -399,14 +403,14 @@ def test_bf16_flash_backward_kernel_matches_plain(cuda, shape):
 def test_bf16_flash_autograd_runs_both_kernels(cuda):
     q, k, v, kcode, qrow, do = _flash_inputs(4, 4, 201, 102, 8, True, True)
     leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
-    before = dict(fa.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     out = fa.flash_role_attention(*leaves, kcode, qrow)
     out.backward(do.to(torch.bfloat16))
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16
     assert all(t.grad.dtype == torch.bfloat16 for t in leaves)
     for name in ("flash_attn_fwd_bf16", "flash_attn_bwd_bf16"):
-        assert fa.LAUNCHES[name] == before[name] + 1, name
+        assert _build.LAUNCHES[name] == before[name] + 1, name
     again = [t.detach().clone().requires_grad_() for t in leaves]
     fa.flash_role_attention(*again, kcode, qrow).backward(
         do.to(torch.bfloat16))
@@ -428,11 +432,11 @@ def test_flash_autograd_runs_both_kernels(cuda):
     through the plain forward."""
     q, k, v, kcode, qrow, do = _flash_inputs(4, 4, 201, 102, 8, True, False)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = dict(fa.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     fa.flash_role_attention(*leaves, kcode, qrow).backward(do)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
-    assert fa.LAUNCHES["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
+    assert _build.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
+    assert _build.LAUNCHES["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.flash_attn_fwd_plain(*ref, kcode, qrow)[0].backward(do)
     for a, b in zip(leaves, ref):
@@ -458,10 +462,10 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_plan_kernel_matches_plain_bitwise(cuda, shape):
     _, _, _, kcode, qrow, _ = _flash_inputs(*shape)
-    before = fa.LAUNCHES["flash_plan"]
+    before = _build.LAUNCHES["flash_plan"]
     plan = fa.flash_plan(kcode, qrow)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_plan"] == before + 1
+    assert _build.LAUNCHES["flash_plan"] == before + 1
     for name, a, b in zip(fa.FlashPlan._fields, plan,
                           fa.flash_plan_plain(kcode, qrow)):
         assert torch.equal(a, b), name
@@ -472,11 +476,11 @@ def test_flash_kernels_take_a_given_plan(cuda):
     the same results as with the plan they build themselves."""
     q, k, v, kcode, qrow, do = _flash_inputs(16, 4, 201, 102, 8, True, True)
     plan = fa.flash_plan(kcode, qrow)
-    before = fa.LAUNCHES["flash_plan"]
+    before = _build.LAUNCHES["flash_plan"]
     o, lse = fa.flash_attn_fwd(q, k, v, kcode, qrow, plan)
     got = fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do, plan)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_plan"] == before
+    assert _build.LAUNCHES["flash_plan"] == before
     o2, lse2 = fa.flash_attn_fwd(q, k, v, kcode, qrow)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     for a, b in zip(got, fa.flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do)):
@@ -542,12 +546,11 @@ def _assert_lse_close(got, want, Th):
 def test_loc_eig_fold_kernel_matches_plain(cuda, case):
     B, Th, Lc, K, prior, n, filled = FOLD_CASES[case]
     task, state, x, y, thetas = _fold_inputs(B, Th, Lc, K, prior, filled)
-    consts = (task.base_signal, task.max_signal, task.noise_scale)
-    before = efk.LAUNCHES["loc_eig_fold"]
-    got = efk.loc_eig_fold(state, x, y, thetas, n, *consts)
+    before = _build.LAUNCHES["loc_eig_fold"]
+    got = task.fold_eig_chunk(state, x, y, thetas, n)
     torch.cuda.synchronize()
-    assert efk.LAUNCHES["loc_eig_fold"] == before + 1
-    want = efk.loc_eig_fold_plain(state, x, y, thetas, n, *consts)
+    assert _build.LAUNCHES["loc_eig_fold"] == before + 1
+    want = efk.eig_fold_plain(state, x, y, thetas, n, task.log_likelihood)
     _assert_lse_close(got, want, Th)
     if n == 0:
         # no valid draw: the state bit for bit
@@ -557,9 +560,8 @@ def test_loc_eig_fold_kernel_matches_plain(cuda, case):
 
 def test_loc_eig_fold_kernel_is_deterministic(cuda):
     task, state, x, y, thetas = _fold_inputs(200, 35, CELL_LC, filled=True)
-    consts = (task.base_signal, task.max_signal, task.noise_scale)
-    first = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, *consts)
-    second = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, *consts)
+    first = task.fold_eig_chunk(state, x, y, thetas, CELL_LAST)
+    second = task.fold_eig_chunk(state, x, y, thetas, CELL_LAST)
     assert torch.equal(first.max, second.max)       # no atomics: bitwise
     assert torch.equal(first.sumexp, second.sumexp)
 
@@ -573,11 +575,11 @@ def test_loc_bounds_launch_one_kernel_a_chunk(cuda):
     L = 1_000_000
     Lc = eig.chunk_size(L, 200, 35, 32_768)
     assert (Lc, L - (math.ceil(L / Lc) - 1) * Lc) == (CELL_LC, CELL_LAST)
-    before = efk.LAUNCHES["loc_eig_fold"]
+    before = _build.LAUNCHES["loc_eig_fold"]
     pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y[..., None],
                                             L, 7, stepwise=True)
     torch.cuda.synchronize()
-    assert efk.LAUNCHES["loc_eig_fold"] - before == 105 == math.ceil(L / Lc)
+    assert _build.LAUNCHES["loc_eig_fold"] - before == 105 == math.ceil(L / Lc)
     assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
     assert (nmc - pce >= math.log(L / (L + 1)) - 1e-5).all()
 
@@ -614,10 +616,9 @@ def test_loc_bounds_never_wait_for_the_host(cuda):
 
 def test_loc_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
     task, state, x, y, thetas = _fold_inputs(8, 5, 100)
-    consts = (task.base_signal, task.max_signal, task.noise_scale)
 
     def fold(state=state, x=x, y=y, thetas=thetas):
-        return efk.loc_eig_fold(state, x, y, thetas, 100, *consts)
+        return task.fold_eig_chunk(state, x, y, thetas, 100)
 
     with pytest.raises(TypeError):
         fold(thetas=thetas.double())
@@ -660,13 +661,16 @@ def _loc_fixed_inputs():
 
 def loc_fixed_digest():
     """SHA-256 of ``loc_eig_fold``'s result on ``_loc_fixed_inputs``."""
-    import hashlib
-    task = _loc_task()
     state, x, y, thetas = _loc_fixed_inputs()
-    got = efk.loc_eig_fold(state, x, y, thetas, CELL_LAST, task.base_signal,
-                           task.max_signal, task.noise_scale)
-    return hashlib.sha256(got.max.cpu().numpy().tobytes()
-                          + got.sumexp.cpu().numpy().tobytes()).hexdigest()
+    return _digest(_loc_task().fold_eig_chunk(state, x, y, thetas,
+                                              CELL_LAST))
+
+
+def _digest(state):
+    """SHA-256 of a fold's new max then sumexp, float32 bytes."""
+    import hashlib
+    return hashlib.sha256(state.max.cpu().numpy().tobytes()
+                          + state.sumexp.cpu().numpy().tobytes()).hexdigest()
 
 
 def test_loc_eig_fold_bits_unchanged_by_the_shared_reduction(cuda):
@@ -756,11 +760,11 @@ def test_ces_eig_fold_kernel_matches_plain(cuda, case):
     B, Th, Lc, ys, rho, log_u, n, filled = CES_CASES[case]
     task, state, x, y, thetas = _ces_fold_inputs(B, Th, Lc, ys, rho, log_u,
                                                  filled)
-    before = efk.LAUNCHES["ces_eig_fold"]
-    got = efk.ces_eig_fold(state, task, x, y, thetas, n)
+    before = _build.LAUNCHES["ces_eig_fold"]
+    got = task.fold_eig_chunk(state, x, y, thetas, n)
     torch.cuda.synchronize()
-    assert efk.LAUNCHES["ces_eig_fold"] == before + 1
-    want = efk.ces_eig_fold_plain(state, task, x, y, thetas, n)
+    assert _build.LAUNCHES["ces_eig_fold"] == before + 1
+    want = efk.eig_fold_plain(state, x, y, thetas, n, task.log_likelihood)
     _assert_ces_close(got, want, efk.ces_fold_tolerance(
         state, task, x, y, thetas, n))
     if n == 0:
@@ -771,8 +775,8 @@ def test_ces_eig_fold_kernel_matches_plain(cuda, case):
 def test_ces_eig_fold_kernel_is_deterministic(cuda):
     task, state, x, y, thetas = _ces_fold_inputs(100, 16, CES_LC,
                                                  filled=True)
-    first = efk.ces_eig_fold(state, task, x, y, thetas, CES_LAST)
-    second = efk.ces_eig_fold(state, task, x, y, thetas, CES_LAST)
+    first = task.fold_eig_chunk(state, x, y, thetas, CES_LAST)
+    second = task.fold_eig_chunk(state, x, y, thetas, CES_LAST)
     assert torch.equal(first.max, second.max)       # no atomics: bitwise
     assert torch.equal(first.sumexp, second.sumexp)
 
@@ -784,6 +788,51 @@ def _ces_history(B, Th, seed):
     return task, theta_0, x, y[..., None]
 
 
+# the kernel's bits on fixed inputs (``_ces_fixed_inputs``) as
+# ces_eig_fold.cu gave them on an H100 (CUDA 12.8), launched through its
+# own wrapper and through ``CESTask.fold_eig_chunk`` alike: SHA-256 of the
+# new max then sumexp, float32 bytes
+CES_FIXED_DIGEST = ("da9efd6b7db6a6e84bb6044c9ac579d6"
+                    "dd1aa566e69ccae920610d3e36ea79e7")
+
+
+def _ces_fixed_inputs():
+    """A state, x, y and draws of the CES cell's chunk shape drawn with
+    numpy (the same on every machine), on the card: a quarter of the
+    outcomes at each censoring limit, the rest inside."""
+    import numpy as np
+    rng = np.random.default_rng(2025)
+    B, Th, Lc = 100, 16, CES_LC
+    f32 = np.float32
+    task = _ces_task()
+    lo, hi = f32(task.epsilon), f32(1.0 - task.epsilon)
+    x = rng.uniform(0, 100, size=(B, Th, 6)).astype(f32)
+    y = rng.uniform(0.01, 0.99, size=(B, Th)).astype(f32)
+    at = rng.uniform(size=(B, Th))
+    y = np.where(at < 0.25, lo, np.where(at > 0.75, hi, y)).astype(f32)
+    thetas = np.concatenate(
+        [rng.uniform(0.01, 1.0, size=(Lc * B, 1)),
+         rng.dirichlet(np.ones(3), size=Lc * B),
+         rng.normal(1.0, 3.0, size=(Lc * B, 1))],
+        axis=-1).astype(f32).reshape(Lc, B, 5)
+    state = lse_update(lse_init((B, Th)), torch.from_numpy(
+        -60.0 * rng.uniform(size=(5, B, Th)).astype(f32)), axis=0)
+    cuda = [torch.from_numpy(a).cuda() for a in (x, y, thetas)]
+    return (LogSumExpState(state.max.cuda(), state.sumexp.cuda()),
+            *cuda)
+
+
+def ces_fixed_digest():
+    """SHA-256 of ``ces_eig_fold``'s result on ``_ces_fixed_inputs``."""
+    state, x, y, thetas = _ces_fixed_inputs()
+    return _digest(_ces_task().fold_eig_chunk(state, x, y, thetas,
+                                              CES_LAST))
+
+
+def test_ces_eig_fold_bits_unchanged(cuda):
+    assert ces_fixed_digest() == CES_FIXED_DIGEST
+
+
 def test_ces_bounds_launch_one_kernel_a_chunk(cuda, monkeypatch):
     """The CES cell's batch (B=100, Th=16, L=1e7): 306 chunks, one launch
     each, and nothing of the generic fold."""
@@ -791,17 +840,17 @@ def test_ces_bounds_launch_one_kernel_a_chunk(cuda, monkeypatch):
     L = 10_000_000
     Lc = eig.chunk_size(L, 100, 16, 32_768)
     assert (Lc, L - (math.ceil(L / Lc) - 1) * Lc) == (CES_LC, CES_LAST)
-    before = efk.LAUNCHES["ces_eig_fold"]
+    before = _build.LAUNCHES["ces_eig_fold"]
     generic = []
-    monkeypatch.setattr(eig, "_seq_cum_loglik",
-                        lambda *a: generic.append("loglik"))
-    monkeypatch.setattr(eig, "lse_update",
-                        lambda *a, **k: generic.append("lse"))
+    monkeypatch.setattr(Task, "fold_eig_chunk",
+                        lambda *a: generic.append("generic"))
+    monkeypatch.setattr(efk, "eig_fold_plain",
+                        lambda *a: generic.append("plain"))
     pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y, L, 7,
                                             stepwise=True)
     torch.cuda.synchronize()
     assert generic == []
-    assert efk.LAUNCHES["ces_eig_fold"] - before == CES_CHUNKS
+    assert _build.LAUNCHES["ces_eig_fold"] - before == CES_CHUNKS
     assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
     assert (nmc - pce >= math.log(L / (L + 1)) - 1e-5).all()
 
@@ -820,7 +869,11 @@ def test_ces_bounds_match_the_plain_fold_on_the_card(cuda, monkeypatch):
     task, theta_0, x, y = _ces_history(100, 16, 9)
     args = (task, theta_0, x, y, 1_000_000, 11)
     got = eig.compute_eig_from_history(*args, stepwise=True)
-    monkeypatch.setattr(eig, "ces_eig_fold", efk.ces_eig_fold_plain)
+
+    def plain(kernel, state, x_, y_, th, n, *, loglik, **kw):
+        return efk.eig_fold_plain(state, x_, y_, th, n, loglik)
+
+    monkeypatch.setattr(efk, "eig_fold", plain)
     want = eig.compute_eig_from_history(*args, stepwise=True)
     for g, w in zip(got, want):
         err = (g - w).abs()
@@ -861,8 +914,8 @@ def test_ces_bounds_never_wait_for_the_host(cuda):
 def test_ces_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
     task, state, x, y, thetas = _ces_fold_inputs(8, 5, 100)
 
-    def fold(state=state, task=task, x=x, y=y, thetas=thetas):
-        return efk.ces_eig_fold(state, task, x, y, thetas, 100)
+    def fold(state=state, x=x, y=y, thetas=thetas):
+        return task.fold_eig_chunk(state, x, y, thetas, 100)
 
     with pytest.raises(TypeError):
         fold(thetas=thetas.double())
@@ -878,5 +931,3 @@ def test_ces_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
         fold(x=x[..., :5].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         fold(thetas=thetas.transpose(0, 1).contiguous().transpose(0, 1))
-    with pytest.raises(ValueError, match="tail_mode"):
-        fold(task=_ces_task("reference"))

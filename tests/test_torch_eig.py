@@ -38,6 +38,7 @@ from aline_tpu_torch.parallel.collectives import (
     lse_value,
     streaming_logsumexp_combine,
 )
+from aline_tpu_torch.tasks.base import Task
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 
 torch.set_num_threads(1)
@@ -241,9 +242,13 @@ def test_refuses_other_dtypes():
         compute_eig_from_history(tt, theta_0, x.bfloat16(), y, 10, 0)
 
 
-class GaussTask:
-    """y = theta + noise, theta ~ N(0, 1), noise ~ N(0, s^2)."""
+class GaussTask(Task):
+    """y = theta + noise, theta ~ N(0, 1), noise ~ N(0, s^2); the base
+    task's generic EIG fold."""
     noise = 0.7
+
+    def __init__(self):
+        pass
 
     def sample_theta(self, gen, shape):
         return torch.randn(tuple(shape) + (1, 1), generator=gen,

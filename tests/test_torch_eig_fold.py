@@ -1,9 +1,11 @@
 """The fused EIG folds of location finding and CES
 (``ops/eig_fold_kernel.py``, ``csrc/loc_eig_fold.cu``,
-``csrc/ces_eig_fold.cu``) on the CPU.
+``csrc/ces_eig_fold.cu``) on the CPU, and the route from each task's
+``fold_eig_chunk`` to its fold.
 
 The kernels run only on the card (``tests/test_torch_cuda.py`` holds them
-to their plain versions there).  Here ``emulated_reduce`` repeats in
+to the plain fold there); here a fake library stands in for one to hold
+the launch's arguments.  Here ``emulated_reduce`` repeats in
 PyTorch the order in which they reduce a chunk (``csrc/eig_fold_reduce.cuh``):
 each thread's logsumexp over its draws at each step, the block's
 fixed-order combine over its threads (four slots a lane, then a
@@ -12,7 +14,7 @@ the layout (threads a block, draws a thread) is read from each kernel's
 source.  ``emulated_fold`` takes location finding's plain S;
 ``emulated_ces_fold`` computes CES's terms with the kernel's arithmetic
 and runs its float32 running sum.  The emulations are held to the plain
-folds and, through ``compute_eig_from_history``, to the JAX package's
+fold and, through ``compute_eig_from_history``, to the JAX package's
 bounds, as ``tests/test_torch_eig.py`` holds the plain fold.
 
 Tolerances.  Location finding's emulation takes the plain version's S, so
@@ -163,9 +165,8 @@ def test_emulated_order_matches_the_plain_fold(K, Th, prior, n_valid,
     task, _, x, y, thetas = _inputs(Th + K, B, Th, Lc, K, prior)
     n = Lc if n_valid == "all" else n_valid
     state = _state(B, Th, seed=5 if filled else None)
-    args = (x, y, thetas, n) + _fold_args(task)
-    got = emulated_fold(state, *args)
-    want = efk.loc_eig_fold_plain(state, *args)
+    got = emulated_fold(state, x, y, thetas, n, *_fold_args(task))
+    want = efk.eig_fold_plain(state, x, y, thetas, n, task.log_likelihood)
     assert torch.equal(got.max, want.max)
     np.testing.assert_allclose(got.sumexp.numpy(), want.sumexp.numpy(),
                                rtol=1e-5)
@@ -199,15 +200,16 @@ def test_emulated_bounds_match_jax(monkeypatch, stepwise, K):
                    thetas=jnp.asarray(thetas))
     calls = []
 
-    def recorded(*a):
-        calls.append(a[4])
-        return emulated_fold(*a)
+    def recorded(kernel, state, x_, y_, th, n, **kw):
+        calls.append((kernel, n))
+        return emulated_fold(state, x_, y_, th, n, *_fold_args(task))
 
-    monkeypatch.setattr(eig, "loc_eig_fold", recorded)
+    monkeypatch.setattr(efk, "eig_fold", recorded)
     got = eig.compute_eig_from_history(
         task, *(torch.from_numpy(a) for a in (theta_0, x, y)), L, seed=0,
         L_chunk=L_chunk, stepwise=stepwise, thetas=torch.from_numpy(thetas))
-    assert calls == [1100, 1100, 1100]     # the given thetas' chunks, whole
+    # the given thetas' chunks, whole
+    assert calls == [("loc_eig_fold", 1100)] * 3
     for g, w, name in zip(got, want, ("pce", "nmc")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL, err_msg=name)
@@ -225,62 +227,71 @@ def test_emulated_chunk_padding_adds_nothing():
     assert torch.equal(padded.sumexp, exact.sumexp)
 
 
-def test_the_plain_fold_is_the_generic_fold():
-    """``loc_eig_fold_plain`` computes what the generic fold of
-    ``eval/eig.py`` computes for location finding, bit for bit."""
-    task, _, x, y, thetas = _inputs(4, 3, 7, 50, K=2)
-    state = _state(3, 7, seed=2)
-    for n in (50, 20):
-        got = efk.loc_eig_fold_plain(state, x, y, thetas, n,
-                                     *_fold_args(task))
-        S = eig._seq_cum_loglik(task, x, y[..., None], thetas)
-        S[n:] = -torch.inf
-        want = lse_update(state, S, axis=0)
-        assert torch.equal(got.max, want.max)
-        assert torch.equal(got.sumexp, want.sumexp)
+def _drawn(task, B, Th, Lc, seed):
+    """Designs x [B, Th, D] (real space), outcomes y [B, Th] simulated
+    under each row's own theta, and Lc draws [Lc, B, ...] of the prior."""
+    g = torch.Generator().manual_seed(seed)
+    theta_0 = task.sample_theta(g, (B,))
+    x = task.unnormalise_design(task.sample_data(g, B, Th))
+    y = task.simulate(g, x, theta_0[:, None])[..., 0].contiguous()
+    return x, y, task.sample_theta(g, (Lc, B))
 
 
-def test_fold_dispatches_location_finding_to_its_kernel(monkeypatch):
-    """``_fold`` sends HiddenLocation to ``loc_eig_fold`` (y as [B, Th],
-    the task's constants), CES with ``log_ndtr`` tails to
-    ``ces_eig_fold`` (the task itself), and every other task, CES with
-    ``reference`` tails among them, to the generic fold."""
-    task, _, x, y, thetas = _inputs(6, 2, 3, 10)
+def _route_task(name):
+    if name.startswith("location_finding"):
+        return _task(K=2 if name.endswith("K=2") else 1)
+    if name.startswith("ces"):
+        return _ces_task(name.split()[-1])
+    return build_task(tcfg.parse_overrides(["task=psychometric"]).task)
+
+
+# every task with a likelihood → the fold kernel its chunks reach (None:
+# the generic fold), with the kernel's draw shape, design width and numbers
+ROUTES = {
+    "location_finding": lambda t: ("loc_eig_fold", (1, 2), 2, (
+        1, 2, t.base_signal, t.max_signal, t.noise_scale)),
+    "location_finding K=2": lambda t: ("loc_eig_fold", (2, 2), 2, (
+        2, 2, t.base_signal, t.max_signal, t.noise_scale)),
+    "ces log_ndtr": lambda t: ("ces_eig_fold", (5,), 6, (
+        t.noise_scale, t.epsilon, 1.0 - t.epsilon)),
+    "ces reference": lambda t: None,
+    "psychometric": lambda t: None,
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_each_task_routes_its_chunks_to_its_fold(monkeypatch, name):
+    """``_fold`` hands each chunk to the task's ``fold_eig_chunk``:
+    location finding and CES with log_ndtr tails reach the fold launcher
+    with their kernel and constants (y as [B, Th]); CES with the
+    reference's tails and psychometric take the generic fold.  Unpatched
+    on the CPU, every task's fold is the plain fold, bit for bit."""
+    task = _route_task(name)
+    x, y, thetas = _drawn(task, 2, 3, 10, seed=6)
+    state = _state(2, 3, seed=4)
+    want = efk.eig_fold_plain(state, x, y, thetas, 7, task.log_likelihood)
+    got = eig._fold(state, task, x, y[..., None], thetas, 7)
+    assert torch.equal(got.max, want.max)
+    assert torch.equal(got.sumexp, want.sumexp)
     seen = []
 
-    def fused(state, x_, y_, th, n, base, max_signal, noise):
-        seen.append(("fused", y_.shape, n, base, max_signal, noise))
-        return state
+    def recorded(kernel, state_, x_, y_, th, n, *, loglik, draw, width,
+                 numbers):
+        seen.append((kernel, tuple(draw), width, tuple(numbers)))
+        assert (y_.shape, th.shape, n) == ((2, 3), thetas.shape, 7)
+        assert loglik == task.log_likelihood
+        return state_
 
-    def ces_fused(state, task_, x_, y_, th, n):
-        seen.append(("ces", task_.tail_mode, y_.shape, th.shape, n))
-        return state
-
-    def generic(task_, *a):
-        seen.append(("generic", type(task_).__name__))
-        return torch.zeros(10, 2, 3)
-
-    monkeypatch.setattr(eig, "loc_eig_fold", fused)
-    monkeypatch.setattr(eig, "ces_eig_fold", ces_fused)
-    monkeypatch.setattr(eig, "_seq_cum_loglik", generic)
-    state = lse_init((2, 3))
-    eig._fold(state, task, x, y[..., None], thetas, 10)
-    ces, ces_x, ces_y, ces_th = _ces_case(2, 3, 10)
-    eig._fold(state, ces, ces_x, ces_y[..., None], ces_th, 7)
-    ref = _ces_task("reference")
-    eig._fold(state, ref, ces_x, ces_y[..., None], ces_th, 10)
-    psych = build_task(tcfg.parse_overrides(["task=psychometric"]).task)
-    eig._fold(state, psych, x, y[..., None], thetas, 10)
-    assert seen == [("fused", (2, 3), 10, task.base_signal, task.max_signal,
-                     task.noise_scale),
-                    ("ces", "log_ndtr", (2, 3), (10, 2, 5), 7),
-                    ("generic", "CESTask"), ("generic", "PsychometricTask")]
+    monkeypatch.setattr(efk, "eig_fold", recorded)
+    eig._fold(state, task, x, y[..., None], thetas, 7)
+    route = ROUTES[name](task)
+    assert seen == ([] if route is None else [route])
 
 
 def test_cpu_bounds_launch_no_kernel():
     task, theta_0, x, y, _ = _inputs(7, 2, 3, 1)
-    for name in efk.LAUNCHES:
-        efk.LAUNCHES[name] = 0
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
     pce, nmc = eig.compute_eig_from_history(task, theta_0, x, y[..., None],
                                             500, 3, L_chunk=128)
     assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
@@ -289,38 +300,7 @@ def test_cpu_bounds_launch_no_kernel():
     pce, nmc = eig.compute_eig_from_history(ces, theta_0, x, y[..., None],
                                             500, 3, L_chunk=128)
     assert torch.isfinite(pce).all() and torch.isfinite(nmc).all()
-    assert efk.LAUNCHES == {"loc_eig_fold": 0, "ces_eig_fold": 0}
-
-
-@pytest.mark.parametrize("case", ["float64", "bfloat16", "y_shape",
-                                  "theta_rows", "theta_width", "state_shape",
-                                  "x_rank", "device"])
-def test_wrapper_refuses_what_it_does_not_take(case):
-    task, _, x, y, thetas = _inputs(8, 2, 3, 10)
-    state = _state(2, 3)
-    args = dict(state=state, x=x, y=y, thetas=thetas)
-    if case in ("float64", "bfloat16"):
-        args["thetas"] = thetas.to(getattr(torch, case))
-        err = TypeError
-    else:
-        err = ValueError
-        if case == "y_shape":
-            args["y"] = y[..., None]
-        elif case == "theta_rows":
-            args["thetas"] = thetas[:, :1]
-        elif case == "theta_width":
-            args["thetas"] = thetas[..., :1]
-        elif case == "state_shape":
-            args["state"] = lse_init((2, 4))
-        elif case == "x_rank":
-            args["x"] = x[0]
-        elif case == "device":
-            args = {k: (LogSumExpState(*(t.to("meta") for t in v))
-                        if k == "state" else v.to("meta"))
-                    for k, v in args.items()}
-    with pytest.raises(err):
-        efk.loc_eig_fold(args["state"], args["x"], args["y"], args["thetas"],
-                         10, *_fold_args(task))
+    assert set(_build.LAUNCHES.values()) == {0}
 
 
 def test_kernel_layout_is_what_the_emulation_assumes():
@@ -462,7 +442,7 @@ def test_ces_emulated_kernel_matches_the_plain_fold(case, filled):
                                    log_u=log_u)
     state = _state(B, Th, seed=3 if filled else None)
     got = emulated_ces_fold(state, task, x, y, thetas, n)
-    want = efk.ces_eig_fold_plain(state, task, x, y, thetas, n)
+    want = efk.eig_fold_plain(state, x, y, thetas, n, task.log_likelihood)
     tol = efk.ces_fold_tolerance(state, task, x, y, thetas, n)
     assert torch.isfinite(tol).all()
     _assert_within(got, want, tol)
@@ -490,29 +470,10 @@ def test_ces_cases_cover_the_kernels_branches_and_tiles():
     assert CES_THREADS % 32 == 0 and CES_DRAWS >= 1
 
 
-def test_ces_plain_fold_is_the_generic_fold():
-    """``ces_eig_fold_plain`` computes what the generic fold of
-    ``eval/eig.py`` computes for CES, bit for bit."""
-    task, x, y, thetas = _ces_case(3, 7, 50, seed=2)
-    state = _state(3, 7, seed=2)
-    for n in (50, 20):
-        got = efk.ces_eig_fold_plain(state, task, x, y, thetas, n)
-        S = eig._seq_cum_loglik(task, x, y[..., None], thetas)
-        S[n:] = -torch.inf
-        want = lse_update(state, S, axis=0)
-        assert torch.equal(got.max, want.max)
-        assert torch.equal(got.sumexp, want.sumexp)
-        # on the CPU the wrapper is the plain version
-        again = efk.ces_eig_fold(state, task, x, y, thetas, n)
-        assert torch.equal(again.max, want.max)
-        assert torch.equal(again.sumexp, want.sumexp)
-
-
-@pytest.mark.parametrize("fold", ["emulated", "plain"])
 @pytest.mark.parametrize("stepwise", [False, True])
-def test_ces_bounds_match_jax(monkeypatch, stepwise, fold):
-    """The bounds on given thetas with the emulated kernel (or the plain
-    fold) in the fold's place, against the JAX package's, within
+def test_ces_bounds_match_jax(monkeypatch, stepwise):
+    """The bounds on given thetas with the emulated kernel in the fold's
+    place, against the JAX package's, within
     ``tests/test_torch_ces.py``'s 1e-4 abs and rel: chunks of 600 draws
     (two blocks), the last 300 long, rho over the whole prior."""
     B, Th, L, L_chunk = 3, 6, 1500, 600
@@ -537,18 +498,17 @@ def test_ces_bounds_match_jax(monkeypatch, stepwise, fold):
                    thetas=jnp.asarray(thetas))
     calls = []
 
-    def recorded(state, task_, x_, y_, th, n):
-        calls.append(n)
-        run = emulated_ces_fold if fold == "emulated" else \
-            efk.ces_eig_fold_plain
-        return run(state, task_, x_, y_, th, n)
+    def recorded(kernel, state, x_, y_, th, n, **kw):
+        calls.append((kernel, n))
+        return emulated_ces_fold(state, task, x_, y_, th, n)
 
-    monkeypatch.setattr(eig, "ces_eig_fold", recorded)
+    monkeypatch.setattr(efk, "eig_fold", recorded)
     got = eig.compute_eig_from_history(
         task, *(torch.from_numpy(a.copy()) for a in (theta_0, x, y)), L,
         seed=0, L_chunk=L_chunk, stepwise=stepwise,
         thetas=torch.from_numpy(thetas))
-    assert calls == [600, 600, 600]        # the given thetas' chunks, whole
+    # the given thetas' chunks, whole
+    assert calls == [("ces_eig_fold", 600)] * 3
     for g, w, name in zip(got, want, ("pce", "nmc")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL, err_msg=name)
@@ -565,35 +525,35 @@ def test_ces_emulated_chunk_padding_adds_nothing():
 
 @pytest.mark.parametrize("case", ["float64", "bfloat16", "y_shape",
                                   "theta_rows", "theta_width", "x_width",
-                                  "state_shape", "x_rank", "device",
-                                  "reference_tails", "other_task"])
-def test_ces_wrapper_refuses_what_it_does_not_take(case):
-    task, x, y, thetas = _ces_case(2, 3, 10)
-    args = dict(state=_state(2, 3), task=task, x=x, y=y, thetas=thetas)
+                                  "state_shape", "x_rank", "device"])
+@pytest.mark.parametrize("fold", ["loc", "ces"])
+def test_fold_refuses_what_it_does_not_take(fold, case):
+    """What the fold launcher refuses, reached through each kernel task's
+    ``fold_eig_chunk``."""
+    task = _task() if fold == "loc" else _ces_task()
+    x, y, thetas = _drawn(task, 2, 3, 10, seed=8)
+    args = dict(state=_state(2, 3), x=x, y=y, thetas=thetas)
     err = ValueError
     if case in ("float64", "bfloat16"):
-        args["x"] = x.to(getattr(torch, case))
+        on = "thetas" if fold == "loc" else "x"
+        args[on] = args[on].to(getattr(torch, case))
         err = TypeError
     elif case == "y_shape":
         args["y"] = y[..., None]
     elif case == "theta_rows":
         args["thetas"] = thetas[:, :1]
     elif case == "theta_width":
-        args["thetas"] = thetas[..., :4]
+        args["thetas"] = thetas[..., :-1]
     elif case == "x_width":
-        args["x"] = x[..., :5]
+        args["x"] = x[..., :-1]
     elif case == "state_shape":
         args["state"] = lse_init((2, 4))
     elif case == "x_rank":
         args["x"] = x[0]
     elif case == "device":
         args = {k: (LogSumExpState(*(t.to("meta") for t in v))
-                    if k == "state" else v if k == "task" else v.to("meta"))
+                    if k == "state" else v.to("meta"))
                 for k, v in args.items()}
-    elif case == "reference_tails":
-        args["task"] = _ces_task("reference")
-    elif case == "other_task":
-        args["task"] = _task()
     with pytest.raises(err):
-        efk.ces_eig_fold(args["state"], args["task"], args["x"], args["y"],
-                         args["thetas"], 10)
+        task.fold_eig_chunk(args["state"], args["x"], args["y"],
+                            args["thetas"], 10)

@@ -14,6 +14,7 @@ import torch
 from aline_tpu.models.heads import GMMTargetHead as JaxGMMTargetHead
 from aline_tpu.ops.gmm_head_kernel import fused_gmm_head
 from aline_tpu_torch.models.heads import GMMTargetHead
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import gmm_head_kernel as ghk
 
 torch.set_num_threads(1)
@@ -38,9 +39,9 @@ def _inputs(seed, B, T, D, F, C):
 def test_plain_matches_jax_fused_kernel(B, T, D, F, C):
     arrays = _inputs(B * T, B, T, D, F, C)
     want = fused_gmm_head(*map(jnp.asarray, arrays), True)
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     got = ghk.gmm_head_fwd(*map(torch.from_numpy, arrays))
-    assert ghk.LAUNCHES == before          # CPU tensors launch no kernel
+    assert _build.LAUNCHES == before          # CPU tensors launch no kernel
     assert got.shape == (B, T, C, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=TOL, atol=TOL)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from aline_tpu.ops.gmm_head_kernel import fused_gmm_head
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import gmm_head_kernel as ghk
 
 torch.set_num_threads(1)
@@ -44,12 +45,12 @@ def test_backward_matches_jax_interpret(T, D):
     want = _jax_grads(arrays, g)
     # the plain backward, as the wrapper runs it for CPU tensors
     z, w1, b1, w2, b2 = map(torch.from_numpy, arrays)
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     plain = ghk.gmm_head_bwd(z, w1, b1, w2, torch.from_numpy(g))
     # the autograd entry: forward and backward through the wrappers
     leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
     (ghk.gmm_head(*leaves) * torch.from_numpy(g)).sum().backward()
-    assert ghk.LAUNCHES == before          # CPU tensors launch no kernel
+    assert _build.LAUNCHES == before          # CPU tensors launch no kernel
     for name, a, p, w in zip(NAMES, [t.grad for t in leaves], plain, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=TOL,
                                    atol=TOL, err_msg=f"autograd {name}")

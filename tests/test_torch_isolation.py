@@ -56,3 +56,21 @@ def test_forbidden_rule_names_the_package_exactly():
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert not _forbidden("aline_tpu_torch.ops.roles")
     assert not _forbidden("torch")
+
+
+def _below_the_tasks():
+    """The kernel layer and the bounds: each task hands its EIG fold to
+    them (``Task.fold_eig_chunk``), so none of them names a task."""
+    ops = os.path.join(ROOT, "aline_tpu_torch", "ops")
+    return sorted([os.path.join(ops, n) for n in os.listdir(ops)
+                   if n.endswith(".py")]
+                  + [os.path.join(ROOT, "aline_tpu_torch", "eval", "eig.py")])
+
+
+@pytest.mark.parametrize("path", _below_the_tasks(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_kernels_and_bounds_import_no_task(path):
+    bad = sorted(m for m in _imported_modules(path)
+                 if m == "aline_tpu_torch.tasks"
+                 or m.startswith("aline_tpu_torch.tasks."))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"

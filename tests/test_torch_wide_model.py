@@ -38,7 +38,7 @@ from aline_tpu_torch.config import (WIDE128_RECIPE, config_from_dict,
                                     parse_overrides, to_dict)
 from aline_tpu_torch.eval.al_curves import al_rollout_curves
 from aline_tpu_torch.models.aline import build_model
-from aline_tpu_torch.ops import gmm_head_kernel as ghk
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.tasks.base import batch_from_numpy
 from aline_tpu_torch.train import optimizer as topt
 from aline_tpu_torch.train.loop import train_step
@@ -113,9 +113,9 @@ def test_wide_al_rollout_matches_jax():
     assert model.head.target_head.heads_w1.shape == (10, 256, 1024)
     T = 4
     want = jax_curves(jmodel, params, jbatch, T, jax.random.key(1))
-    before = dict(ghk.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     got = al_rollout_curves(model, batch_from_numpy(jbatch), T)
-    assert ghk.LAUNCHES == before           # CPU tensors launch no kernel
+    assert _build.LAUNCHES == before        # CPU tensors launch no kernel
     np.testing.assert_array_equal(got["idx"].numpy(), np.asarray(want["idx"]))
     for key in ("log_prob", "rmse"):
         _close(got[key], want[key], key)
