@@ -7,19 +7,47 @@ record the per-step targeted log-likelihood and RMSE:
 * ``aline``       — the model's own policy (greedy argmax),
 * ``random``      — uniform choice among the remaining pool points,
 * ``uncertainty`` — argmax of the GMM predictive variance over the pool.
+
+**On the card, one CUDA graph a rollout.**  Every tensor of a rollout
+keeps its shape at every step (the context buffer is ``init_ctx_idx``'s,
+of fixed capacity; only the values of ``ctx_mask`` and ``ctx_idx``
+change), and no step reads a device value on the host, so the T steps and
+the final forward are captured once as one graph and replayed.  A
+rollout of a strategy that draws no random numbers (``GRAPHED``) on CUDA
+tensors takes the graph of its key (``graph_key``): the first call with a
+key copies the inputs into static buffers, runs the rollout eagerly on a
+side stream (that pass warms up every lazy state and is the call's
+result) and captures it; a later call copies its inputs into the buffers,
+replays the graph and returns clones of the graph's outputs, which the
+next replay overwrites.  Graph and eager rollouts launch the same kernels
+in the same order on the same inputs: their results are the same bits.
+The graphs of one model are kept at a time, while it lives: a capture
+for another model drops them, since their pool keeps the memory of their
+largest rollout.  All graphs of a model draw their memory from that one
+pool; a replay's outputs are cloned before any other graph runs, which is
+what makes the sharing safe (one thread at a time).  CPU tensors, and the
+``random`` strategy, run the steps eagerly.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import itertools
+import weakref
 from typing import Dict, Optional
 
 import torch
 
 from aline_tpu_torch.distributions.gmm import gmm_log_prob, gmm_variance
 from aline_tpu_torch.eval.metrics import compute_rmse
+from aline_tpu_torch.ops import _build
 from aline_tpu_torch.tasks.base import Batch, init_ctx_idx, select_design
-from aline_tpu_torch.utils.metrics import span
+from aline_tpu_torch.utils.metrics import count, span
 
 STRATEGIES = ("aline", "random", "uncertainty")
+# ``random`` draws from the caller's generator, whose state a replay would
+# have to advance as the eager steps do: it stays eager.
+GRAPHED = ("aline", "uncertainty")
 
 
 @torch.no_grad()
@@ -36,7 +64,8 @@ def al_rollout_curves(model, batch: Batch, T: int,
     the batch's target_mask normalised.  ``time_token``: step t feeds the
     time scalar (T - t)/T to the model, the eval direction of
     ``aline_tpu`` (training counts up, t/T); the final forward keeps the
-    last step's.
+    last step's.  On CUDA tensors a ``GRAPHED`` strategy replays a CUDA
+    graph of the rollout (the module's docstring).
 
     Returns ``log_prob`` [B, T+1] and ``rmse`` [B, T+1] (step 0 = before
     any acquisition) and ``idx`` [B, T].
@@ -44,68 +73,197 @@ def al_rollout_curves(model, batch: Batch, T: int,
     with span("al.rollout"):
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}")
-        # The eval mask is fixed for the whole rollout: the compact attention
-        # path may drop the target key columns it never shows.
-        sel_targets = tuple(int(i) for i in
-                            torch.nonzero(batch.target_mask)[:, 0].tolist())
-        if len(sel_targets) == batch.n_target:
-            sel_targets = None
-        n_ctx0 = int(batch.ctx_mask[0].sum())
-        b = init_ctx_idx(batch, min(n_ctx0 + T, batch.n_points))
-        target_vals = b.target_all[..., 0]
-        if target_weights is None:
-            m = b.target_mask.float()
-            target_weights = m / torch.clamp(m.sum(), min=1.0)
+        args = (T, strategy, time_token, *fixed_by_batch(batch))
+        if batch.x.is_cuda and strategy in GRAPHED:
+            return _graphed(model, batch, target_weights, args)
+        return _rollout(model, batch, target_weights, generator, *args)
 
-        def posterior_metrics(out):
-            po = out.posterior_out
-            ll = gmm_log_prob(target_vals, po.mixture_means, po.mixture_stds,
-                              po.mixture_weights)
-            lp = torch.sum(ll * target_weights[None], dim=-1)
-            rmse = compute_rmse(target_vals, po.mixture_means, po.mixture_stds,
-                                po.mixture_weights,
-                                target_weights=target_weights)
-            return lp, rmse
 
-        def choose(out, b):
-            pool = b.query_mask
-            if strategy == "aline":
-                return out.design_out.idx
-            if strategy == "random":
-                return torch.multinomial(pool.float(), 1,
-                                         generator=generator)[:, 0]
-            pq = out.posterior_out_query
-            var = gmm_variance(pq.mixture_means, pq.mixture_stds,
-                               pq.mixture_weights)                 # [B, P]
-            return torch.argmax(torch.where(
-                pool, var, torch.full((), -torch.inf, device=var.device)),
-                dim=-1)
+def fixed_by_batch(batch: Batch) -> tuple:
+    """(sel_targets, n_ctx0): what a rollout fixes from the batch's values
+    before its first step, by two host reads.  The eval mask is fixed for
+    the whole rollout, so the compact attention path may drop the target
+    key columns it never shows: ``sel_targets`` are the mask's selected
+    targets (None for all of them); ``n_ctx0`` is the initial context
+    size."""
+    sel_targets = tuple(int(i) for i in
+                        torch.nonzero(batch.target_mask)[:, 0].tolist())
+    if len(sel_targets) == batch.n_target:
+        sel_targets = None
+    return sel_targets, int(batch.ctx_mask[0].sum())
 
-        lps, rmses, idxs = [], [], []
-        for t in range(T):
-            if time_token:
-                b = b.replace(t=(T - torch.full((), t, dtype=torch.float32,
-                                                device=b.t.device)) / T)
-            out = model(b, training=False, sel_targets=sel_targets)
-            with span("al.choose"):
-                lp, rmse = posterior_metrics(out)
-                idx = choose(out, b)
-            with span("al.select"):
-                b, _, _ = select_design(b, idx)
-            lps.append(lp)
-            rmses.append(rmse)
-            idxs.append(idx)
+
+def _rollout(model, batch: Batch, target_weights, generator, T, strategy,
+             time_token, sel_targets, n_ctx0) -> Dict[str, torch.Tensor]:
+    """The rollout's steps, eagerly, with ``fixed_by_batch``'s values."""
+    b = init_ctx_idx(batch, min(n_ctx0 + T, batch.n_points))
+    target_vals = b.target_all[..., 0]
+    if target_weights is None:
+        m = b.target_mask.float()
+        target_weights = m / torch.clamp(m.sum(), min=1.0)
+
+    def posterior_metrics(out):
+        po = out.posterior_out
+        ll = gmm_log_prob(target_vals, po.mixture_means, po.mixture_stds,
+                          po.mixture_weights)
+        lp = torch.sum(ll * target_weights[None], dim=-1)
+        rmse = compute_rmse(target_vals, po.mixture_means, po.mixture_stds,
+                            po.mixture_weights,
+                            target_weights=target_weights)
+        return lp, rmse
+
+    def choose(out, b):
+        pool = b.query_mask
+        if strategy == "aline":
+            return out.design_out.idx
+        if strategy == "random":
+            return torch.multinomial(pool.float(), 1,
+                                     generator=generator)[:, 0]
+        pq = out.posterior_out_query
+        var = gmm_variance(pq.mixture_means, pq.mixture_stds,
+                           pq.mixture_weights)                 # [B, P]
+        return torch.argmax(torch.where(
+            pool, var, torch.full((), -torch.inf, device=var.device)),
+            dim=-1)
+
+    lps, rmses, idxs = [], [], []
+    for t in range(T):
+        if time_token:
+            b = b.replace(t=(T - torch.full((), t, dtype=torch.float32,
+                                            device=b.t.device)) / T)
         out = model(b, training=False, sel_targets=sel_targets)
         with span("al.choose"):
             lp, rmse = posterior_metrics(out)
-        B = batch.batch_size
-        return {
-            "log_prob": torch.stack(lps + [lp], dim=1),
-            "rmse": torch.stack(rmses + [rmse], dim=1),
-            "idx": (torch.stack(idxs, dim=1) if idxs else
-                    torch.zeros(B, 0, dtype=torch.int64,
-                                device=batch.x.device)),
-        }
+            idx = choose(out, b)
+        with span("al.select"):
+            b, _, _ = select_design(b, idx)
+        lps.append(lp)
+        rmses.append(rmse)
+        idxs.append(idx)
+    out = model(b, training=False, sel_targets=sel_targets)
+    with span("al.choose"):
+        lp, rmse = posterior_metrics(out)
+    B = batch.batch_size
+    return {
+        "log_prob": torch.stack(lps + [lp], dim=1),
+        "rmse": torch.stack(rmses + [rmse], dim=1),
+        "idx": (torch.stack(idxs, dim=1) if idxs else
+                torch.zeros(B, 0, dtype=torch.int64,
+                            device=batch.x.device)),
+    }
+
+
+def _inputs(batch: Batch, target_weights) -> Dict[str, torch.Tensor]:
+    """The rollout's tensor inputs by name: the batch's tensor fields and
+    the caller's target weights."""
+    named = {f.name: getattr(batch, f.name)
+             for f in dataclasses.fields(batch)}
+    named["target_weights"] = target_weights
+    return {n: t for n, t in named.items() if isinstance(t, torch.Tensor)}
+
+
+def graph_key(model, batch: Batch, target_weights, T: int, strategy: str,
+              time_token: bool, sel_targets, n_ctx0: int) -> tuple:
+    """What a captured rollout of ``model`` depends on besides the values
+    of its inputs: the strategy, T, the time token, the selected targets
+    and the initial context size; the shape, dtype and device of every
+    tensor field of the batch (and of the target weights) and its integer
+    fields; the addresses of the model's parameters and buffers, which the
+    graph reads, so that a model whose tensors were replaced is captured
+    anew.  (The model itself keys the cache the key is looked up in.)"""
+    def form(v):
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape), v.dtype, v.device
+        return v
+    fields = tuple((f.name, form(getattr(batch, f.name)))
+                   for f in dataclasses.fields(batch))
+    tensors = itertools.chain(model.parameters(), model.buffers())
+    return (strategy, T, time_token, sel_targets, n_ctx0, fields,
+            form(target_weights), tuple(t.data_ptr() for t in tensors))
+
+
+class _RolloutGraph:
+    """One rollout captured as a CUDA graph: static copies of its inputs,
+    the graph, its static outputs, and the kernel launches (``_build``'s
+    ``LAUNCHES``) that a replay runs."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor]):
+        self.inputs = {n: t.clone(memory_format=torch.contiguous_format)
+                       for n, t in inputs.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs: Dict[str, torch.Tensor] = {}
+        self.launches: Dict[str, int] = {}
+
+    def capture(self, run, stream, pool) -> Dict[str, torch.Tensor]:
+        """Run ``run(static inputs)`` eagerly on ``stream``, then capture
+        it there into ``pool``; return the eager pass's outputs."""
+        here = torch.cuda.current_stream()
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            first = run(self.inputs)
+        here.wait_stream(stream)
+        for t in first.values():          # used on this stream from here on
+            t.record_stream(here)
+        before = dict(_build.LAUNCHES)
+        # ``torch.cuda.graph`` empties the allocator's cache first: no block
+        # the eager pass left cached can be freed while the capture runs
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            self.outputs = run(self.inputs)
+        # a capture records the launches without running them
+        self.launches = {k: n - before[k]
+                         for k, n in _build.LAUNCHES.items()
+                         if n != before[k]}
+        _build.LAUNCHES.update(before)
+        return first
+
+    def replay(self, inputs: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        for n, t in inputs.items():
+            self.inputs[n].copy_(t)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            _build.LAUNCHES[k] += n
+        return {n: t.clone() for n, t in self.outputs.items()}
+
+
+# model → (its graphs' memory pool, {graph_key: _RolloutGraph}), for one
+# model at a time; a pool dies with its graphs, and its id is never used
+# again
+_graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream that runs the eager passes and the captures on
+    ``device`` (one, so that the graphs can share their pool)."""
+    return torch.cuda.Stream(device)
+
+
+def _graphed(model, batch: Batch, target_weights, args):
+    """The rollout through the graph of its key: replayed, or captured
+    on the key's first call."""
+    key = graph_key(model, batch, target_weights, *args)
+    if model not in _graphs:
+        _graphs.clear()
+        _graphs[model] = (torch.cuda.graph_pool_handle(), {})
+    pool, graphs = _graphs[model]
+    inputs = _inputs(batch, target_weights)
+    g = graphs.get(key)
+    if g is not None:
+        count("al.graph_replays", 1)
+        return g.replay(inputs)
+
+    def run(static):
+        tw = static.get("target_weights")
+        b = batch.replace(**{n: t for n, t in static.items()
+                             if n != "target_weights"})
+        return _rollout(model, b, tw, None, *args)
+
+    g = _RolloutGraph(inputs)
+    first = g.capture(run, _side_stream(batch.x.device), pool)
+    graphs[key] = g
+    count("al.graph_captures", 1)
+    return first
 
 
 def compare_strategies(model, batch: Batch, T: int,

@@ -51,6 +51,22 @@ def context_indices(ctx_mask: torch.Tensor, capacity: int,
     return idx, valid
 
 
+def take_static(a: torch.Tensor, idx: Tuple[int, ...],
+                dim: int) -> torch.Tensor:
+    """``a`` at the static indices ``idx`` (ascending) along ``dim``, as
+    slices of their runs of consecutive indices: no index tensor is made
+    from the host's list, a copy that a CUDA graph cannot capture.  One
+    run (every mask the entry points use) is a view."""
+    runs = []
+    for i in idx:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    parts = [a.narrow(dim, lo, hi - lo) for lo, hi in runs or [[0, 0]]]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
 def dense_bias_attention(q, k, v, bias):
     """q/k/v: [B, H, N, dh]; bias: [B, 1, N, N]."""
     dh = q.shape[-1]
@@ -78,9 +94,9 @@ def compact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v_ext = v[:, :, tgt_start:]
     ext_cols = roles.k_is_sel[:, tgt_start:]                  # [B, Nt]
     if compact.ext_idx is not None:
-        sel = list(compact.ext_idx)
-        k_ext, v_ext = k_ext[:, :, sel], v_ext[:, :, sel]
-        ext_cols = ext_cols[:, sel]
+        k_ext, v_ext, ext_cols = (
+            take_static(a, compact.ext_idx, dim)
+            for a, dim in ((k_ext, 2), (v_ext, 2), (ext_cols, 1)))
     if t_off:                         # the time column leads the extra keys
         k_ext = torch.cat([k[:, :, :1], k_ext], dim=2)
         v_ext = torch.cat([v[:, :, :1], v_ext], dim=2)

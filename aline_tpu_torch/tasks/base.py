@@ -5,7 +5,7 @@ The batch keeps one fixed ``[B, n_points, ...]`` buffer of candidate
 points for the whole rollout and flips a per-point context flag:
 ``ctx_mask[b, i]`` is True once point i is context (its y revealed), and
 False while it is still in the query pool.  Selecting a design is one
-index-put into ``ctx_mask``.
+scatter into ``ctx_mask``.
 """
 from __future__ import annotations
 
@@ -117,8 +117,9 @@ def select_design(batch: Batch, idx: torch.Tensor
     Returns (updated batch, chosen x [B, dim_x], chosen y [B, dim_y]).
     """
     b = torch.arange(batch.batch_size, device=idx.device)
-    new_ctx = batch.ctx_mask.clone()
-    new_ctx[b, idx] = True
+    # a scatter of the scalar: ``ctx_mask[b, idx] = True`` would copy a
+    # host scalar to the device, with a sync, which no CUDA graph captures
+    new_ctx = batch.ctx_mask.scatter(1, idx[:, None], True)
     new_ctx_idx = batch.ctx_idx
     if new_ctx_idx is not None:
         count = batch.ctx_mask.sum(dim=1)

@@ -349,9 +349,22 @@ loader of HPO-B; no kernel lies on their paths:
              meta-train files the native arrays bit for bit the json
              path's; both timed.
 
+Phase 25 runs the AL rollout as one CUDA graph:
+
+25. graph   — ``al_rollout_curves`` on al1d_200k (bf16) through its CUDA
+             graph against its eager steps (``al_curves._rollout``), at
+             the live experiment's shape (B=1, n_query=200, T=30, aline)
+             and at the eval's (B=100, n_query=2000, T=30, aline): a
+             rollout's host-clock ms to its curves on the host (median of
+             GRAPH_REPS batches), eager and replayed; the capture's one-off
+             cost (the key's first call, whose eager pass is its result,
+             less an eager call); the device operations a
+             ``torch.profiler`` trace of one eager rollout and of one
+             replay shows; each replay's curves bitwise the eager ones.
+
 ``--only bed train_loc ces psych hpo train_tasks bench cont dad trend gp
-demo demo_train hpob dp mesh seq`` runs phase 1 and the named ones of 8-24
-alone (bed: 8 and 8b; train_loc: 9; seq: 21 and 21b; no kernels line);
+demo demo_train hpob graph dp mesh seq`` runs phase 1 and the named ones of
+8-25 alone (bed: 8 and 8b; train_loc: 9; seq: 21 and 21b; no kernels line);
 ``--only kernels`` runs phases 1-3e and prints the kernels line, its
 launches null (no main path ran); ``--only fold`` runs 3e alone and
 prints its row; ``--only wide`` runs phase wide and prints its rows of
@@ -4273,6 +4286,98 @@ SEQ_RANKS = 3                  # 2001 = 3 x 667 pool tokens
 SEQ_F32_ROWS = 8
 
 
+# Phase 25: the live cell's experiment and the eval cell's batch (one
+# strategy), each on GRAPH_REPS batches of its shape
+GRAPH_CASES = {"live": (1, 200), "eval": (BATCH, N_QUERY)}
+GRAPH_REPS = 5
+
+
+def device_ops(fn):
+    """(the device operations, kernels, copies and fills, that a
+    ``torch.profiler`` trace of ``fn()`` shows; the union of their
+    intervals, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import busy_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(dev), busy_us(dev) / 1e3
+
+
+def phase_graph(smi):
+    """25: the AL rollout through its CUDA graph against its eager steps
+    (the docstring's phase 25): {case: record}."""
+    from aline_tpu_torch.eval import al_curves
+    from aline_tpu_torch.tasks import build_task
+    from aline_tpu_torch.utils.serialization import (
+        AL1D_200K_PARAMS, load_model)
+
+    cfg, model = load_model(RUN_DIR, AL1D_200K_PARAMS, "cuda")
+    task = build_task(cfg.task)
+    rec = {}
+    for case, (B, n_query) in GRAPH_CASES.items():
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        batches = [task.sample_batch(gen, B, n_query=n_query)
+                   for _ in range(GRAPH_REPS + 1)]
+
+        def eager(b):
+            with torch.no_grad():
+                return al_curves._rollout(model, b, None, None, T_STEPS,
+                                          "aline", cfg.time_token,
+                                          *al_curves.fixed_by_batch(b))
+
+        def graphed(b):
+            return al_curves.al_rollout_curves(model, b, T_STEPS,
+                                               time_token=cfg.time_token)
+
+        def host_ms(fn, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = {k: v.cpu() for k, v in fn(b).items()}
+            return 1e3 * (time.perf_counter() - t0), out
+
+        eager(batches[0])                       # warm: kernels built
+        torch.cuda.reset_peak_memory_stats()
+        eager_runs = [host_ms(eager, b) for b in batches[1:]]
+        eager_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first_ms, _ = host_ms(graphed, batches[0])
+        capture_peak = torch.cuda.max_memory_allocated()
+        graph_runs = [host_ms(graphed, b) for b in batches[1:]]
+        for (_, want), (_, got) in zip(eager_runs, graph_runs):
+            for k in want:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"graph {case}: {k} differs from "
+                                         f"the eager rollout's")
+        eager_med = statistics.median(t for t, _ in eager_runs)
+        graph_med = statistics.median(t for t, _ in graph_runs)
+        n_eager, busy_eager = device_ops(lambda: eager(batches[1]))
+        n_graph, busy_graph = device_ops(lambda: graphed(batches[1]))
+        rec[case] = dict(
+            B=B, n_query=n_query, T=T_STEPS, strategy="aline",
+            eager_ms=[t for t, _ in eager_runs],
+            graph_ms=[t for t, _ in graph_runs], eager_ms_median=eager_med,
+            graph_ms_median=graph_med, first_call_ms=first_ms,
+            capture_ms=first_ms - eager_med, device_ops_eager=n_eager,
+            device_ops_replay=n_graph, device_busy_ms_eager=busy_eager,
+            device_busy_ms_replay=busy_graph, peak_bytes_eager=eager_peak,
+            peak_bytes_capture=capture_peak)
+        log("graph", f"{case} B={B} n_query={n_query} T={T_STEPS} aline: "
+            f"eager {eager_med:.2f} ms, graph {graph_med:.2f} ms (median "
+            f"of {GRAPH_REPS}, host clock, curves on the host), capture "
+            f"{first_ms - eager_med:.1f} ms once; profiler: {n_eager} "
+            f"device ops eager ({busy_eager:.2f} ms busy), {n_graph} in "
+            f"one replay ({busy_graph:.2f} ms busy); peak "
+            f"{eager_peak / 1e9:.2f} GB eager, {capture_peak / 1e9:.2f} GB "
+            f"with the capture; replays bitwise eager ({smi})")
+    return rec
+
+
 def _rank_phases(rank, world, phases, inputs):
     """One rank's part of ``phases``: {phase: record}."""
     res = {}
@@ -4962,7 +5067,7 @@ def dist_phases(smi, only):
 
 
 NEW_PHASES = ("ces", "psych", "hpo", "train_tasks", "gp", "bench", "cont",
-              "dad", "trend", "demo", "demo_train", "hpob")
+              "dad", "trend", "demo", "demo_train", "hpob", "graph")
 DIST_PHASES = ("dp", "mesh", "seq")
 LOC_PHASES = ("bed", "train_loc")
 
@@ -4974,7 +5079,7 @@ def parse_args(argv=None):
     ap.add_argument("--only", nargs="+",
                     choices=("kernels", "fold", "wide", "wide_kernels")
                     + LOC_PHASES + NEW_PHASES + DIST_PHASES,
-                    help="run only these of phases 8-24 (after phase 1) "
+                    help="run only these of phases 8-25 (after phase 1) "
                          "and print no kernels line; kernels: phases 2-3e "
                          "and the kernels line; fold: phase 3e and its "
                          "row of it")
@@ -4984,7 +5089,7 @@ def parse_args(argv=None):
 
 
 def new_phases(smi, only, ces_M, gp_B):
-    """Phases 10-18 and 22-24 (those named in ``only``), phase 14 with
+    """Phases 10-18 and 22-25 (those named in ``only``), phase 14 with
     ``gp_B`` problems: {name: record}."""
     rec = {}
     if "ces" in only:
@@ -5012,6 +5117,8 @@ def new_phases(smi, only, ces_M, gp_B):
         rec["demo_train"] = timed("demo_train", phase_demo_train, smi)
     if "hpob" in only:
         rec["hpob"] = timed("hpob", phase_hpob, smi)
+    if "graph" in only:
+        rec["graph"] = timed("graph", phase_graph, smi)
     return rec
 
 

@@ -45,13 +45,13 @@ multiplies the rounding of the weighted sum by up to 100, so a fixed
 number of ulps holds at rho = 1 and not at rho = 0.01.
 """
 import math
-
+from pathlib import Path
 
 import pytest
 import torch
 
 from aline_tpu_torch import config as tcfg
-from aline_tpu_torch.eval import eig
+from aline_tpu_torch.eval import al_curves, eig
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import eig_fold_kernel as efk
 from aline_tpu_torch.ops import flash_attention as fa
@@ -63,9 +63,12 @@ from aline_tpu_torch.parallel.collectives import (
     lse_update,
     lse_value,
 )
+from aline_tpu_torch.tasks import build_task
 from aline_tpu_torch.tasks.base import Task
 from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
+from aline_tpu_torch.utils import metrics
+from aline_tpu_torch.utils.serialization import AL1D_200K_PARAMS, load_model
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -931,3 +934,130 @@ def test_ces_eig_fold_kernel_rejects_what_it_does_not_take(cuda):
         fold(x=x[..., :5].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         fold(thetas=thetas.transpose(0, 1).contiguous().transpose(0, 1))
+
+
+# -- the AL rollout as one CUDA graph (eval/al_curves.py) --------------------
+
+# the live experiment's shape, and a pool of 1,101 tokens whose posterior
+# runs the GMM kernel (bfloat16 takes it from FUSED_MIN_TOKENS = 1024)
+ROLLOUT_SHAPES = {"live": (1, 200, 30), "pool": (4, 1100, 10)}
+
+
+def _flagship():
+    run_dir = Path(__file__).resolve().parents[1] / "checkpoints" \
+        / "al1d_200k"
+    return load_model(run_dir, AL1D_200K_PARAMS, "cuda")
+
+
+def _gp_batch(cfg, B, n_query, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return build_task(cfg.task).sample_batch(g, B, n_query=n_query)
+
+
+def _eager(model, batch, T, strategy):
+    """The rollout's steps run eagerly on the card (the graph's
+    reference): ``al_rollout_curves`` without its graph."""
+    with torch.no_grad():
+        return al_curves._rollout(model, batch, None, None, T, strategy,
+                                  False, *al_curves.fixed_by_batch(batch))
+
+
+def _counted(model, batch, T, strategy, generator=None):
+    """``al_rollout_curves``' result, with the graphs it captured and
+    replayed (the ``al.rollout`` span's counters)."""
+    metrics.set_tracing(True)
+    try:
+        out = al_curves.al_rollout_curves(model, batch, T, generator,
+                                          strategy=strategy)
+        spans = [s for s in metrics.collect() if s.name == "al.rollout"]
+    finally:
+        metrics.set_tracing(False)
+        metrics.collect()
+    return (out, sum(s.counts.get("al.graph_captures", 0) for s in spans),
+            sum(s.counts.get("al.graph_replays", 0) for s in spans))
+
+
+def _same_bits(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("shape", list(ROLLOUT_SHAPES))
+@pytest.mark.parametrize("strategy", ["aline", "uncertainty"])
+def test_graphed_rollout_equals_eager_bitwise(cuda, shape, strategy):
+    B, n_query, T = ROLLOUT_SHAPES[shape]
+    cfg, model = _flagship()
+    first, second = (_gp_batch(cfg, B, n_query, seed) for seed in (1, 2))
+    gmm_before = _build.LAUNCHES["gmm_head_fwd"]
+    got1, captures, replays = _counted(model, first, T, strategy)
+    assert (captures, replays) == (1, 0)
+    got2, captures, replays = _counted(model, second, T, strategy)
+    assert (captures, replays) == (0, 1)
+    # the pool's posterior through the GMM kernel at every forward, in the
+    # capturing call's eager pass and in the replay alike
+    per_rollout = (T + 1) * (shape == "pool")
+    assert _build.LAUNCHES["gmm_head_fwd"] - gmm_before == 2 * per_rollout
+    want1 = _eager(model, first, T, strategy)
+    want2 = _eager(model, second, T, strategy)
+    _same_bits(got1, want1)
+    _same_bits(got2, want2)
+    assert not torch.equal(got1["log_prob"], got2["log_prob"])
+
+
+def test_graphed_rollout_captures_per_key(cuda):
+    cfg, model = _flagship()
+    live = _gp_batch(cfg, 1, 200, 1)
+    calls = [(live, 30, "aline"), (live, 30, "uncertainty"),
+             (live, 29, "aline"), (_gp_batch(cfg, 2, 200, 1), 30, "aline"),
+             (_gp_batch(cfg, 1, 201, 1), 30, "aline"),
+             (live.replace(target_mask=torch.arange(102, device="cuda")
+                           < 100), 30, "aline")]
+    for batch, T, strategy in calls:
+        _, captures, replays = _counted(model, batch, T, strategy)
+        assert (captures, replays) == (1, 0), (T, strategy)
+    for batch, T, strategy in calls:
+        got, captures, replays = _counted(model, batch, T, strategy)
+        assert (captures, replays) == (0, 1), (T, strategy)
+        _same_bits(got, _eager(model, batch, T, strategy))
+
+
+def test_random_rollout_never_captures(cuda):
+    cfg, model = _flagship()
+    batch = _gp_batch(cfg, 2, 200, 1)
+    outs = []
+    for _ in range(2):
+        g = torch.Generator(device="cuda").manual_seed(5)
+        out, captures, replays = _counted(model, batch, 30, "random", g)
+        assert (captures, replays) == (0, 0)
+        outs.append(out)
+    _same_bits(outs[0], outs[1])
+    assert not al_curves._graphs.get(model)
+
+
+def test_graphed_rollout_outputs_do_not_alias(cuda):
+    cfg, model = _flagship()
+    batches = [_gp_batch(cfg, 1, 200, seed) for seed in (1, 2, 3)]
+    outs = [al_curves.al_rollout_curves(model, b, 30) for b in batches]
+    kept = [{k: v.clone() for k, v in o.items()} for o in outs]
+    al_curves.al_rollout_curves(model, batches[0], 30)
+    ptrs = [v.data_ptr() for o in outs for v in o.values()]
+    assert len(set(ptrs)) == len(ptrs)
+    for o, k in zip(outs, kept):
+        _same_bits(o, k)
+    assert not torch.equal(kept[1]["log_prob"], kept[2]["log_prob"])
+
+
+def test_rollout_graphs_kept_for_one_model_at_a_time(cuda):
+    cfg, first = _flagship()
+    _, second = _flagship()
+    batch = _gp_batch(cfg, 1, 200, 1)
+    al_curves.al_rollout_curves(first, batch, 30)
+    assert list(al_curves._graphs) == [first]
+    got, captures, replays = _counted(second, batch, 30, "aline")
+    assert (captures, replays) == (1, 0)
+    assert list(al_curves._graphs) == [second]
+    _same_bits(got, _eager(second, batch, 30, "aline"))
+    _, captures, replays = _counted(first, batch, 30, "aline")
+    assert (captures, replays) == (1, 0)
