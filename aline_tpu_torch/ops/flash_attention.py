@@ -57,6 +57,18 @@ off, and the scale stays 1/√dh of the true dh.
 
 On a CUDA tensor a wrapper launches its kernel or raises; there is no
 other path.
+
+Counters.  With the program's tracing on (``utils/metrics.py``),
+``flash_plan``, ``flash_attn_fwd`` and ``flash_attn_bwd`` each count one
+``flash.plan``, ``flash.fwd`` or ``flash.bwd`` a launch (a plain call on
+the CPU) in the span open around the call: ``model.forward`` under a
+training step's ``rollout.step``, the same under ``train.backward`` for
+the forwards that the rollout's checkpoint recomputes.  Autograd runs a
+CUDA backward on its own device thread, where no span is open when
+``flash_attn_bwd`` runs; ``count`` then adds to the span entered last
+that is still open on another thread, ``train.backward``.  Off, a count
+is one flag check.  The spans are not timed per call: two CUDA events
+would outweigh a 0.03 ms kernel.
 """
 from __future__ import annotations
 
@@ -68,6 +80,7 @@ import torch.nn.functional as F
 
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.utils.debug import check_kernel_outputs
+from aline_tpu_torch.utils.metrics import count
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -146,6 +159,7 @@ def flash_plan(kcode, qrow) -> FlashPlan:
     codes are checked here, once per plan: the kernel wrappers that walk
     it check only its shape and device."""
     _check_codes(kcode, qrow)
+    count("flash.plan", 1)
     dev = kcode.device
     if dev.type == "cpu" or kcode.numel() == 0:
         return flash_plan_plain(kcode, qrow)
@@ -312,6 +326,7 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     _check(q, k=k, v=v)
     if not _kernel_device(q):
         _check_codes(kcode, qrow, q)
+        count("flash.fwd", 1)
         with torch.no_grad():
             return flash_attn_fwd_plain(q, k, v, kcode, qrow)
     B, H, N, dh = q.shape
@@ -325,6 +340,7 @@ def flash_attn_fwd(q, k, v, kcode, qrow, plan: Optional[FlashPlan] = None):
     _build.launch("flash_attn_fwd", (q, k, v, *plan, o, lse), B, H, N,
                   padded_len(N) - N, width, 1.0 / math.sqrt(dh),
                   entry=_entry("flash_attn_fwd", q), aligned=True)
+    count("flash.fwd", 1)
     check_kernel_outputs(_entry("flash_attn_fwd", q), o, lse)
     return (o if width == dh else o[..., :dh].contiguous()), lse
 
@@ -339,6 +355,7 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
     _check(q, k=k, v=v, o=o, lse=lse, do=do)
     if not _kernel_device(q):
         _check_codes(kcode, qrow, q)
+        count("flash.bwd", 1)
         with torch.no_grad():
             return flash_attn_bwd_plain(q, k, v, kcode, qrow, o, lse, do)
     B, H, N, dh = q.shape
@@ -353,6 +370,7 @@ def flash_attn_bwd(q, k, v, kcode, qrow, o, lse, do,
                                      dv, delta), B, H, N, width,
                   1.0 / math.sqrt(dh), entry=_entry("flash_attn_bwd", q),
                   aligned=True)
+    count("flash.bwd", 1)
     check_kernel_outputs(_entry("flash_attn_bwd", q), dq, dk, dv)
     if width == dh:
         return dq, dk, dv

@@ -15,8 +15,10 @@ CUDA graph is being captured, spans do nothing.
 
 **Counters.** ``count(name, n)`` adds the host integer ``n`` to
 ``counts[name]`` of the innermost open span (``eig.terms``: the
-contrastive terms a chunk folds).  Off, it is the same flag check as a
-span; it never reads a device value.
+contrastive terms a chunk folds; ``flash.plan``, ``flash.fwd``,
+``flash.bwd``: the flash-attention launches), on another thread the
+span a span begun there would take as parent.  Off, it is the same flag
+check as a span; it never reads a device value.
 
 **Phases.** The trainer times its "sample" and "step" phases with
 ``PhaseTimer``, whose totals are host time: the time to queue a phase's
@@ -63,6 +65,13 @@ def _stack() -> List["Span"]:
     return st
 
 
+def _innermost() -> Optional["Span"]:
+    """The innermost span open on this thread or, where none is, the span
+    entered last that is still open on another thread."""
+    stack = _stack()
+    return stack[-1] if stack else (_open[-1] if _open else None)
+
+
 class Span:
     """One traced block: ``name``, ``id``, ``parent`` (the ``id`` of the
     innermost span open where it began, or None), host ``start_ns`` and
@@ -88,8 +97,7 @@ class Span:
         self._rf = None
 
     def __enter__(self) -> "Span":
-        stack = _stack()
-        up = stack[-1] if stack else (_open[-1] if _open else None)
+        up = _innermost()
         self.parent = None if up is None else up.id
         self._rf = torch.profiler.record_function("aline/" + self.name)
         self._rf.__enter__()
@@ -97,7 +105,7 @@ class Span:
             self._ev = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
             self._ev[0].record()
-        stack.append(self)
+        _stack().append(self)
         _open.append(self)
         self.start_ns = time.perf_counter_ns()
         return self
@@ -132,14 +140,16 @@ def span(name: str):
 
 
 def count(name: str, n: int) -> None:
-    """Add the host integer ``n`` to ``counts[name]`` of the innermost
-    span open on this thread (nothing where none is open)."""
+    """Add the host integer ``n`` to ``counts[name]`` of the span that a
+    span begun here would take as parent: a kernel that autograd's
+    device thread launches in a backward pass is counted in the span
+    open where ``backward`` was called (nothing where no span is open
+    at all)."""
     if not _on:
         return
-    stack = _stack()
-    if stack:
-        c = stack[-1].counts
-        c[name] = c.get(name, 0) + n
+    up = _innermost()
+    if up is not None:
+        up.counts[name] = up.counts.get(name, 0) + n
 
 
 def collect() -> List[Span]:
