@@ -30,9 +30,6 @@ what makes the sharing safe (one thread at a time).  CPU tensors, and the
 """
 from __future__ import annotations
 
-import dataclasses
-import functools
-import itertools
 import weakref
 from typing import Dict, Optional
 
@@ -40,8 +37,16 @@ import torch
 
 from aline_tpu_torch.distributions.gmm import gmm_log_prob, gmm_variance
 from aline_tpu_torch.eval.metrics import compute_rmse
-from aline_tpu_torch.ops import _build
 from aline_tpu_torch.tasks.base import Batch, init_ctx_idx, select_design
+from aline_tpu_torch.utils.graphs import (
+    Counted,
+    addresses,
+    batch_form,
+    counted_apart,
+    form,
+    side_stream,
+    tensor_inputs,
+)
 from aline_tpu_torch.utils.metrics import count, span
 
 STRATEGIES = ("aline", "random", "uncertainty")
@@ -153,15 +158,6 @@ def _rollout(model, batch: Batch, target_weights, generator, T, strategy,
     }
 
 
-def _inputs(batch: Batch, target_weights) -> Dict[str, torch.Tensor]:
-    """The rollout's tensor inputs by name: the batch's tensor fields and
-    the caller's target weights."""
-    named = {f.name: getattr(batch, f.name)
-             for f in dataclasses.fields(batch)}
-    named["target_weights"] = target_weights
-    return {n: t for n, t in named.items() if isinstance(t, torch.Tensor)}
-
-
 def graph_key(model, batch: Batch, target_weights, T: int, strategy: str,
               time_token: bool, sel_targets, n_ctx0: int) -> tuple:
     """What a captured rollout of ``model`` depends on besides the values
@@ -171,28 +167,21 @@ def graph_key(model, batch: Batch, target_weights, T: int, strategy: str,
     fields; the addresses of the model's parameters and buffers, which the
     graph reads, so that a model whose tensors were replaced is captured
     anew.  (The model itself keys the cache the key is looked up in.)"""
-    def form(v):
-        if isinstance(v, torch.Tensor):
-            return tuple(v.shape), v.dtype, v.device
-        return v
-    fields = tuple((f.name, form(getattr(batch, f.name)))
-                   for f in dataclasses.fields(batch))
-    tensors = itertools.chain(model.parameters(), model.buffers())
-    return (strategy, T, time_token, sel_targets, n_ctx0, fields,
-            form(target_weights), tuple(t.data_ptr() for t in tensors))
+    return (strategy, T, time_token, sel_targets, n_ctx0, batch_form(batch),
+            form(target_weights), addresses(model))
 
 
 class _RolloutGraph:
     """One rollout captured as a CUDA graph: static copies of its inputs,
-    the graph, its static outputs, and the kernel launches (``_build``'s
-    ``LAUNCHES``) that a replay runs."""
+    the graph, its static outputs, and the kernel launches and counts
+    (``utils/graphs.py`` ``Counted``) that a replay runs."""
 
     def __init__(self, inputs: Dict[str, torch.Tensor]):
         self.inputs = {n: t.clone(memory_format=torch.contiguous_format)
                        for n, t in inputs.items()}
         self.graph = torch.cuda.CUDAGraph()
         self.outputs: Dict[str, torch.Tensor] = {}
-        self.launches: Dict[str, int] = {}
+        self.counted = Counted()
 
     def capture(self, run, stream, pool) -> Dict[str, torch.Tensor]:
         """Run ``run(static inputs)`` eagerly on ``stream``, then capture
@@ -204,16 +193,11 @@ class _RolloutGraph:
         here.wait_stream(stream)
         for t in first.values():          # used on this stream from here on
             t.record_stream(here)
-        before = dict(_build.LAUNCHES)
         # ``torch.cuda.graph`` empties the allocator's cache first: no block
         # the eager pass left cached can be freed while the capture runs
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with counted_apart() as self.counted, \
+                torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.outputs = run(self.inputs)
-        # a capture records the launches without running them
-        self.launches = {k: n - before[k]
-                         for k, n in _build.LAUNCHES.items()
-                         if n != before[k]}
-        _build.LAUNCHES.update(before)
         return first
 
     def replay(self, inputs: Dict[str, torch.Tensor]
@@ -221,8 +205,7 @@ class _RolloutGraph:
         for n, t in inputs.items():
             self.inputs[n].copy_(t)
         self.graph.replay()
-        for k, n in self.launches.items():
-            _build.LAUNCHES[k] += n
+        self.counted.add()
         return {n: t.clone() for n, t in self.outputs.items()}
 
 
@@ -230,13 +213,6 @@ class _RolloutGraph:
 # model at a time; a pool dies with its graphs, and its id is never used
 # again
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-@functools.cache
-def _side_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream that runs the eager passes and the captures on
-    ``device`` (one, so that the graphs can share their pool)."""
-    return torch.cuda.Stream(device)
 
 
 def _graphed(model, batch: Batch, target_weights, args):
@@ -247,7 +223,7 @@ def _graphed(model, batch: Batch, target_weights, args):
         _graphs.clear()
         _graphs[model] = (torch.cuda.graph_pool_handle(), {})
     pool, graphs = _graphs[model]
-    inputs = _inputs(batch, target_weights)
+    inputs = tensor_inputs(batch, target_weights=target_weights)
     g = graphs.get(key)
     if g is not None:
         count("al.graph_replays", 1)
@@ -260,7 +236,7 @@ def _graphed(model, batch: Batch, target_weights, args):
         return _rollout(model, b, tw, None, *args)
 
     g = _RolloutGraph(inputs)
-    first = g.capture(run, _side_stream(batch.x.device), pool)
+    first = g.capture(run, side_stream(batch.x.device), pool)
     graphs[key] = g
     count("al.graph_captures", 1)
     return first

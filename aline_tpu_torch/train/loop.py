@@ -5,10 +5,14 @@ epoch, logging and checkpoints.  The model computes in the run's dtype
 float32, as in ``aline_tpu``.
 
 JAX compiles the whole step into one program per (phase, T, mask
-variant); here each step runs eagerly, so no step cache is kept.  The
-host streams follow JAX's order, so that a seed gives JAX's sequence of
-(phase, T, mask): ``T`` is drawn from the host ``random.Random`` first,
-then the mask.  The simulated tasks' batches and the design noise come
+variant).  Here, on the card, the rollout's forward and backward are
+CUDA graphs, one pair per such key, captured on the key's second epoch
+and replayed from then on (``train/graph.py``, the name ``rollout``
+below); the loss, the data axis's all-reduce, the clip and AdamW run
+eagerly.  On the CPU and under ``debug_nans`` every step runs eagerly.
+The host streams follow JAX's order, so that a seed gives JAX's sequence
+of (phase, T, mask): ``T`` is drawn from the host ``random.Random``
+first, then the mask.  The simulated tasks' batches and the design noise come
 from a ``torch.Generator`` on the run's device, whose draws differ from
 JAX's; the HPO task's batches from the host numpy ``Generator`` of the
 seed, as JAX's do, so they are JAX's bit for bit.
@@ -62,7 +66,7 @@ from aline_tpu_torch.train.optimizer import (
     clip_by_inf_norm,
     phase_for_epoch,
 )
-from aline_tpu_torch.train.rollout import rollout
+from aline_tpu_torch.train.graph import rollout
 from aline_tpu_torch.utils.debug import guard_active, nan_guard
 from aline_tpu_torch.utils.device import resolve_device
 from aline_tpu_torch.utils.logging import create_logger

@@ -18,7 +18,10 @@ Stochastic designs come from Gumbel noise drawn before the rollout and
 passed into each step.  ``torch.utils.checkpoint`` restores the global RNG
 when it recomputes a step, but not an explicit ``torch.Generator``: a
 draw inside the step would give the recomputed step another design, and
-its ``log_prob`` would silently belong to another point.
+its ``log_prob`` would silently belong to another point.  So the step
+draws nothing, and while a CUDA graph captures it (``train/graph.py``,
+the trainer's path on the card) the checkpoint does not save the RNG
+state either, which a capture may not read.
 """
 from __future__ import annotations
 
@@ -93,6 +96,10 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
             None keeps every target column.  Exact either way.
     """
     ckpt_kw = _checkpoint_kwargs(remat_policy)
+    if batch.x.is_cuda and torch.cuda.is_current_stream_capturing():
+        # a capture may not read the CUDA generator's state; the step
+        # draws nothing, so there is nothing to restore (``train/graph.py``)
+        ckpt_kw["preserve_rng_state"] = False
     target_vals = batch.target_all[..., 0]                   # [B, n_target]
     training = gumbel is not None
 

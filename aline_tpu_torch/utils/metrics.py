@@ -18,7 +18,9 @@ CUDA graph is being captured, spans do nothing.
 contrastive terms a chunk folds; ``flash.plan``, ``flash.fwd``,
 ``flash.bwd``: the flash-attention launches), on another thread the
 span a span begun there would take as parent.  Off, it is the same flag
-check as a span; it never reads a device value.
+check as a span; it never reads a device value.  While a CUDA graph is
+captured the counts go to ``recorded_counts``' record, which each
+replay adds.
 
 **Phases.** The trainer times its "sample" and "step" phases with
 ``PhaseTimer``, whose totals are host time: the time to queue a phase's
@@ -49,6 +51,7 @@ _ids = itertools.count()
 _done: List["Span"] = []     # closed since the last collect()
 _open: List["Span"] = []     # open on any thread, in the order entered
 _local = threading.local()   # this thread's stack of open spans
+_recording: Optional[Dict[str, int]] = None   # recorded_counts' record
 
 
 def set_tracing(on: bool) -> None:
@@ -144,12 +147,29 @@ def count(name: str, n: int) -> None:
     span begun here would take as parent: a kernel that autograd's
     device thread launches in a backward pass is counted in the span
     open where ``backward`` was called (nothing where no span is open
-    at all)."""
+    at all).  Inside ``recorded_counts`` it adds to that block's record
+    instead, whether tracing is on or off."""
+    if _recording is not None:
+        _recording[name] = _recording.get(name, 0) + n
+        return
     if not _on:
         return
     up = _innermost()
     if up is not None:
         up.counts[name] = up.counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """Record the block's ``count`` calls, on any thread, in the yielded
+    dict {name: sum} and in no span: what a CUDA graph's capture counts,
+    for each replay to add (``utils/graphs.py``)."""
+    global _recording
+    outer, _recording = _recording, {}
+    try:
+        yield _recording
+    finally:
+        _recording = outer
 
 
 def collect() -> List[Span]:

@@ -361,6 +361,16 @@ Phase 25 runs the AL rollout as one CUDA graph:
              less an eager call); the device operations a
              ``torch.profiler`` trace of one eager rollout and of one
              replay shows; each replay's curves bitwise the eager ones.
+             Then the training rollout's graphs (``train/graph.py``) at
+             the training cells' shape (B=200, n_query=200, T=30, the data
+             mask) under ``compact`` and ``flash``: two trainers from one
+             state, one eager (``train/rollout.py`` in ``loop.rollout``),
+             one through the graphs, TRAIN_GRAPH_EPOCHS epochs each; an
+             epoch's host-clock ms to its loss on the host (median of the
+             epochs after the first), the first graphed epoch's (eager
+             epoch and capture), the device operations of one eager and one
+             replayed epoch, peak memory, and the losses, gradients and
+             parameters of every epoch bitwise the eager ones.
 
 ``--only bed train_loc ces psych hpo train_tasks bench cont dad trend gp
 demo demo_train hpob graph dp mesh seq`` runs phase 1 and the named ones of
@@ -4290,6 +4300,10 @@ SEQ_F32_ROWS = 8
 # strategy), each on GRAPH_REPS batches of its shape
 GRAPH_CASES = {"live": (1, 200), "eval": (BATCH, N_QUERY)}
 GRAPH_REPS = 5
+# and the training cells' epoch: B, n_query, under each attention core
+TRAIN_GRAPH_CASES = {"train": "compact", "train_flash": "flash"}
+TRAIN_GRAPH_SHAPE = (200, 200)
+TRAIN_GRAPH_EPOCHS = 6
 
 
 def device_ops(fn):
@@ -4375,7 +4389,87 @@ def phase_graph(smi):
             f"one replay ({busy_graph:.2f} ms busy); peak "
             f"{eager_peak / 1e9:.2f} GB eager, {capture_peak / 1e9:.2f} GB "
             f"with the capture; replays bitwise eager ({smi})")
+    for case, attention in TRAIN_GRAPH_CASES.items():
+        rec[case] = _train_graph_case(smi, case, attention)
     return rec
+
+
+def _train_graph_case(smi, case, attention):
+    """Phase 25's training half for one attention core: {record}."""
+    import logging
+
+    from aline_tpu_torch.config import config_from_dict, load_config, to_dict
+    from aline_tpu_torch.train import loop
+    from aline_tpu_torch.train import rollout as eager_rollout
+    B, n_query = TRAIN_GRAPH_SHAPE
+    d = to_dict(load_config(str(RUN_DIR)))
+    d.update(batch_size=B, T=T_STEPS, min_T=T_STEPS, burning_epoch=0,
+             max_epoch=1000, checkpoint=0, load_checkpoint=False,
+             verbose=1000, output_dir=tempfile.mkdtemp(prefix="smoke_tg_"))
+    d["task"] = dict(d["task"], n_query_init=n_query, attend_to="data")
+    d["encoder"] = dict(d["encoder"], attention_impl=attention)
+    cfg = config_from_dict(d)
+    orig = loop.rollout
+    runs = {}
+    for side, fn in (("eager", eager_rollout.rollout), ("graph", orig)):
+        loop.rollout = fn
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr = loop.Trainer(cfg, logger=logging.getLogger("chip_smoke"),
+                              device="cuda")
+            ms, states = [], []
+            for e in range(TRAIN_GRAPH_EPOCHS):
+                t0 = time.perf_counter()
+                m = tr.train_epoch(e)
+                float(m["loss"])
+                ms.append(1e3 * (time.perf_counter() - t0))
+                states.append((
+                    {k: torch.as_tensor(v).cpu() for k, v in m.items()},
+                    {k: (p.grad.cpu(), p.detach().cpu())
+                     for k, p in tr.model.named_parameters()}))
+            n_ops, busy = device_ops(
+                lambda: float(tr.train_epoch(TRAIN_GRAPH_EPOCHS)["loss"]))
+            runs[side] = dict(ms=ms, states=states, ops=n_ops, busy=busy,
+                              peak=torch.cuda.max_memory_allocated())
+            del tr
+        finally:
+            loop.rollout = orig
+    for e, (got, want) in enumerate(zip(runs["graph"]["states"],
+                                        runs["eager"]["states"])):
+        for k in want[0]:
+            if not torch.equal(got[0][k], want[0][k]):
+                raise AssertionError(f"graph {case}: epoch {e} {k} differs "
+                                     f"from the eager epoch's")
+        for k, (g, p) in want[1].items():
+            if not (torch.equal(got[1][k][0], g)
+                    and torch.equal(got[1][k][1], p)):
+                raise AssertionError(f"graph {case}: epoch {e} {k}'s "
+                                     f"gradient or value differs")
+    eager_med = statistics.median(runs["eager"]["ms"][1:])
+    graph_med = statistics.median(runs["graph"]["ms"][1:])
+    out = dict(
+        B=B, n_query=n_query, T=T_STEPS, attention=attention, mask="data",
+        eager_ms=runs["eager"]["ms"], graph_ms=runs["graph"]["ms"],
+        eager_ms_median=eager_med, graph_ms_median=graph_med,
+        first_graph_epoch_ms=runs["graph"]["ms"][0],
+        device_ops_eager=runs["eager"]["ops"],
+        device_ops_replay=runs["graph"]["ops"],
+        device_busy_ms_eager=runs["eager"]["busy"],
+        device_busy_ms_replay=runs["graph"]["busy"],
+        peak_bytes_eager=runs["eager"]["peak"],
+        peak_bytes_graph=runs["graph"]["peak"])
+    log("graph", f"{case} B={B} n_query={n_query} T={T_STEPS} {attention}: "
+        f"epoch eager {eager_med:.1f} ms, graph {graph_med:.1f} ms (median "
+        f"of {TRAIN_GRAPH_EPOCHS - 1}, host clock to the loss), first "
+        f"graphed epoch {runs['graph']['ms'][0]:.1f} ms (eager + capture); "
+        f"profiler: {runs['eager']['ops']} device ops an eager epoch "
+        f"({runs['eager']['busy']:.1f} ms busy), {runs['graph']['ops']} a "
+        f"replayed one ({runs['graph']['busy']:.1f} ms busy); peak "
+        f"{runs['eager']['peak'] / 1e9:.2f} GB eager, "
+        f"{runs['graph']['peak'] / 1e9:.2f} GB graphed; every epoch's "
+        f"losses, gradients and parameters bitwise eager ({smi})")
+    return out
 
 
 def _rank_phases(rank, world, phases, inputs):

@@ -1061,3 +1061,137 @@ def test_rollout_graphs_kept_for_one_model_at_a_time(cuda):
     _same_bits(got, _eager(second, batch, 30, "aline"))
     _, captures, replays = _counted(first, batch, 30, "aline")
     assert (captures, replays) == (1, 0)
+
+
+# -- the training rollout as CUDA graphs (train/graph.py) --------------------
+
+def _train_cfg(tmp_path, attention, attend_to, B=50, T=10, n_query=60):
+    """The flagship's run config (bf16) cut to B rows, T steps and an
+    n_query pool, main phase from epoch 0, under ``attention``; the split
+    mask by ``attend_to`` (None: the fair coin)."""
+    d = tcfg.to_dict(tcfg.load_config(str(
+        Path(__file__).resolve().parents[1] / "checkpoints" / "al1d_200k")))
+    d.update(batch_size=B, T=T, min_T=T, burning_epoch=0, max_epoch=1000,
+             checkpoint=0, load_checkpoint=False, verbose=1000,
+             output_dir=str(tmp_path))
+    d["task"] = dict(d["task"], n_query_init=n_query, attend_to=attend_to)
+    d["encoder"] = dict(d["encoder"], attention_impl=attention)
+    return tcfg.config_from_dict(d)
+
+
+def _train_epochs(cfg, n, graphed):
+    """``n`` epochs of a trainer from the config's seed, through the graphs
+    or (``graphed`` False) through ``train/rollout.py``'s eager steps:
+    [(metrics, gradients, parameters)] after each, the masks drawn, and
+    the calls that captured and replayed."""
+    import logging
+
+    from aline_tpu_torch.train import loop
+    from aline_tpu_torch.train import rollout as eager
+    tr = loop.Trainer(cfg, logger=logging.getLogger("test_torch_cuda"),
+                      device="cuda")
+    orig = loop.rollout
+    masks = []
+
+    def spy(model, batch, *a, **kw):
+        masks.append(tuple(batch.target_mask.tolist()))
+        return (orig if graphed else eager.rollout)(model, batch, *a, **kw)
+
+    loop.rollout = spy
+    metrics.set_tracing(True)
+    try:
+        out = []
+        for e in range(n):
+            m = tr.train_epoch(e)
+            out.append(({k: torch.as_tensor(v).clone() for k, v in m.items()},
+                        {k: p.grad.clone()
+                         for k, p in tr.model.named_parameters()},
+                        {k: p.detach().clone()
+                         for k, p in tr.model.named_parameters()}))
+        spans = metrics.collect()
+    finally:
+        loop.rollout = orig
+        metrics.set_tracing(False)
+        metrics.collect()
+    counts = tuple(sum(s.counts.get(c, 0) for s in spans)
+                   for c in ("train.graph_captures", "train.graph_replays"))
+    return out, masks, counts
+
+
+@pytest.mark.parametrize("attention", ["compact", "flash"])
+@pytest.mark.parametrize("attend_to", ["data", "theta", None])
+def test_graphed_training_equals_eager_bitwise(cuda, tmp_path, attention,
+                                               attend_to):
+    """From one state, epochs through the graph path against eager epochs:
+    the losses, gradients and parameters bit for bit (None: the fair coin,
+    so that two keys under compact take turns in one pool)."""
+    n = 4 if attend_to else 6
+    cfg = _train_cfg(tmp_path, attention, attend_to)
+    got, masks, (captures, replays) = _train_epochs(cfg, n, True)
+    want, want_masks, eager_counts = _train_epochs(cfg, n, False)
+    assert masks == want_masks
+    assert eager_counts == (0, 0)
+    variants = len(set(masks))
+    assert variants == (1 if attend_to else 2)
+    keys = 1 if attention == "flash" else variants
+    # a key's first epoch eager, its second captures and replays
+    assert (captures, replays) == (keys, n - keys)
+    for e, (g, w) in enumerate(zip(got, want)):
+        for part, name in zip(range(3), ("metrics", "grads", "params")):
+            for k in w[part]:
+                assert torch.equal(g[part][k], w[part][k]), (e, name, k)
+
+
+def test_graphed_flash_epoch_counts_its_launches(cuda, tmp_path):
+    """A replayed flash epoch at T=30 counts what an eager one counts: 60
+    plans, 180 forwards (90 under train.backward), 90 backwards, in the
+    counters and in ``LAUNCHES``; its designs are the rollout's own."""
+    import logging
+
+    from aline_tpu_torch.train import loop
+    from aline_tpu_torch.train import rollout as eager
+    from aline_tpu_torch.utils.graphs import counted_apart
+    cfg = _train_cfg(tmp_path, "flash", "data", B=8, T=30, n_query=50)
+    tr = loop.Trainer(cfg, logger=logging.getLogger("test_torch_cuda"),
+                      device="cuda")
+    tr.train_epoch(0)                        # eager
+    tr.train_epoch(1)                        # the capture and a replay
+    orig, calls = loop.rollout, []
+
+    def spy(*a, **kw):
+        ro = orig(*a, **kw)
+        # the eager reference before the update moves the model, its
+        # launches and counts kept out of the epoch's
+        with torch.no_grad(), counted_apart():
+            calls.append((ro, eager.rollout(*a, **kw)))
+        return ro
+
+    before = dict(_build.LAUNCHES)
+    loop.rollout = spy
+    metrics.set_tracing(True)
+    try:
+        tr.train_epoch(2)
+        torch.cuda.synchronize()
+        spans = metrics.collect()
+    finally:
+        loop.rollout = orig
+        metrics.set_tracing(False)
+        metrics.collect()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"flash_plan": 60, "flash_attn_fwd_bf16": 180,
+                        "flash_attn_bwd_bf16": 90}
+
+    def total(name, where=None):
+        return sum(s.counts.get(name, 0) for s in spans
+                   if where is None or s.name == where)
+
+    assert (total("train.graph_captures"), total("train.graph_replays")) \
+        == (0, 1)
+    assert [total(c) for c in ("flash.plan", "flash.fwd", "flash.bwd")] \
+        == [60, 180, 90]
+    assert [total(c, "train.backward")
+            for c in ("flash.plan", "flash.fwd", "flash.bwd")] == [30, 90, 90]
+    (ro, want), = calls
+    assert torch.equal(ro.idx, want.idx)
+    assert torch.equal(ro.nll_pred, want.nll_pred)
