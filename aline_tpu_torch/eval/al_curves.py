@@ -21,16 +21,20 @@ result) and captures it; a later call copies its inputs into the buffers,
 replays the graph and returns clones of the graph's outputs, which the
 next replay overwrites.  Graph and eager rollouts launch the same kernels
 in the same order on the same inputs: their results are the same bits.
-The graphs of one model are kept at a time, while it lives: a capture
-for another model drops them, since their pool keeps the memory of their
-largest rollout.  All graphs of a model draw their memory from that one
-pool; a replay's outputs are cloned before any other graph runs, which is
-what makes the sharing safe (one thread at a time).  CPU tensors, and the
-``random`` strategy, run the steps eagerly.
+The graphs of one model are kept at a time, while it lives
+(``utils/graphs.py`` ``inference_graphs``, shared with ``eval/live.py``'s
+trials): a capture for another model drops them, since their pool keeps
+the memory of their largest rollout.  All graphs of a model draw their
+memory from that one pool; a replay's outputs are cloned before any
+other graph runs, which is what makes the sharing safe (one thread at a
+time).  CPU tensors, and the ``random`` strategy, run the steps eagerly.
+
+A step's body (``rollout_step``: the forward, the choice, ``select_design``)
+and the posterior's curves (``posterior_curves``) are those of a live
+trial too.
 """
 from __future__ import annotations
 
-import weakref
 from typing import Dict, Optional
 
 import torch
@@ -39,11 +43,11 @@ from aline_tpu_torch.distributions.gmm import gmm_log_prob, gmm_variance
 from aline_tpu_torch.eval.metrics import compute_rmse
 from aline_tpu_torch.tasks.base import Batch, init_ctx_idx, select_design
 from aline_tpu_torch.utils.graphs import (
-    Counted,
+    Captured,
     addresses,
     batch_form,
-    counted_apart,
     form,
+    inference_graphs,
     side_stream,
     tensor_inputs,
 )
@@ -103,21 +107,14 @@ def _rollout(model, batch: Batch, target_weights, generator, T, strategy,
     """The rollout's steps, eagerly, with ``fixed_by_batch``'s values."""
     b = init_ctx_idx(batch, min(n_ctx0 + T, batch.n_points))
     target_vals = b.target_all[..., 0]
-    if target_weights is None:
-        m = b.target_mask.float()
-        target_weights = m / torch.clamp(m.sum(), min=1.0)
-
-    def posterior_metrics(out):
-        po = out.posterior_out
-        ll = gmm_log_prob(target_vals, po.mixture_means, po.mixture_stds,
-                          po.mixture_weights)
-        lp = torch.sum(ll * target_weights[None], dim=-1)
-        rmse = compute_rmse(target_vals, po.mixture_means, po.mixture_stds,
-                            po.mixture_weights,
-                            target_weights=target_weights)
-        return lp, rmse
+    target_weights = weights_of(b, target_weights)
+    lps, rmses, idxs = [], [], []
 
     def choose(out, b):
+        lp, rmse = posterior_curves(out.posterior_out, target_vals,
+                                    target_weights)
+        lps.append(lp)
+        rmses.append(rmse)
         pool = b.query_mask
         if strategy == "aline":
             return out.design_out.idx
@@ -131,23 +128,16 @@ def _rollout(model, batch: Batch, target_weights, generator, T, strategy,
             pool, var, torch.full((), -torch.inf, device=var.device)),
             dim=-1)
 
-    lps, rmses, idxs = [], [], []
     for t in range(T):
         if time_token:
             b = b.replace(t=(T - torch.full((), t, dtype=torch.float32,
                                             device=b.t.device)) / T)
-        out = model(b, training=False, sel_targets=sel_targets)
-        with span("al.choose"):
-            lp, rmse = posterior_metrics(out)
-            idx = choose(out, b)
-        with span("al.select"):
-            b, _, _ = select_design(b, idx)
-        lps.append(lp)
-        rmses.append(rmse)
+        _, idx, b = rollout_step(model, b, sel_targets, choose)
         idxs.append(idx)
     out = model(b, training=False, sel_targets=sel_targets)
     with span("al.choose"):
-        lp, rmse = posterior_metrics(out)
+        lp, rmse = posterior_curves(out.posterior_out, target_vals,
+                                    target_weights)
     B = batch.batch_size
     return {
         "log_prob": torch.stack(lps + [lp], dim=1),
@@ -156,6 +146,40 @@ def _rollout(model, batch: Batch, target_weights, generator, T, strategy,
                 torch.zeros(B, 0, dtype=torch.int64,
                             device=batch.x.device)),
     }
+
+
+def rollout_step(model, b: Batch, sel_targets, choose):
+    """One step of a rollout, and of a live trial (``eval/live.py``): the
+    forward at ``b``, ``choose(out, b)``'s designs [B], and ``b`` with them
+    moved into the context.  Returns (the forward's output, the designs,
+    the next batch)."""
+    out = model(b, training=False, sel_targets=sel_targets)
+    with span("al.choose"):
+        idx = choose(out, b)
+    with span("al.select"):
+        b, _, _ = select_design(b, idx)
+    return out, idx, b
+
+
+def weights_of(batch: Batch, target_weights) -> torch.Tensor:
+    """The targets' weights of the curves: ``target_weights``, else the
+    batch's target mask normalised."""
+    if target_weights is not None:
+        return target_weights
+    m = batch.target_mask.float()
+    return m / torch.clamp(m.sum(), min=1.0)
+
+
+def posterior_curves(po, target_vals: torch.Tensor,
+                     target_weights: torch.Tensor):
+    """(targeted log-prob [B], weighted RMSE [B]) of the targets' values
+    [B, n_target] under the GMM ``po`` (``posterior_out``)."""
+    ll = gmm_log_prob(target_vals, po.mixture_means, po.mixture_stds,
+                      po.mixture_weights)
+    lp = torch.sum(ll * target_weights[None], dim=-1)
+    rmse = compute_rmse(target_vals, po.mixture_means, po.mixture_stds,
+                        po.mixture_weights, target_weights=target_weights)
+    return lp, rmse
 
 
 def graph_key(model, batch: Batch, target_weights, T: int, strategy: str,
@@ -171,63 +195,23 @@ def graph_key(model, batch: Batch, target_weights, T: int, strategy: str,
             form(target_weights), addresses(model))
 
 
-class _RolloutGraph:
-    """One rollout captured as a CUDA graph: static copies of its inputs,
-    the graph, its static outputs, and the kernel launches and counts
-    (``utils/graphs.py`` ``Counted``) that a replay runs."""
-
-    def __init__(self, inputs: Dict[str, torch.Tensor]):
-        self.inputs = {n: t.clone(memory_format=torch.contiguous_format)
-                       for n, t in inputs.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        self.outputs: Dict[str, torch.Tensor] = {}
-        self.counted = Counted()
-
-    def capture(self, run, stream, pool) -> Dict[str, torch.Tensor]:
-        """Run ``run(static inputs)`` eagerly on ``stream``, then capture
-        it there into ``pool``; return the eager pass's outputs."""
-        here = torch.cuda.current_stream()
-        stream.wait_stream(here)
-        with torch.cuda.stream(stream):
-            first = run(self.inputs)
-        here.wait_stream(stream)
-        for t in first.values():          # used on this stream from here on
-            t.record_stream(here)
-        # ``torch.cuda.graph`` empties the allocator's cache first: no block
-        # the eager pass left cached can be freed while the capture runs
-        with counted_apart() as self.counted, \
-                torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.outputs = run(self.inputs)
-        return first
-
-    def replay(self, inputs: Dict[str, torch.Tensor]
-               ) -> Dict[str, torch.Tensor]:
-        for n, t in inputs.items():
-            self.inputs[n].copy_(t)
-        self.graph.replay()
-        self.counted.add()
-        return {n: t.clone() for n, t in self.outputs.items()}
-
-
-# model → (its graphs' memory pool, {graph_key: _RolloutGraph}), for one
-# model at a time; a pool dies with its graphs, and its id is never used
-# again
-_graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# model → its rollouts' graphs (``utils/graphs.py`` ``Graphs``, keyed by
+# ``graph_key``), one model at a time; ``eval/live.py``'s trials share it
+_graphs = inference_graphs
 
 
 def _graphed(model, batch: Batch, target_weights, args):
     """The rollout through the graph of its key: replayed, or captured
     on the key's first call."""
     key = graph_key(model, batch, target_weights, *args)
-    if model not in _graphs:
-        _graphs.clear()
-        _graphs[model] = (torch.cuda.graph_pool_handle(), {})
-    pool, graphs = _graphs[model]
+    graphs = _graphs.of(model)
     inputs = tensor_inputs(batch, target_weights=target_weights)
-    g = graphs.get(key)
+    g = graphs.graphs.get(key)
     if g is not None:
         count("al.graph_replays", 1)
-        return g.replay(inputs)
+        g.load(inputs)
+        g.replay()
+        return {n: t.clone() for n, t in g.outputs.items()}
 
     def run(static):
         tw = static.get("target_weights")
@@ -235,9 +219,9 @@ def _graphed(model, batch: Batch, target_weights, args):
                              if n != "target_weights"})
         return _rollout(model, b, tw, None, *args)
 
-    g = _RolloutGraph(inputs)
-    first = g.capture(run, side_stream(batch.x.device), pool)
-    graphs[key] = g
+    g = Captured(inputs)
+    first = g.capture(run, side_stream(batch.x.device), graphs.handle)
+    graphs.graphs[key] = g
     count("al.graph_captures", 1)
     return first
 

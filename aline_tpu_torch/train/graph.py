@@ -61,7 +61,6 @@ replay's outputs and gradients are cloned before the next replay.
 """
 from __future__ import annotations
 
-import weakref
 from typing import Dict, Optional
 
 import torch
@@ -73,6 +72,9 @@ from aline_tpu_torch.train.rollout import RolloutOutputs
 from aline_tpu_torch.utils.debug import guard_active
 from aline_tpu_torch.utils.graphs import (
     Counted,
+    GraphCache,
+    Graphs,
+    Static,
     addresses,
     batch_form,
     counted_apart,
@@ -103,26 +105,24 @@ def graph_key(model, batch: Batch, T: int, w_query, w_pred, gumbel, *,
             addresses(model))
 
 
-class _Pool:
-    """One model's graphs ({key: _TrainGraph}), their memory pool, the keys
-    seen once (run eagerly), and the number of forwards replayed from the
-    pool (``turn``)."""
+class _Pool(Graphs):
+    """One model's graphs ({key: _TrainGraph}) and their memory pool
+    (``utils/graphs.py`` ``Graphs``), the keys seen once (run eagerly), and
+    the number of forwards replayed from the pool (``turn``)."""
 
     def __init__(self):
-        self.handle = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[tuple, "_TrainGraph"] = {}
+        super().__init__()
         self.seen: set = set()
         self.turn = 0
 
 
-class _TrainGraph:
+class _TrainGraph(Static):
     """One key's rollout as a forward and a backward CUDA graph: static
-    inputs, outputs, gradient buffers and gradients, and what each graph's
-    capture counted."""
+    inputs (``utils/graphs.py`` ``Static``), outputs, gradient buffers and
+    gradients, and what each graph's capture counted."""
 
     def __init__(self, inputs: Dict[str, torch.Tensor], params: tuple):
-        self.inputs = {n: t.clone(memory_format=torch.contiguous_format)
-                       for n, t in inputs.items()}
+        super().__init__(inputs)
         self.params = params
         self.fwd = torch.cuda.CUDAGraph()
         self.bwd = torch.cuda.CUDAGraph()
@@ -147,8 +147,7 @@ class _TrainGraph:
 
     def replay(self, inputs: Dict[str, torch.Tensor],
                pool: _Pool) -> RolloutOutputs:
-        for n, t in inputs.items():
-            self.inputs[n].copy_(t)
+        self.load(inputs)
         diff = _Replayed.apply(self, pool, *self.params)
         return self.outputs._replace(
             **dict(zip(DIFFERENTIABLE, diff)),
@@ -186,7 +185,7 @@ class _Replayed(torch.autograd.Function):
 
 
 # model → its _Pool, for one model at a time
-_pools: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_pools = GraphCache(_Pool)
 
 
 def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
@@ -202,10 +201,7 @@ def rollout(model, batch: Batch, T: int, w_query: torch.Tensor,
     if not engages(batch, gumbel):
         return eager.rollout(model, batch, T, w_query, w_pred, gumbel, **kw)
     key = graph_key(model, batch, T, w_query, w_pred, gumbel, **kw)
-    if model not in _pools:
-        _pools.clear()
-        _pools[model] = _Pool()
-    pool = _pools[model]
+    pool = _pools.of(model)
     inputs = tensor_inputs(batch, gumbel=gumbel, w_query=w_query,
                            w_pred=w_pred)
     g = pool.graphs.get(key)

@@ -51,7 +51,7 @@ import pytest
 import torch
 
 from aline_tpu_torch import config as tcfg
-from aline_tpu_torch.eval import al_curves, eig
+from aline_tpu_torch.eval import al_curves, eig, live
 from aline_tpu_torch.ops import _build
 from aline_tpu_torch.ops import eig_fold_kernel as efk
 from aline_tpu_torch.ops import flash_attention as fa
@@ -68,7 +68,11 @@ from aline_tpu_torch.tasks.base import Task
 from aline_tpu_torch.tasks.ces import CESTask
 from aline_tpu_torch.tasks.location_finding import HiddenLocation
 from aline_tpu_torch.utils import metrics
-from aline_tpu_torch.utils.serialization import AL1D_200K_PARAMS, load_model
+from aline_tpu_torch.utils.serialization import (
+    AL1D_200K_PARAMS,
+    BANKED_RUNS,
+    load_model,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -1061,6 +1065,106 @@ def test_rollout_graphs_kept_for_one_model_at_a_time(cuda):
     _same_bits(got, _eager(second, batch, 30, "aline"))
     _, captures, replays = _counted(first, batch, 30, "aline")
     assert (captures, replays) == (1, 0)
+
+
+# -- the live session as one CUDA graph a trial (eval/live.py) --------------
+
+PSYCH_MASKS = ([True, True, False, False], [False, False, True, True],
+               [True, True, True, True])
+
+
+def _psych():
+    run_dir = Path(__file__).resolve().parents[1] / "checkpoints" \
+        / "psych_100k"
+    return load_model(run_dir, BANKED_RUNS["psych_100k"][1], "cuda")
+
+
+def _session(model, batch, T, eager=False):
+    """A session at the eval protocol's shape fed the batch's outcomes;
+    ``eager``: its steps run without a graph (``live._trial`` on its own
+    state).  Returns (designs [B, T], the posterior, the counters of its
+    spans and of the span open around it, where the posterior's replay
+    counts)."""
+    metrics.set_tracing(True)
+    try:
+        with metrics.span("experiment"):
+            s = live.LiveExperiment(model, batch, T)
+            if eager:
+                s._cuda = False
+                s._st = {n: t.clone() for n, t in s._st.items()}
+            y = batch.y.cpu()
+            rows = torch.arange(batch.batch_size)
+            idxs = []
+            for _ in range(T):
+                idx, _ = s.propose()
+                idx = idx.cpu()
+                s.observe(y[rows, idx])
+                idxs.append(idx)
+            post = s.posterior()
+        spans = metrics.collect()
+    finally:
+        metrics.set_tracing(False)
+        metrics.collect()
+    counted = {n: sum(sp.counts.get(n, 0) for sp in spans)
+               for n in ("live.trials", "live.graph_captures",
+                         "live.graph_replays")}
+    return torch.stack(idxs, 1), post, counted
+
+
+def _same_posterior(a, b):
+    for got, want in zip((a.gmm.mixture_means, a.gmm.mixture_stds,
+                          a.gmm.mixture_weights, a.idx, a.x, a.y),
+                         (b.gmm.mixture_means, b.gmm.mixture_stds,
+                          b.gmm.mixture_weights, b.idx, b.x, b.y)):
+        assert torch.equal(got, want)
+
+
+def test_graphed_session_equals_eager_and_the_rollout_bitwise(cuda):
+    cfg, model = _psych()
+    task = build_task(cfg.task)
+    for seed, mask in zip((1, 2, 3), PSYCH_MASKS):
+        batch = task.sample_batch(torch.Generator(device="cuda").manual_seed(
+            seed), 1, n_query=300).replace(
+                target_mask=torch.tensor(mask, device="cuda"))
+        got_idx, got, _ = _session(model, batch, 30)
+        want_idx, want, _ = _session(model, batch, 30, eager=True)
+        assert torch.equal(got_idx, want_idx)
+        _same_posterior(got, want)
+        roll = al_curves.al_rollout_curves(model, batch, 30)
+        assert torch.equal(got_idx, roll["idx"].cpu())
+        lp, rmse = al_curves.posterior_curves(
+            got.gmm, batch.target_all[..., 0], got.target_weights)
+        assert torch.equal(lp, roll["log_prob"][:, -1])
+        assert torch.equal(rmse, roll["rmse"][:, -1])
+
+
+def test_three_masks_capture_three_graphs_then_replay(cuda):
+    cfg, model = _psych()
+    task = build_task(cfg.task)
+    batch = task.sample_batch(torch.Generator(device="cuda").manual_seed(5),
+                              1, n_query=300)
+    T = 30
+    for rnd in range(2):
+        for mask in PSYCH_MASKS:
+            b = batch.replace(target_mask=torch.tensor(mask, device="cuda"))
+            _, _, counted = _session(model, b, T)
+            captures = 1 if rnd == 0 else 0
+            assert counted == {"live.trials": T,
+                               "live.graph_captures": captures,
+                               "live.graph_replays": T + 1 - captures}
+    graphs = al_curves._graphs.of(model).graphs
+    assert sum(k[0] == "live" for k in graphs) == 3
+
+
+def test_a_session_whose_graph_was_taken_is_refused(cuda):
+    cfg, model = _psych()
+    batch = build_task(cfg.task).sample_batch(
+        torch.Generator(device="cuda").manual_seed(6), 1, n_query=300)
+    first = live.LiveExperiment(model, batch, 4)
+    first.propose()
+    live.LiveExperiment(model, batch, 4)
+    with pytest.raises(RuntimeError, match="taken"):
+        first.observe(1.0)
 
 
 # -- the training rollout as CUDA graphs (train/graph.py) --------------------
